@@ -1,0 +1,201 @@
+"""Launch wrappers of the Point CUDA kernels (port of the launch side of
+``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``).
+
+Each wrapper checks device, dtype, shape and the unit inner stride of its
+inputs, allocates outputs with ``torch.empty``, launches on
+``torch.cuda.current_stream()`` through the ``ctypes`` library of
+``_build``, checks the launch's return code (``cudaGetLastError``) and
+adds one to its entry in :data:`LAUNCHES`.  Inputs on the CPU go to the
+kernel's plain PyTorch version (``point_kernel``); on a CUDA tensor the
+wrapper launches or raises, it never falls back.
+
+The kernels read the public ``(B, nq)`` row-major tensors in place, with
+the row strides passed in: unlike the JAX wrapper (``lane_env.py:245``),
+which transposed to put the batch on the TPU's lanes, there is no
+transpose here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+
+from . import _build
+from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
+                           point_rollout_plain, point_step_plain)
+
+# Launches of each kernel in this process, counted where the wrapper
+# launches it; a run sets them to 0 and reads them back to show that a
+# path went through the kernels.
+LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class PointParams(ctypes.Structure):
+    """The scalars of one plain Point maze, passed by value (mirrors
+    ``struct PointParams`` in ``csrc/point_lane.cu``, field for field)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "com_offset", "vel_limit",
+        "margin", "lam", "mu", "edecay",
+        "restitution", "radius",
+        "inv_m", "arm_over_m", "inv_ip", "coef",
+        "tip0x", "tip0y", "tip1x", "tip1y",
+        "penalty", "inv_scale",
+    )] + [("reward_type", ctypes.c_int), ("episode_limit", ctypes.c_int)]
+
+
+def point_params(ks: PointKernelSpec) -> PointParams:
+    """The struct of ``ks``; derived constants are computed as the plain
+    versions compute them (Python double, rounded once to float32)."""
+    m, a, ip = ks.body_mass, ks.couple_arm, ks.spin_inertia
+    (t0x, t0y), (t1x, t1y) = ks.arrow_tips
+    return PointParams(
+        dt=ks.dt, com_offset=ks.com_offset, vel_limit=ks.vel_limit,
+        margin=ks.eject_margin, lam=ks.eject_lam, mu=ks.eject_mu,
+        edecay=float(np.exp(-ks.eject_lam * ks.dt)),
+        restitution=ks.restitution, radius=ks.radius,
+        inv_m=1.0 / m, arm_over_m=a / m, inv_ip=1.0 / ip, coef=a / (m * ip),
+        tip0x=t0x, tip0y=t0y, tip1x=t1x, tip1y=t1y,
+        penalty=ks.penalty,
+        inv_scale=float(np.float32(1.0) / np.float32(ks.scale)),
+        reward_type=REWARD_TYPES[ks.reward_type],
+        episode_limit=ks.episode_limit,
+    )
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load()
+    lib.mmt_point_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _I, _P]             # params, B, stream
+    lib.mmt_point_step.restype = _I
+    lib.mmt_point_rollout.argtypes = [
+        _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward sum, episodes
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _I, _I, ctypes.c_uint, _P]  # params, B, steps, seed, stream
+    lib.mmt_point_rollout.restype = _I
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the spec on {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    if x.dim() == 2 and x.stride(1) != 1 or x.dim() == 1 and x.stride(0) != 1:
+        raise ValueError(f"{name} needs a unit inner stride, got {x.stride()}")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {rc}")
+
+
+def _tables(ks: PointKernelSpec):
+    return (ks.walls.data_ptr(), ks.walls.shape[0], ks.goals.data_ptr(),
+            ks.goals.shape[0])
+
+
+class PointStep:
+    """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
+    terminated)``: one Point step with explicit actions and no reset (the
+    counterpart of ``LaneEnvKernel.build_step``)."""
+
+    def __init__(self, ks: PointKernelSpec, num_envs: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.params = point_params(ks)
+
+    def __call__(self, qpos, qvel, t, actions) -> Tensors5:
+        B, dev = self.num_envs, self.ks.walls.device
+        _check("qpos", qpos, torch.float32, (B, 3), dev)
+        _check("qvel", qvel, torch.float32, (B, 3), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        _check("actions", actions, torch.float32, (B, 2), dev)
+        if dev.type == "cpu":
+            return point_step_plain(self.ks, qpos, qvel, t, actions)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no Point step kernel for device {dev}")
+        q_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        reward = torch.empty((B,), dtype=torch.float32, device=dev)
+        term = torch.empty((B,), dtype=torch.bool, device=dev)
+        rc = _lib().mmt_point_step(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
+            qpos.stride(0), qvel.stride(0), actions.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            reward.data_ptr(), term.data_ptr(), *_tables(self.ks),
+            self.params, B, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "point_step")
+        LAUNCHES["point_step"] += 1
+        return q_out, v_out, t_out, reward, term
+
+
+class PointRollout:
+    """``rollout(qpos, qvel, t, seed) -> (qpos', qvel', t', reward_sum,
+    episodes)``: the fused random-policy rollout with auto-reset (the
+    counterpart of ``LaneEnvKernel.build_rollout``).  The two sums are
+    0-d tensors, summed outside the kernel as the JAX wrapper sums them."""
+
+    def __init__(self, ks: PointKernelSpec, num_envs: int,
+                 num_steps: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.num_steps = num_steps
+        self.params = point_params(ks)
+
+    def per_env(self, qpos, qvel, t, seed: int) -> Tensors5:
+        """The rollout with per-env reward sums ``(B,)`` float32 and
+        episode counts ``(B,)`` int32."""
+        B, dev = self.num_envs, self.ks.walls.device
+        _check("qpos", qpos, torch.float32, (B, 3), dev)
+        _check("qvel", qvel, torch.float32, (B, 3), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        seed = int(seed)
+        if not 0 <= seed < 2 ** 32:
+            raise ValueError(f"seed must fit in 32 bits, got {seed}")
+        if dev.type == "cpu":
+            return point_rollout_plain(self.ks, qpos, qvel, t, seed,
+                                       self.num_steps)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no Point rollout kernel for device {dev}")
+        q_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        rew = torch.empty((B,), dtype=torch.float32, device=dev)
+        eps = torch.empty((B,), dtype=torch.int32, device=dev)
+        rc = _lib().mmt_point_rollout(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
+            qpos.stride(0), qvel.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            rew.data_ptr(), eps.data_ptr(), *_tables(self.ks),
+            self.params, B, self.num_steps, seed,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "point_rollout")
+        LAUNCHES["point_rollout"] += 1
+        return q_out, v_out, t_out, rew, eps
+
+    def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
+        q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)
+        return q, v, tt, torch.sum(rew), torch.sum(eps)

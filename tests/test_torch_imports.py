@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: no JAX, no gymnasium, no JAX package.
+
+The card machine has torch but neither JAX nor gymnasium, so the port and
+``chip_smoke.py`` must import neither.  Also: the device rule of the entry
+points, and the sources' build rules (no ``torch.utils.cpp_extension``, no
+``--use_fast_math``).
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import mujoco_maze_tpu_torch as mmt  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "mujoco_maze_tpu_torch"
+
+_BLOCKED_IMPORTS = """
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["gymnasium"] = None
+sys.modules["mujoco_maze_tpu"] = None
+"""
+
+
+def _run(code: str, cwd=REPO) -> subprocess.CompletedProcess:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_port_runs_without_jax_or_gymnasium():
+    proc = _run(_BLOCKED_IMPORTS + """
+import torch
+import mujoco_maze_tpu_torch as mmt
+from mujoco_maze_tpu_torch import convert
+from mujoco_maze_tpu_torch.ops import make_fast_rollout
+env = mmt.make_batched("PointUMaze-v0", 8, device="cpu")
+state, obs = env.reset(0)
+policy = env.random_policy()
+gen = torch.Generator().manual_seed(0)
+for _ in range(3):
+    res = env.step(state, policy(obs, gen))
+    state, obs = res.state, res.obs
+make_fast_rollout(env, 2)(state.qpos, state.qvel, state.t, 1)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
+                                         "mujoco_maze_tpu"))
+print("LOADED", loaded, tuple(obs.shape), int(state.t.max()))
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED [] (8, 7) 3" in proc.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result without CUDA, with
+    JAX blocked (so it cannot reach for it)."""
+    proc = _run(_BLOCKED_IMPORTS + """
+import runpy
+runpy.run_path("chip_smoke.py", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "kernels" not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the repo,
+    the script fails and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=""))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["make_spec", "make_batched"])
+def test_entry_points_refuse_to_fall_back_to_cpu(entry, monkeypatch):
+    """device=None means CUDA: without a card the entry point raises
+    instead of carrying on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ("PointUMaze-v0",) if entry == "make_spec" else ("PointUMaze-v0", 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(mmt, entry)(*args)
+    with pytest.raises(RuntimeError):
+        getattr(mmt, entry)(*args, device="cuda")
+    assert getattr(mmt, entry)(*args, device="cpu") is not None
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_keep_the_port_rules(path):
+    text = path.read_text()
+    for banned in ("import jax", "from jax", "import gymnasium",
+                   "from mujoco_maze_tpu ", "from mujoco_maze_tpu.",
+                   "import mujoco_maze_tpu\n", "import mujoco_maze_tpu.",
+                   "cpp_extension", "use_fast_math", "torch/extension.h"):
+        assert banned not in text, f"{path.name} contains {banned!r}"
