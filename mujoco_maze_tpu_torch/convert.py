@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .envs.env import EnvState
+from .ops.ant_kernel import AntKernelSpec
 from .ops.point_kernel import PointKernelSpec
 
 
@@ -43,9 +44,14 @@ def to_numpy(state: EnvState) -> Dict[str, Optional[np.ndarray]]:
     }
 
 
-def lowered_spec(ks: PointKernelSpec) -> Dict[str, object]:
-    """The kernel data of ``ks`` under the field names of the JAX package's
-    ``point_pallas.PointKernelSpec``, as numpy arrays and Python scalars."""
+def lowered_spec(ks) -> Dict[str, object]:
+    """The kernel data of ``ks`` under the field names of the JAX package:
+    ``point_pallas.PointKernelSpec`` for a :class:`PointKernelSpec`;
+    ``ant_math.AntConsts``, ``ant_math.AntWorld`` and
+    ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`.  Numpy
+    arrays (float32 as the kernels read them) and Python scalars."""
+    if isinstance(ks, AntKernelSpec):
+        return _lowered_ant(ks)
     walls = ks.walls.detach().cpu().numpy()
     goals = ks.env_spec.heads.goals
     out: Dict[str, object] = {
@@ -64,3 +70,43 @@ def lowered_spec(ks: PointKernelSpec) -> Dict[str, object]:
                  "arrow_tips"):
         out[name] = getattr(ks, name)
     return out
+
+
+def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
+    body, dof, act = ks.table("body"), ks.table("dof"), ks.table("act")
+    sph, box = ks.table("sph"), ks.table("box")
+    goals = ks.env_spec.heads.goals
+    inertias = np.zeros((len(body), 3, 3), np.float32)
+    for (r, c), col in zip(((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)),
+                           range(14, 20)):
+        inertias[:, r, c] = inertias[:, c, r] = body[:, col]
+    return {
+        # ant_math.AntConsts
+        "masses": body[:, 10], "coms": body[:, 11:14], "inertias": inertias,
+        "armature": dof[:, 0], "damping": dof[:, 1],
+        "hip_range": dof[6, 3:5], "ankle_ranges": dof[7::2, 3:5],
+        "gear": act[0, 1], "ctrl_hi": act[0, 3],
+        "act_dofadr": act[:, 0].astype(np.int64), "timestep": ks.timestep,
+        "gravity": ks.gravity,
+        # ant_math.AntWorld (the test spheres that meet the world)
+        "box_center": box[:, :3], "box_half": box[:, 3:6],
+        "box_margin": box[:, 6],
+        "floor_margin": float(ks.env_spec.contact_set.floor_margin),
+        "sph_body": sph[:, 0].astype(np.int64), "sph_local": sph[:, 1:4],
+        "sph_radius": sph[:, 4], "sph_margin": sph[:, 5],
+        "sph_solimp": sph[:, 8:11], "friction": sph[0, 7],
+        "solimp": sph[0, 8:11], "solref_tc": sph[0, 11],
+        "n_near_boxes": ks.n_near,
+        # ant_pallas.AntEnvKernelSpec
+        "nq": len(ks.table("qpos0")[0]), "nv": len(dof),
+        "qpos0": ks.table("qpos0")[0],
+        "goal_pos": goals.pos.cpu().numpy(),
+        "goal_dim_mask": goals.dim_mask.cpu().numpy(),
+        "goal_threshold": goals.threshold.cpu().numpy(),
+        "goal_scale": goals.reward_scale.cpu().numpy(),
+        "goal_valid": goals.valid.cpu().numpy(),
+        "reward_type": ks.reward_type, "penalty": ks.penalty,
+        "scale": ks.scale, "inner_scale": ks.inner_scale,
+        "frame_skip": ks.frame_skip, "episode_limit": ks.episode_limit,
+        "solver_iters": ks.solver_iters,
+    }

@@ -50,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 struct PointParams {
   float dt, com_offset, vel_limit;
   float margin, lam, mu, edecay;        // wall-contact ejection
@@ -312,27 +314,6 @@ __global__ void point_step_kernel(
   term[i] = done;
 }
 
-// Philox4x32-10 (Salmon et al., SC'11), the same stream as
-// ops/point_kernel.py philox4x32.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// U(lo, hi) from the top 24 bits, as lane_env.uniform (lane_env.py:40).
-__device__ __forceinline__ float uniform24(uint32_t bits, float lo, float hi) {
-  const float u = (float)(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
-  return lo + u * (hi - lo);
-}
-
 __global__ void point_rollout_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, int q_stride, int v_stride,
@@ -352,23 +333,23 @@ __global__ void point_rollout_kernel(
   int t = t_in[i];
   float rew_sum = 0.f;
   int eps = 0;
-  const uint2 key = make_uint2(seed, 0u);
   for (int s = 0; s < num_steps; ++s) {
     // counter (env, step, block, 0): actions, then the reset draws
-    const uint4 b0 = philox4x32_10(make_uint4((uint32_t)i, (uint32_t)s, 0u, 0u), key);
-    const uint4 b1 = philox4x32_10(make_uint4((uint32_t)i, (uint32_t)s, 1u, 0u), key);
+    const uint4 b0 = mmt::philox_block((uint32_t)i, (uint32_t)s, 0u, seed);
+    const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
     float rew;
     bool term;
-    point_step(p, tb, q, v, &t, uniform24(b0.x, -1.f, 1.f),
-               uniform24(b0.y, -0.25f, 0.25f), &rew, &term);
+    point_step(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+               mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term);
     // branch-free auto-reset (point_pallas.py sample_reset): q ~ U(+-0.1),
     // v ~ U(0, 0.1), t = 0
     const bool done = term || t >= p.episode_limit;
-    const float qr[3] = {uniform24(b0.z, -0.1f, 0.1f),
-                         uniform24(b0.w, -0.1f, 0.1f),
-                         uniform24(b1.x, -0.1f, 0.1f)};
-    const float vr[3] = {uniform24(b1.y, 0.f, 0.1f), uniform24(b1.z, 0.f, 0.1f),
-                         uniform24(b1.w, 0.f, 0.1f)};
+    const float qr[3] = {mmt::uniform24(b0.z, -0.1f, 0.1f),
+                         mmt::uniform24(b0.w, -0.1f, 0.1f),
+                         mmt::uniform24(b1.x, -0.1f, 0.1f)};
+    const float vr[3] = {mmt::uniform24(b1.y, 0.f, 0.1f),
+                         mmt::uniform24(b1.z, 0.f, 0.1f),
+                         mmt::uniform24(b1.w, 0.f, 0.1f)};
     for (int k = 0; k < 3; ++k) {
       q[k] = done ? qr[k] : q[k];
       v[k] = done ? vr[k] : v[k];

@@ -2,12 +2,12 @@
 ``mujoco_maze_tpu.envs.batched``).
 
 On a CUDA device every step is one launch of the hand-written step kernel
-(``ops.make_fast_step``), followed by the observation and a branch-free
-auto-reset fold in PyTorch — the counterpart of the JAX package's
-``_build_fast_step``.  On the CPU the same wrapper runs the kernel's plain
-PyTorch version.  ``rollout`` and ``rollout_metrics`` are Python loops
-over ``step``; the fused random-policy rollout kernel is
-``ops.make_fast_rollout``.
+(``ops.make_fast_step``: the Point or the Ant kernel), followed by the
+observation and a branch-free auto-reset fold in PyTorch — the
+counterpart of the JAX package's ``_build_fast_step``.  On the CPU the
+same wrapper runs the kernel's plain PyTorch version.  ``rollout`` and
+``rollout_metrics`` are Python loops over ``step``; the fused
+random-policy rollout kernel is ``ops.make_fast_rollout``.
 """
 
 from __future__ import annotations
@@ -51,9 +51,15 @@ class BatchedMazeEnv:
         trunc = tt >= EPISODE_LIMIT
         new_state = EnvState(qpos=qp, qvel=qv, t=tt, goal_pos=state.goal_pos)
         obs = spec._observe(new_state)
+        info = {"position": qp[:, :2]}
+        if not spec.robot.MANUAL_COLLISION:
+            # the inner reward terms, re-derived from the kernel's output
+            # (ant.py:71-73 info parity, as the JAX package's fast step)
+            fwd, cc = spec.robot.inner_reward_terms(
+                state.qpos[:, :2], qp[:, :2], action.to(spec.dtype))
+            info = {"reward_forward": fwd, "reward_ctrl": -cc, **info}
         res = StepResult(state=new_state, obs=obs, reward=rew,
-                         terminated=term, truncated=trunc,
-                         info={"position": qp[:, :2]})
+                         terminated=term, truncated=trunc, info=info)
         if not self.auto_reset:
             return res
         # branch-free fold: every env pays for a reset draw, done envs take it

@@ -35,6 +35,13 @@ class Robot(ABC):
     timestep: float
     obs_dim: int       # robot-only observation length
 
+    # Whether reset zeroes noise on world (non-robot) dofs.
+    ZERO_WORLD_DOFS_ON_RESET: bool = True
+
+    @property
+    def dt(self) -> float:
+        return self.timestep * self.frame_skip
+
     @abstractmethod
     def action_bounds(self) -> Tuple[np.ndarray, np.ndarray]:
         """(low, high) of the action box."""
@@ -42,9 +49,6 @@ class Robot(ABC):
     @abstractmethod
     def init_qpos(self, height_offset: float) -> np.ndarray:
         """Robot qpos0 (world-frame origin at the maze's ROBOT cell)."""
-
-    def init_qvel(self) -> np.ndarray:
-        return np.zeros(self.nv, dtype=np.float64)
 
     @abstractmethod
     def obs_bounds(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -61,3 +65,9 @@ class Robot(ABC):
     @abstractmethod
     def observe(self, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
         """Robot observation ``(B, obs_dim)`` from the full state."""
+
+
+def uniform_from(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``lo + u * (hi - lo)`` in float32, for ``u`` uniform on [0, 1)."""
+    width = float(np.float32(hi) - np.float32(lo))
+    return lo + u * width

@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .base import Robot
+from .base import Robot, uniform_from
 
 
 class PointRobot(Robot):
@@ -127,8 +127,3 @@ class PointRobot(Robot):
     def observe(self, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
         return torch.cat([qpos[:, :3], qvel[:, :3]], dim=1)
 
-
-def uniform_from(u: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """``lo + u * (hi - lo)`` in float32, for ``u`` uniform on [0, 1)."""
-    width = float(np.float32(hi) - np.float32(lo))
-    return lo + u * width

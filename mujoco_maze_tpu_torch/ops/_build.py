@@ -86,3 +86,31 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once."""
     return ctypes.CDLL(str(build()))
+
+
+def ptxas_report() -> str:
+    """What ``ptxas -v`` says of each kernel (registers, stack frame, spill
+    stores and loads, shared memory): the same sources and flags compiled
+    once more into a throwaway library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas_report.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    return proc.stderr
+
+
+if __name__ == "__main__":
+    # python -m mujoco_maze_tpu_torch.ops._build: build, then print the
+    # ptxas report of every kernel
+    import time
+
+    t0 = time.perf_counter()
+    print(f"built {build().name} in {time.perf_counter() - t0:.2f} s")
+    print(ptxas_report())

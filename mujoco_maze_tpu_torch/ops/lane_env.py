@@ -1,13 +1,14 @@
-"""Launch wrappers of the Point CUDA kernels (port of the launch side of
-``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``).
+"""Launch wrappers of the CUDA kernels (port of the launch side of
+``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point and Ant step
+and rollout kernels.
 
 Each wrapper checks device, dtype, shape and the unit inner stride of its
 inputs, allocates outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` through the ``ctypes`` library of
 ``_build``, checks the launch's return code (``cudaGetLastError``) and
 adds one to its entry in :data:`LAUNCHES`.  Inputs on the CPU go to the
-kernel's plain PyTorch version (``point_kernel``); on a CUDA tensor the
-wrapper launches or raises, it never falls back.
+kernel's plain PyTorch version (``point_kernel``, ``ant_kernel``); on a
+CUDA tensor the wrapper launches or raises, it never falls back.
 
 The kernels read the public ``(B, nq)`` row-major tensors in place, with
 the row strides passed in: unlike the JAX wrapper (``lane_env.py:245``),
@@ -25,13 +26,19 @@ import numpy as np
 import torch
 
 from . import _build
+from .ant_kernel import AntKernelSpec, ant_rollout_plain, ant_step_plain
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
 
 # Launches of each kernel in this process, counted where the wrapper
 # launches it; a run sets them to 0 and reads them back to show that a
 # path went through the kernels.
-LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0}
+LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
+                            "ant_step": 0, "ant_rollout": 0}
+# Threads per block of the Ant kernels: one thread per env, and 4096 envs
+# in blocks of 32 spread over 128 of the H100's 132 SMs (PERF.md; a
+# wrapper's ``block`` attribute is what chip_smoke.py varies to measure it).
+ANT_BLOCK = 32
 
 
 def reset_launch_counts() -> None:
@@ -72,6 +79,48 @@ def point_params(ks: PointKernelSpec) -> PointParams:
     )
 
 
+class AntParams(ctypes.Structure):
+    """The scalars of one object-free Ant maze, passed by value (mirrors
+    ``struct AntParams`` in ``csrc/ant_lane.cu``, field for field)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "off_body", "off_dof", "off_act", "off_sph", "off_box", "off_goal",
+        "off_qpos0", "n_floats", "n_sph", "n_box", "n_near", "n_goal",
+        "frame_skip", "solver_iters", "reward_type", "episode_limit",
+    )] + [(name, ctypes.c_float) for name in (
+        "h", "h_half", "dt_outer", "gravity",
+        "ctrl_weight", "inner_scale", "penalty", "inv_scale",
+        "lim_b", "lim_d0", "lim_dd", "lim_width", "lim_kden", "omega",
+    )]
+
+
+def ant_params(ks: AntKernelSpec) -> AntParams:
+    """The struct of ``ks``: constants computed as the engine computes them
+    (Python double, rounded once to float32)."""
+    o = ks.offsets
+    # joint-limit impedance (engine.limit_force): solref (0.02, 1) with the
+    # 2 dt clamp, solimp (0.9, 0.95, 0.001)
+    tc = max(0.02, 2.0 * ks.timestep)
+    d0, dmax, width = 0.9, 0.95, 0.001
+    return AntParams(
+        off_body=o["body"][0], off_dof=o["dof"][0], off_act=o["act"][0],
+        off_sph=o["sph"][0], off_box=o["box"][0], off_goal=o["goals"][0],
+        off_qpos0=o["qpos0"][0], n_floats=ks.packed.numel(),
+        n_sph=o["sph"][1], n_box=o["box"][1], n_near=ks.n_near,
+        n_goal=o["goals"][1], frame_skip=ks.frame_skip,
+        solver_iters=ks.solver_iters,
+        reward_type=REWARD_TYPES[ks.reward_type],
+        episode_limit=ks.episode_limit,
+        h=ks.timestep, h_half=float(np.float32(ks.timestep / 2)),
+        dt_outer=ks.dt_outer, gravity=ks.gravity,
+        ctrl_weight=ks.ctrl_weight, inner_scale=ks.inner_scale,
+        penalty=ks.penalty,
+        inv_scale=float(np.float32(1.0) / np.float32(ks.scale)),
+        lim_b=2.0 / (dmax * tc), lim_d0=d0, lim_dd=dmax - d0,
+        lim_width=width, lim_kden=dmax * dmax * tc * tc, omega=0.6,
+    )
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -91,6 +140,19 @@ def _lib() -> ctypes.CDLL:
         _P, _I, _P, _I,                  # walls, W, goals, G
         PointParams, _I, _I, ctypes.c_uint, _P]  # params, B, steps, seed, stream
     lib.mmt_point_rollout.restype = _I
+    lib.mmt_ant_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P, _P,          # qpos', qvel', t', reward, terminated,
+                                         # active contacts (nullable)
+        _P, AntParams, _I, _I, _P]       # tables, params, B, block, stream
+    lib.mmt_ant_step.restype = _I
+    lib.mmt_ant_rollout.argtypes = [
+        _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
+        _P, _P, _P, _P, _P, _P,          # qpos', qvel', t', reward sum,
+                                         # episodes, active contacts (nullable)
+        _P, AntParams, _I, _I, ctypes.c_uint, _I, _P]
+        # tables, params, B, steps, seed, block, stream
+    lib.mmt_ant_rollout.restype = _I
     return lib
 
 
@@ -195,6 +257,110 @@ class PointRollout:
         _raise_on(rc, "point_rollout")
         LAUNCHES["point_rollout"] += 1
         return q_out, v_out, t_out, rew, eps
+
+    def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
+        q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)
+        return q, v, tt, torch.sum(rew), torch.sum(eps)
+
+
+class AntStep:
+    """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
+    terminated)``: one Ant step with explicit actions and no reset.
+
+    ``count_active=True`` (CUDA only) adds a sixth output: each env's
+    active contacts summed over the step's forward evaluations, the
+    data-dependent part of the kernel's work."""
+
+    def __init__(self, ks: AntKernelSpec, num_envs: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.block = ANT_BLOCK
+        self.params = ant_params(ks)
+
+    def __call__(self, qpos, qvel, t, actions, count_active: bool = False):
+        B, dev = self.num_envs, self.ks.packed.device
+        _check("qpos", qpos, torch.float32, (B, 15), dev)
+        _check("qvel", qvel, torch.float32, (B, 14), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        _check("actions", actions, torch.float32, (B, 8), dev)
+        if dev.type == "cpu":
+            if count_active:
+                raise ValueError("active-contact counts come from the kernel")
+            return ant_step_plain(self.ks, qpos, qvel, t, actions)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no Ant step kernel for device {dev}")
+        q_out = torch.empty((B, 15), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, 14), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        reward = torch.empty((B,), dtype=torch.float32, device=dev)
+        term = torch.empty((B,), dtype=torch.bool, device=dev)
+        active = (torch.empty((B,), dtype=torch.int32, device=dev)
+                  if count_active else None)
+        rc = _lib().mmt_ant_step(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
+            qpos.stride(0), qvel.stride(0), actions.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            reward.data_ptr(), term.data_ptr(),
+            None if active is None else active.data_ptr(),
+            self.ks.packed.data_ptr(), self.params, B, self.block,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "ant_step")
+        LAUNCHES["ant_step"] += 1
+        out = (q_out, v_out, t_out, reward, term)
+        return out + (active,) if count_active else out
+
+
+class AntRollout:
+    """``rollout(qpos, qvel, t, seed) -> (qpos', qvel', t', reward_sum,
+    episodes)``: the fused random-policy rollout of the Ant with
+    auto-reset (ctrl U(±30); reset qpos0 + U(±0.1), quaternion
+    renormalised, qvel 0.1 N(0, 1))."""
+
+    def __init__(self, ks: AntKernelSpec, num_envs: int,
+                 num_steps: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.num_steps = num_steps
+        self.block = ANT_BLOCK
+        self.params = ant_params(ks)
+
+    def per_env(self, qpos, qvel, t, seed: int, count_active: bool = False):
+        """The rollout with per-env reward sums ``(B,)`` float32 and
+        episode counts ``(B,)`` int32 (and, with ``count_active`` on CUDA,
+        the active contacts summed over every forward evaluation)."""
+        B, dev = self.num_envs, self.ks.packed.device
+        _check("qpos", qpos, torch.float32, (B, 15), dev)
+        _check("qvel", qvel, torch.float32, (B, 14), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        seed = int(seed)
+        if not 0 <= seed < 2 ** 32:
+            raise ValueError(f"seed must fit in 32 bits, got {seed}")
+        if dev.type == "cpu":
+            if count_active:
+                raise ValueError("active-contact counts come from the kernel")
+            return ant_rollout_plain(self.ks, qpos, qvel, t, seed,
+                                     self.num_steps)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no Ant rollout kernel for device {dev}")
+        q_out = torch.empty((B, 15), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, 14), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        rew = torch.empty((B,), dtype=torch.float32, device=dev)
+        eps = torch.empty((B,), dtype=torch.int32, device=dev)
+        active = (torch.empty((B,), dtype=torch.int32, device=dev)
+                  if count_active else None)
+        rc = _lib().mmt_ant_rollout(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
+            qpos.stride(0), qvel.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            rew.data_ptr(), eps.data_ptr(),
+            None if active is None else active.data_ptr(),
+            self.ks.packed.data_ptr(), self.params, B, self.num_steps, seed,
+            self.block, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "ant_rollout")
+        LAUNCHES["ant_rollout"] += 1
+        out = (q_out, v_out, t_out, rew, eps)
+        return out + (active,) if count_active else out
 
     def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
         q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)

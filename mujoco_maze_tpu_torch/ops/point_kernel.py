@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..envs.env import EPISODE_LIMIT, EnvState, MazeEnvSpec
+from .philox import philox4x32, philox_words, uniform24  # noqa: F401
 
 Tensors5 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
@@ -60,6 +61,16 @@ class PointKernelSpec(NamedTuple):
     vel_limit: float
 
 
+def goal_table(spec: MazeEnvSpec) -> torch.Tensor:
+    """The goals ``(G, 9)`` float32 as the kernels read them: pos (3),
+    dim_mask (3), threshold², reward scale, valid."""
+    g = spec.heads.goals
+    return torch.cat([
+        g.pos, g.dim_mask, (g.threshold * g.threshold)[:, None],
+        g.reward_scale[:, None], g.valid.to(torch.float32)[:, None],
+    ], dim=1).contiguous()
+
+
 def spec_from_env(spec: MazeEnvSpec) -> PointKernelSpec:
     """Lower a plain-maze Point :class:`MazeEnvSpec` to kernel tables."""
     robot = spec.robot
@@ -71,11 +82,7 @@ def spec_from_env(spec: MazeEnvSpec) -> PointKernelSpec:
         raise ValueError("the Point kernels assume a zero initial state")
     w = spec.walls
     walls = torch.cat([w.p1, w.p2], dim=1)[w.mask].contiguous()
-    g = spec.heads.goals
-    goals = torch.cat([
-        g.pos, g.dim_mask, (g.threshold * g.threshold)[:, None],
-        g.reward_scale[:, None], g.valid.to(torch.float32)[:, None],
-    ], dim=1).contiguous()
+    goals = goal_table(spec)
     task = spec.task
     return PointKernelSpec(
         env_spec=spec,
@@ -114,54 +121,13 @@ def point_step_plain(ks: PointKernelSpec, qpos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Philox4x32-10 in int64 torch arithmetic (the rollout kernel's generator)
+# the rollout kernel's random stream
 # ---------------------------------------------------------------------------
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """High and low 32-bit words of ``a * b`` for a 32-bit constant ``a``
-    and int64 ``b`` in [0, 2^32), without overflowing int64."""
-    p_lo = a * (b & 0xFFFF)                 # < 2^48
-    p_hi = a * (b >> 16)                    # < 2^48
-    low_sum = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (low_sum >> 32), low_sum & _MASK32
-
-
-def philox4x32(counter, key: Tuple[int, int]):
-    """Philox4x32-10 (Salmon et al., SC'11) on four int64 counter words
-    (tensors or ints, values in [0, 2^32)); returns four int64 tensors."""
-    c0, c1, c2, c3 = counter
-    k0, k1 = key
-    for r in range(10):
-        if r:
-            k0 = (k0 + _PHILOX_W[0]) & _MASK32
-            k1 = (k1 + _PHILOX_W[1]) & _MASK32
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def uniform24(bits: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """U(lo, hi) in float32 from the top 24 of 32 random bits
-    (``lane_env.py:40`` of the JAX package)."""
-    u = (bits >> 8).to(torch.float32) * (2.0 ** -24)
-    width = float(np.float32(hi) - np.float32(lo))
-    return lo + u * width
-
-
 def rollout_draws(env_index: torch.Tensor, step: int, seed: int):
     """The eight uniforms an env draws at one rollout step: two actions,
     three qpos and three qvel reset values.  Counter ``(env, step, block,
     0)``, key ``(seed, 0)``, blocks 0 and 1 (four words each)."""
-    key = (seed & _MASK32, 0)
-    zero = torch.zeros_like(env_index)
-    b0 = philox4x32((env_index, zero + step, zero, zero), key)
-    b1 = philox4x32((env_index, zero + step, zero + 1, zero), key)
-    words = b0 + b1
+    words = philox_words(env_index, step, seed, range(2))
     act = torch.stack([uniform24(words[0], -1.0, 1.0),
                        uniform24(words[1], -0.25, 0.25)], dim=1)
     q_r = torch.stack([uniform24(w, -0.1, 0.1) for w in words[2:5]], dim=1)

@@ -16,6 +16,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .envs.env import MazeEnvSpec
+from .models.ant import AntRobot
 from .models.point import PointRobot
 from .tasks.core import MazeTask
 from .tasks.library import TaskRegistry
@@ -26,8 +27,8 @@ MAX_EPISODE_STEPS = 1000  # reference __init__.py:31
 _NOT_PORTED = {
     "Swimmer": "ROADMAP queue 1 item 10",
     "Reacher": "ROADMAP queue 1 item 10",
-    "Ant": "ROADMAP queue 1 item 11",
 }
+_ROBOTS = {"Point": PointRobot, "Ant": AntRobot}
 
 
 @dataclass(frozen=True)
@@ -106,9 +107,10 @@ def make_spec(
             f"{env_id}: the {e.robot_name} robot is not ported yet "
             f"({_NOT_PORTED[e.robot_name]})")
     return MazeEnvSpec(
-        robot=PointRobot(),
+        robot=_ROBOTS[e.robot_name](),
         maze_task=e.task_cls,
         maze_size_scaling=e.maze_size_scaling,
+        inner_reward_scaling=e.inner_reward_scaling,
         maze_height=maze_height,
         restitution_coef=restitution_coef,
         task_kwargs=task_kwargs,

@@ -131,7 +131,7 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
 
 
 def test_object_worlds_and_other_robots_are_queued():
-    for env_id in ("PointPush-v0", "AntUMaze-v0", "SwimmerUMaze-v0"):
+    for env_id in ("PointPush-v0", "AntPush-v0", "SwimmerUMaze-v0"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mmt.make_batched(env_id, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):

@@ -48,13 +48,18 @@ for _ in range(3):
     res = env.step(state, policy(obs, gen))
     state, obs = res.state, res.obs
 make_fast_rollout(env, 2)(state.qpos, state.qvel, state.t, 1)
+ant = mmt.make_batched("AntUMaze-v0", 8, device="cpu")
+a_state, a_obs = ant.reset(0)
+a_state = ant.step(a_state, ant.random_policy()(a_obs, gen)).state
+make_fast_rollout(ant, 1)(a_state.qpos, a_state.qvel, a_state.t, 1)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
                                          "mujoco_maze_tpu"))
-print("LOADED", loaded, tuple(obs.shape), int(state.t.max()))
+print("LOADED", loaded, tuple(obs.shape), int(state.t.max()),
+      tuple(a_obs.shape), int(a_state.t.max()))
 """)
     assert proc.returncode == 0, proc.stderr
-    assert "LOADED [] (8, 7) 3" in proc.stdout
+    assert "LOADED [] (8, 7) 3 (8, 30) 1" in proc.stdout
 
 
 def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
@@ -84,16 +89,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(entry, monkeypatch):
     """device=None means CUDA: without a card the entry point raises
     instead of carrying on quietly on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = ("PointUMaze-v0",) if entry == "make_spec" else ("PointUMaze-v0", 4)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        getattr(mmt, entry)(*args)
-    with pytest.raises(RuntimeError):
-        getattr(mmt, entry)(*args, device="cuda")
-    assert getattr(mmt, entry)(*args, device="cpu") is not None
+    for env_id in ("PointUMaze-v0", "AntUMaze-v0"):
+        args = (env_id,) if entry == "make_spec" else (env_id, 4)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(mmt, entry)(*args)
+        with pytest.raises(RuntimeError):
+            getattr(mmt, entry)(*args, device="cuda")
+        assert getattr(mmt, entry)(*args, device="cpu") is not None
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+             + sorted(PORT.rglob("*.cuh")))
     return files + [REPO / "chip_smoke.py"]
 
 

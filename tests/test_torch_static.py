@@ -71,10 +71,10 @@ def test_static_world_matches(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_make_spec_covers_the_object_free_point_mazes(env_id):
+    """The object-free Point and Ant mazes build; every other ID raises."""
     je, _, _, _, js, _ = _structures(env_id)
-    plain_point = (je.robot_name == "Point" and not js.movable_blocks
-                   and not js.object_balls)
-    if plain_point:
+    object_free = not js.movable_blocks and not js.object_balls
+    if je.robot_name == "Point" and object_free:
         spec = mmt.make_spec(env_id, device="cpu")
         segs = js.wall_segments(0.4)
         np.testing.assert_array_equal(spec.walls.p1.numpy(),
@@ -82,6 +82,11 @@ def test_make_spec_covers_the_object_free_point_mazes(env_id):
         np.testing.assert_array_equal(spec.walls.p2.numpy(),
                                       segs[:, 1].astype(np.float32))
         assert spec.obs_dim == 7
+    elif je.robot_name == "Ant" and object_free:
+        spec = mmt.make_spec(env_id, device="cpu")
+        np.testing.assert_array_equal(spec.contact_set.box_center,
+                                      js.block_pos)
+        assert spec.obs_dim == 30
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             mmt.make_spec(env_id, device="cpu")
