@@ -2,8 +2,10 @@
 
 The same maze environments, stepped in lockstep for thousands of envs on
 one NVIDIA GPU: plain PyTorch around hand-written CUDA kernels
-(``csrc/point_lane.cu``).  It imports torch, numpy and the standard
-library only — never JAX, gymnasium or the JAX package.
+(``csrc/point_lane.cu`` for the Point, ``csrc/ant_lane.cuh`` built as
+``ant_lane.cu`` and ``ant_blocks.cu`` for the Ant).  It imports torch,
+numpy and the standard library only — never JAX, gymnasium or the JAX
+package.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``::
 
@@ -13,7 +15,12 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``::
     state, obs = env.reset(seed=0)
     res = env.step(state, actions)        # one CUDA kernel + auto-reset
 
-This slice covers the object-free Point mazes in float32 (ROADMAP).
+The port covers, in float32, 63 of the 145 registered IDs: the 21
+object-free Point mazes, the 21 object-free Ant mazes and the 21 Ant block
+worlds (movable blocks and the Fall worlds' platforms: AntPush, AntFall,
+AntMultiFall, AntMultiPush, AntMultiPushSmall, AntPushMaze, AntBlockMaze,
+AntBlockCarry).  The other IDs raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from .maze.cells import MazeCell

@@ -7,7 +7,7 @@ arrays, so a caller that has both packages (the tests) can hand a JAX
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -96,9 +96,8 @@ def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
         "sph_radius": sph[:, 4], "sph_margin": sph[:, 5],
         "sph_solimp": sph[:, 8:11], "friction": sph[0, 7],
         "solimp": sph[0, 8:11], "solref_tc": sph[0, 11],
-        "n_near_boxes": ks.n_near,
         # ant_pallas.AntEnvKernelSpec
-        "nq": len(ks.table("qpos0")[0]), "nv": len(dof),
+        "nq": len(ks.table("qpos0")[0]), "nv": len(dof) + ks.n_w,
         "qpos0": ks.table("qpos0")[0],
         "goal_pos": goals.pos.cpu().numpy(),
         "goal_dim_mask": goals.dim_mask.cpu().numpy(),
@@ -108,5 +107,30 @@ def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
         "reward_type": ks.reward_type, "penalty": ks.penalty,
         "scale": ks.scale, "inner_scale": ks.inner_scale,
         "frame_skip": ks.frame_skip, "episode_limit": ks.episode_limit,
-        "solver_iters": ks.solver_iters,
+        "solver_iters": ks.solver_iters, "obs_offset": ks.obs_offset,
     }
+
+
+def lowered_blocks(ks: AntKernelSpec) -> List[Dict[str, object]]:
+    """The movable blocks of an :class:`AntKernelSpec` under the field
+    names of the JAX package's ``ant_math.AntBlock`` (float32 as the
+    kernels read them): base, half, inv_mass, axes, vadr, ranges,
+    falling_zdof, plats; and the pair constants under ``margin`` (the box
+    margin: the pair margin less the sphere's)."""
+    wdof, blk, plat = ks.table("wdof"), ks.table("blk"), ks.table("plat")
+    qpair, sph = ks.table("qpair"), ks.table("sph")
+    n_sph = len(sph)
+    out = []
+    for b, row in enumerate(blk):
+        d0, n = int(row[6]), int(row[7])
+        w = wdof[d0 - 14:d0 - 14 + n]
+        p0 = int(row[9])
+        out.append({
+            "base": row[0:3], "half": row[3:6],
+            "inv_mass": w[0, 2], "axes": w[:, 0].astype(np.int64),
+            "vadr": np.arange(d0, d0 + n),
+            "ranges": w[:, 4:6], "falling_zdof": int(row[8]),
+            "margin": qpair[b * n_sph, 0] - sph[0, 5],
+            "plats": plat[p0:p0 + int(row[10])],
+        })
+    return out

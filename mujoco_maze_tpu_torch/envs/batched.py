@@ -7,7 +7,10 @@ observation and a branch-free auto-reset fold in PyTorch — the
 counterpart of the JAX package's ``_build_fast_step``.  On the CPU the
 same wrapper runs the kernel's plain PyTorch version.  ``rollout`` and
 ``rollout_metrics`` are Python loops over ``step``; the fused
-random-policy rollout kernel is ``ops.make_fast_rollout``.
+random-policy rollout kernel is ``ops.make_fast_rollout``.  In the block
+worlds the observation holds the blocks' centers (``spec.obs_dim`` wide)
+and a reset puts the blocks back at their start, at rest
+(``MazeEnvSpec.reset``).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Lockstep maze environment: spec construction + batched reset/step.
 
-Port of ``mujoco_maze_tpu.envs.env`` for the object-free mazes in float32,
-with the Point robot (manual collision) and the Ant robot (the rigid-body
-engine with contacts).  Construction lowers the grid maze to wall, box and
-goal tables on one device; the step is a function
+Port of ``mujoco_maze_tpu.envs.env`` in float32 for the Point robot
+(manual collision) in object-free mazes, and for the Ant robot (the
+rigid-body engine with contacts) in object-free mazes and in the block
+worlds: movable blocks on slide joints, and the Fall worlds' elevated
+platforms with their falling block.  Construction lowers the grid maze to
+wall, box, block and goal tables on one device; the step is a function
 
     step(state, action) -> StepResult(state', obs, reward, terminated, ...)
 
@@ -16,7 +18,9 @@ residual → wall-contact ejection → arrow-tip contacts → robot wall
 resolution → observation (t already incremented) → task heads.  The Ant
 step is frame_skip RK4 steps of the world model with contacts, then the
 observation and the heads, with the inner reward (forward speed minus
-control cost) scaled by the task's ``INNER_REWARD_SCALING``.
+control cost) scaled by the task's ``INNER_REWARD_SCALING``.  Observed
+blocks' centers sit after the first three robot observations, as the
+reference inserts them (maze_env.py:351-369).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from ..maze.cells import MazeCell
 from ..maze.structure import MazeStructure, analyze_maze
 from ..models.base import Robot
 from ..ops import segments
@@ -53,12 +58,24 @@ class StepResult(NamedTuple):
     info: Dict[str, torch.Tensor]
 
 
+class _BlockRuntime(NamedTuple):
+    """Static constants of one movable block (JAX env.py:73-85, the
+    fields the engine path reads)."""
+
+    body_pos: np.ndarray            # (3,) body origin at qpos0
+    half: np.ndarray                # (3,) box half extents
+    falling: bool                   # a z slide resting on a platform
+    qpos_idx: Tuple[int, int, int]  # qpos address of the x, y, z slide, or -1
+
+
 class MazeEnvSpec:
     """Static description of one env ID on one device; batched reset/step.
 
-    This slice of the port covers the Point and Ant robots in object-free
-    mazes in float32.  Everything else raises ``NotImplementedError``
-    naming the ROADMAP queue item that ports it.
+    The port covers, in float32, the Point robot in
+    object-free mazes and the Ant robot in object-free mazes and in the
+    worlds with movable blocks and elevated platforms.  Everything else
+    raises ``NotImplementedError`` naming the ROADMAP queue item that
+    ports it.
     """
 
     def __init__(
@@ -95,12 +112,18 @@ class MazeEnvSpec:
             put_spin_near_agent=self.task.PUT_SPIN_NEAR_AGENT,
         )
         self.structure: MazeStructure = ms
-        if ms.movable_blocks or ms.object_balls or ms.elevated:
-            item = "8" if robot.NAME == "Point" else "11"
+        if robot.NAME == "Point" and (ms.movable_blocks or ms.object_balls
+                                      or ms.elevated):
             raise NotImplementedError(
-                f"{robot.NAME} object worlds (movable blocks, object balls, "
-                f"elevated platforms) are not ported yet (ROADMAP queue 1 "
-                f"item {item})")
+                "Point object worlds (movable blocks, object balls, elevated "
+                "platforms) are not ported yet (ROADMAP queue 1 item 8)")
+        if ms.object_balls:
+            raise NotImplementedError(
+                "Ant worlds with object balls are not ported yet (ROADMAP "
+                "queue 1 item 11d)")
+        if any(b.spin for b in ms.movable_blocks):
+            raise NotImplementedError(
+                "spin blocks are not ported yet (ROADMAP queue 1 item 11e)")
         if self.task.TOP_DOWN_VIEW or self.task.sample_goals():
             raise NotImplementedError(
                 "top-down views and per-episode goal sampling are not ported "
@@ -114,6 +137,8 @@ class MazeEnvSpec:
         self.walls = None
         self.dynamic_model = None
         self.contact_set = None
+        self.block_runtimes: Tuple[_BlockRuntime, ...] = ()
+        self._falling_support: tuple = ()
         if getattr(robot, "USES_WORLD_ENGINE", False):
             self._build_engine_world()
             self.init_qpos = self.dynamic_model.qpos0.copy()
@@ -124,21 +149,52 @@ class MazeEnvSpec:
             self.nv = robot.nv
             self.init_qpos = robot.init_qpos(ms.height_offset)
         self.init_qvel = np.zeros(self.nv, dtype=np.float64)
-        self.obs_dim = robot.obs_dim + 1
+        n_objects = len(ms.movable_blocks) if self.task.OBSERVE_BLOCKS else 0
+        self.obs_dim = robot.obs_dim + 3 * n_objects + 1
 
     def _build_engine_world(self) -> None:
-        """Compose robot + static maze geoms into ONE RigidModel stepped by
-        the engine with contacts (the Ant path; JAX env.py:283-541 for the
-        object-free mazes): each BLOCK cell becomes a static AABB and the
-        floor a plane, with the robot XML's default geom class."""
+        """Compose robot + movable blocks + static maze geoms into ONE
+        RigidModel stepped by the engine with contacts (the Ant path; JAX
+        env.py:283-541).
+
+        Movable blocks become slide-jointed box bodies whose travel limits
+        encode block-vs-wall collision (the falling block's z slide is
+        unlimited: its limit is solved coupled with the platform support,
+        ``support_qfrc``); BLOCK cells and elevated platforms become static
+        AABBs; the floor is a plane.  The robot XML's default geom class
+        carries over, with the solimp hardening applied when movable
+        blocks exist (maze_env.py:108-112)."""
         from ..physics import contact as contact_mod
         from ..physics import engine as engine_mod
-        from ..physics.model import Geom, build_model
+        from ..physics.model import SLIDE, Body, Geom, Joint, build_model
 
         ms = self.structure
         robot = self.robot
         bodies, actuators = robot.build_bodies(torso_z=0.75 + ms.height_offset)
         geom_default = dict(robot.WORLD_GEOM_DEFAULTS)
+        if ms.any_blocks:
+            geom_default["solimp"] = (0.995, 0.995, 0.01)
+            for b in bodies:
+                for g in b.geoms:
+                    g.solimp = (0.995, 0.995, 0.01)
+        for b in ms.movable_blocks:
+            lo, hi = self._block_xy_limits(b)
+            joints = []
+            if b.move_x:
+                joints.append(Joint(SLIDE, axis=(1, 0, 0), name=f"{b.name}_x",
+                                    limited=True,
+                                    range=(lo[0] - b.pos[0], hi[0] - b.pos[0])))
+            if b.move_y:
+                joints.append(Joint(SLIDE, axis=(0, 1, 0), name=f"{b.name}_y",
+                                    limited=True,
+                                    range=(lo[1] - b.pos[1], hi[1] - b.pos[1])))
+            if b.move_z:
+                joints.append(Joint(SLIDE, axis=(0, 0, 1), name=f"{b.name}_z",
+                                    limited=False, range=b.z_range))
+            bodies.append(Body(
+                name=b.name, parent=-1, pos=b.pos, joints=joints,
+                geoms=[Geom(gtype=2, size=b.size, mass=b.mass, contype=1,
+                            conaffinity=1, **geom_default)]))
         statics = [
             Geom(gtype=3, size=(), pos=(0, 0, 0), contype=1, conaffinity=1,
                  friction=geom_default.get("friction", (1.0, 0.5, 0.5)),
@@ -149,6 +205,9 @@ class MazeEnvSpec:
         for pos, size in zip(ms.block_pos, ms.block_size):
             statics.append(Geom(gtype=2, size=tuple(size), pos=tuple(pos),
                                 contype=1, conaffinity=1, **geom_default))
+        for pos, size in zip(ms.platform_pos, ms.platform_size):
+            statics.append(Geom(gtype=2, size=tuple(size), pos=tuple(pos),
+                                contype=1, conaffinity=1, **geom_default))
         model = build_model(bodies, actuators, timestep=robot.timestep,
                             static_geoms=statics)
         self.dynamic_model = engine_mod.prepare(model)
@@ -156,13 +215,137 @@ class MazeEnvSpec:
         self.nq = model.nq
         self.nv = model.nv
 
+        # joint addresses by name, and each block's runtime
+        qadr, vadr, body_of = {}, {}, {}
+        names = [jn.name for b in bodies for jn in b.joints]
+        for j, name in enumerate(names):
+            qadr[name] = int(model.jnt_qposadr[j])
+            vadr[name] = int(model.jnt_dofadr[j])
+            body_of[name] = int(model.jnt_body[j])
+        self.block_runtimes = tuple(
+            _BlockRuntime(
+                body_pos=np.asarray(b.pos, np.float64),
+                half=np.asarray(b.size, np.float64), falling=b.falling,
+                qpos_idx=tuple(qadr.get(f"{b.name}_{a}", -1) for a in "xyz"))
+            for b in ms.movable_blocks)
+
+        # Falling blocks (JAX env.py:430-469): the support and the z limit
+        # are one coupled solve (contact.falling_support_force) against the
+        # highest platform top the block's center overlaps, else the floor.
+        # The platforms a block can reach within its xy travel are listed
+        # as (x, y, half x + block half x, half y + block half y, top).
+        falling = []
+        for b in ms.movable_blocks:
+            if not b.falling:
+                continue
+            plats = tuple(
+                (float(pp[0]), float(pp[1]), float(ps[0] + b.size[0]),
+                 float(ps[1] + b.size[1]), float(pp[2] + ps[2]))
+                for pp, ps in zip(ms.platform_pos, ms.platform_size)
+                if (abs(pp[0] - b.pos[0]) < b.xy_range + b.size[0] + ps[0] + 1e-9
+                    and abs(pp[1] - b.pos[1])
+                    < b.xy_range + b.size[1] + ps[1] + 1e-9))
+            name = f"{b.name}_z"
+            falling.append((body_of[name], vadr[name], float(b.size[2]), plats))
+        self._falling_support = tuple(falling)
+
+    def _block_xy_limits(self, b) -> Tuple[np.ndarray, np.ndarray]:
+        """Static travel limits of a movable block's center per axis (JAX
+        env.py:543-593): walk the grid row and column outward from the
+        block cell until a BLOCK cell bounds it; falling blocks also keep
+        the reference's ±size_scaling slide range (maze_env.py:615-633)."""
+        ms = self.structure
+        grid = ms.grid
+        s = ms.size_scaling
+        h_cells, w_cells = grid.shape
+        i, j = b.row, b.col
+        sx, sy = b.size[0], b.size[1]
+
+        def free(ii, jj):
+            return not MazeCell(grid[ii, jj]).is_block()
+
+        jj = j
+        while jj + 1 < w_cells and free(i, jj + 1):
+            jj += 1
+        x_hi = jj * s - ms.torso_x + s * 0.5 - sx
+        jj = j
+        while jj - 1 >= 0 and free(i, jj - 1):
+            jj -= 1
+        x_lo = jj * s - ms.torso_x - s * 0.5 + sx
+        ii = i
+        while ii + 1 < h_cells and free(ii + 1, j):
+            ii += 1
+        y_hi = ii * s - ms.torso_y + s * 0.5 - sy
+        ii = i
+        while ii - 1 >= 0 and free(ii - 1, j):
+            ii -= 1
+        y_lo = ii * s - ms.torso_y - s * 0.5 + sy
+        if b.falling:
+            x_lo = max(x_lo, b.pos[0] - b.xy_range)
+            x_hi = min(x_hi, b.pos[0] + b.xy_range)
+            y_lo = max(y_lo, b.pos[1] - b.xy_range)
+            y_hi = min(y_hi, b.pos[1] + b.xy_range)
+        return (np.array([x_lo, y_lo], dtype=np.float64),
+                np.array([x_hi, y_hi], dtype=np.float64))
+
+    def _support_inputs(self, kd, qacc0, Minv, qvel):
+        """Per falling block, its z dof and the support solve's inputs
+        ``(z, bottom, s, vz, a0, w, tc)`` (JAX env.py:473-491)."""
+        tc = max(0.02, 2.0 * float(self.robot.timestep))
+        for bodyidx, zdof, half_z, plats in self._falling_support:
+            center = kd.fkr.body_pos[bodyidx]
+            bpz = float(self.dynamic_model.body_pos[bodyidx][2])
+            z = center[:, 2] - bpz
+            bottom = bpz + z - half_z
+            s = torch.zeros_like(z)
+            for px, py, ox, oy, top in plats:
+                over = ((torch.abs(center[:, 0] - px) < ox)
+                        & (torch.abs(center[:, 1] - py) < oy))
+                s = torch.maximum(s, torch.where(over, top, 0.0))
+            yield zdof, (z, bottom, s, qvel[:, zdof], qacc0[:, zdof],
+                         Minv[:, zdof, zdof] + 1e-12, tc)
+
+    def support_qfrc(self, kd, qacc0: torch.Tensor, Minv: torch.Tensor,
+                     qvel: torch.Tensor) -> torch.Tensor:
+        """Generalized support force ``(B, nv)`` of the falling blocks (JAX
+        env.py:473-491 ``support_qfrc``); zero without them."""
+        from ..physics.contact import falling_support_force
+
+        qfrc = torch.zeros_like(qvel)
+        for zdof, args in self._support_inputs(kd, qacc0, Minv, qvel):
+            qfrc[:, zdof] = qfrc[:, zdof] + falling_support_force(*args)
+        return qfrc
+
+    def support_cases(self, kd, qacc0: torch.Tensor, Minv: torch.Tensor,
+                      qvel: torch.Tensor) -> dict:
+        """Per falling block (by body index), which rows its support solve
+        takes, ``(B,)`` int (``contact.falling_support_case``)."""
+        from ..physics.contact import falling_support_case
+
+        bodies = [f[0] for f in self._falling_support]
+        return {b: falling_support_case(*args) for b, (_, args) in zip(
+            bodies, self._support_inputs(kd, qacc0, Minv, qvel))}
+
+    def block_center(self, qpos: torch.Tensor, b: _BlockRuntime) -> torch.Tensor:
+        """``(B, 3)`` current block body origin (JAX env.py:606-613)."""
+        base = torch.as_tensor(b.body_pos, dtype=qpos.dtype, device=qpos.device)
+        zero = torch.zeros_like(qpos[:, 0])
+        disp = torch.stack([qpos[:, k] if k >= 0 else zero
+                            for k in b.qpos_idx], dim=1)
+        return base + disp
+
     # ------------------------------------------------------------------
     # observation assembly (maze_env.py:351-369)
     # ------------------------------------------------------------------
     def _observe(self, state: EnvState) -> torch.Tensor:
         robot_obs = self.robot.observe(state.qpos, state.qvel)
+        extras = []
+        if self.task.OBSERVE_BLOCKS:
+            extras = [self.block_center(state.qpos, b)
+                      for b in self.block_runtimes]
         time = state.t.to(self.dtype) * 0.001
-        return torch.cat([robot_obs, time[:, None]], dim=1)
+        return torch.cat([robot_obs[:, :3], *extras, robot_obs[:, 3:],
+                          time[:, None]], dim=1)
 
     # ------------------------------------------------------------------
     # batched reset / step

@@ -139,20 +139,32 @@ class AntRobot(Robot):
         nv = torch.randn((num_envs, nv_total), generator=generator, device=dev)
         return uniform_from(uq, *self.QPOS_NOISE), nv * self.QVEL_STD
 
-    def dynamics_step(self, spec, qpos: torch.Tensor, qvel: torch.Tensor,
-                      action: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """frame_skip RK4 steps on the world model, with contacts."""
+    @staticmethod
+    def extra_force(spec):
+        """The constraint forces the engine adds to the joint limits:
+        contacts and the falling blocks' support (JAX models/ant.py:201-205),
+        as ``extra_qfrc(kd, qacc0, Minv, qvel)``."""
         model = spec.dynamic_model
         cset = spec.contact_set
         _, chain_mask, _, _ = engine.get_masks(model)
-        ctrl = action.to(qpos.dtype)
 
         def extra_cb(kd, qacc0, Minv, qvel_now):
-            return contact.contact_qfrc(model, cset, kd, qvel_now, qacc0,
+            qfrc = contact.contact_qfrc(model, cset, kd, qvel_now, qacc0,
                                         Minv, chain_mask)
+            if spec._falling_support:
+                qfrc = qfrc + spec.support_qfrc(kd, qacc0, Minv, qvel_now)
+            return qfrc
 
+        return extra_cb
+
+    def dynamics_step(self, spec, qpos: torch.Tensor, qvel: torch.Tensor,
+                      action: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """frame_skip RK4 steps on the world model, with contacts and the
+        falling blocks' support."""
+        ctrl = action.to(qpos.dtype)
+        extra_cb = self.extra_force(spec)
         for _ in range(self.frame_skip):
-            qpos, qvel = engine.rk4_step(model, qpos, qvel, ctrl,
+            qpos, qvel = engine.rk4_step(spec.dynamic_model, qpos, qvel, ctrl,
                                          extra_qfrc=extra_cb)
         return qpos, qvel
 

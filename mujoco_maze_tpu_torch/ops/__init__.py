@@ -8,8 +8,9 @@
 - :mod:`._build`       — one ``nvcc`` call over ``csrc/*.cu``, loaded
   with ``ctypes``
 
-This slice has the Point and Ant robots on plain (object-free) mazes; the
-other robots' kernels are queued in ROADMAP queue 2.
+The port has the Point robot on object-free mazes and the Ant on
+object-free mazes and in the block worlds; the other robots' and worlds'
+kernels are queued in ROADMAP queue 2.
 """
 
 from __future__ import annotations

@@ -26,15 +26,20 @@ import numpy as np
 import torch
 
 from . import _build
-from .ant_kernel import AntKernelSpec, ant_rollout_plain, ant_step_plain
+from .ant_kernel import NV as NV_ANT
+from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
+                          ant_step_plain)
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
 
 # Launches of each kernel in this process, counted where the wrapper
 # launches it; a run sets them to 0 and reads them back to show that a
-# path went through the kernels.
+# path went through the kernels.  The Ant kernels have two builds: the
+# object-free mazes' ("ant_step", "ant_rollout") and the block worlds'
+# ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).
 LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
-                            "ant_step": 0, "ant_rollout": 0}
+                            "ant_step": 0, "ant_rollout": 0,
+                            "ant_blocks_step": 0, "ant_blocks_rollout": 0}
 # Threads per block of the Ant kernels: one thread per env, and 4096 envs
 # in blocks of 32 spread over 128 of the H100's 132 SMs (PERF.md; a
 # wrapper's ``block`` attribute is what chip_smoke.py varies to measure it).
@@ -80,17 +85,20 @@ def point_params(ks: PointKernelSpec) -> PointParams:
 
 
 class AntParams(ctypes.Structure):
-    """The scalars of one object-free Ant maze, passed by value (mirrors
-    ``struct AntParams`` in ``csrc/ant_lane.cu``, field for field)."""
+    """The scalars of one Ant maze, passed by value (mirrors ``struct
+    AntParams`` in ``csrc/ant_lane.cuh``, field for field)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "off_body", "off_dof", "off_act", "off_sph", "off_box", "off_goal",
-        "off_qpos0", "n_floats", "n_sph", "n_box", "n_near", "n_goal",
+        "off_qpos0", "off_wdof", "off_blk", "off_plat", "off_qpair",
+        "n_floats", "n_sph", "n_box", "n_goal", "n_w", "n_blk",
         "frame_skip", "solver_iters", "reward_type", "episode_limit",
+        "obs_offset",
     )] + [(name, ctypes.c_float) for name in (
         "h", "h_half", "dt_outer", "gravity",
         "ctrl_weight", "inner_scale", "penalty", "inv_scale",
         "lim_b", "lim_d0", "lim_dd", "lim_width", "lim_kden", "omega",
+        "reach2", "sup_kc", "sup_bc", "sup_kl_den", "sup_bl",
     )]
 
 
@@ -99,18 +107,21 @@ def ant_params(ks: AntKernelSpec) -> AntParams:
     (Python double, rounded once to float32)."""
     o = ks.offsets
     # joint-limit impedance (engine.limit_force): solref (0.02, 1) with the
-    # 2 dt clamp, solimp (0.9, 0.95, 0.001)
+    # 2 dt clamp, solimp (0.9, 0.95, 0.001); the falling support
+    # (contact.falling_support_force) at the same time constant
     tc = max(0.02, 2.0 * ks.timestep)
     d0, dmax, width = 0.9, 0.95, 0.001
     return AntParams(
         off_body=o["body"][0], off_dof=o["dof"][0], off_act=o["act"][0],
         off_sph=o["sph"][0], off_box=o["box"][0], off_goal=o["goals"][0],
-        off_qpos0=o["qpos0"][0], n_floats=ks.packed.numel(),
-        n_sph=o["sph"][1], n_box=o["box"][1], n_near=ks.n_near,
-        n_goal=o["goals"][1], frame_skip=ks.frame_skip,
+        off_qpos0=o["qpos0"][0], off_wdof=o["wdof"][0], off_blk=o["blk"][0],
+        off_plat=o["plat"][0], off_qpair=o["qpair"][0],
+        n_floats=ks.packed.numel(),
+        n_sph=o["sph"][1], n_box=o["box"][1], n_goal=o["goals"][1],
+        n_w=ks.n_w, n_blk=ks.n_blk, frame_skip=ks.frame_skip,
         solver_iters=ks.solver_iters,
         reward_type=REWARD_TYPES[ks.reward_type],
-        episode_limit=ks.episode_limit,
+        episode_limit=ks.episode_limit, obs_offset=ks.obs_offset,
         h=ks.timestep, h_half=float(np.float32(ks.timestep / 2)),
         dt_outer=ks.dt_outer, gravity=ks.gravity,
         ctrl_weight=ks.ctrl_weight, inner_scale=ks.inner_scale,
@@ -118,6 +129,9 @@ def ant_params(ks: AntKernelSpec) -> AntParams:
         inv_scale=float(np.float32(1.0) / np.float32(ks.scale)),
         lim_b=2.0 / (dmax * tc), lim_d0=d0, lim_dd=dmax - d0,
         lim_width=width, lim_kden=dmax * dmax * tc * tc, omega=0.6,
+        reach2=ks.reach * ks.reach,
+        sup_kc=0.995 / (0.995 * 0.995 * tc * tc), sup_bc=2.0 / (0.995 * tc),
+        sup_kl_den=0.95 * 0.95 * tc * tc, sup_bl=2.0 / (0.95 * tc),
     )
 
 
@@ -142,8 +156,8 @@ def _lib() -> ctypes.CDLL:
     lib.mmt_point_rollout.restype = _I
     lib.mmt_ant_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
-        _P, _P, _P, _P, _P, _P,          # qpos', qvel', t', reward, terminated,
-                                         # active contacts (nullable)
+        _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
+                                         # active contacts, trace (nullable)
         _P, AntParams, _I, _I, _P]       # tables, params, B, block, stream
     lib.mmt_ant_step.restype = _I
     lib.mmt_ant_rollout.argtypes = [
@@ -153,6 +167,8 @@ def _lib() -> ctypes.CDLL:
         _P, AntParams, _I, _I, ctypes.c_uint, _I, _P]
         # tables, params, B, steps, seed, block, stream
     lib.mmt_ant_rollout.restype = _I
+    lib.mmt_ant_max_world_dofs.restype = _I
+    lib.mmt_ant_max_blocks.restype = _I
     return lib
 
 
@@ -263,13 +279,38 @@ class PointRollout:
         return q, v, tt, torch.sum(rew), torch.sum(eps)
 
 
+# Words per forward evaluation of the step kernel's trace (kTraceWords in
+# csrc/ant_lane.cuh; ``ant_kernel.active_trace`` lays out the plain
+# version's alike).
+ANT_TRACE_WORDS = 25
+
+
+def _ant_dims(ks: AntKernelSpec):
+    """(nq, nv) of ``ks``: the ant's 15 / 14 and the world dofs."""
+    nv = NV_ANT + ks.n_w
+    return nv + 1, nv
+
+
+def _check_ant_bounds(ks: AntKernelSpec) -> None:
+    """Refuse a world beyond the library's compile-time bounds."""
+    lib = _lib()
+    if (ks.n_w > lib.mmt_ant_max_world_dofs()
+            or ks.n_blk > lib.mmt_ant_max_blocks()):
+        raise NotImplementedError(
+            f"{ks.n_blk} blocks with {ks.n_w} world dofs exceed the Ant "
+            "kernels' bounds")
+
+
 class AntStep:
     """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
     terminated)``: one Ant step with explicit actions and no reset.
 
     ``count_active=True`` (CUDA only) adds a sixth output: each env's
     active contacts summed over the step's forward evaluations, the
-    data-dependent part of the kernel's work."""
+    data-dependent part of the kernel's work.  ``trace=True`` (CUDA only)
+    adds, last, each env's active contacts and limits per forward
+    evaluation, ``(B, 4 * frame_skip, ANT_TRACE_WORDS)`` int32 bit sets
+    (``ant_kernel.active_trace`` lays the plain version's out alike)."""
 
     def __init__(self, ks: AntKernelSpec, num_envs: int) -> None:
         self.ks = ks
@@ -277,44 +318,54 @@ class AntStep:
         self.block = ANT_BLOCK
         self.params = ant_params(ks)
 
-    def __call__(self, qpos, qvel, t, actions, count_active: bool = False):
+    def __call__(self, qpos, qvel, t, actions, count_active: bool = False,
+                 trace: bool = False):
         B, dev = self.num_envs, self.ks.packed.device
-        _check("qpos", qpos, torch.float32, (B, 15), dev)
-        _check("qvel", qvel, torch.float32, (B, 14), dev)
+        nq, nv = _ant_dims(self.ks)
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nv), dev)
         _check("t", t, torch.int32, (B,), dev)
         _check("actions", actions, torch.float32, (B, 8), dev)
         if dev.type == "cpu":
-            if count_active:
-                raise ValueError("active-contact counts come from the kernel")
+            if count_active or trace:
+                raise ValueError("active-contact counts and traces come from "
+                                 "the kernel")
             return ant_step_plain(self.ks, qpos, qvel, t, actions)
         if dev.type != "cuda":
             raise RuntimeError(f"no Ant step kernel for device {dev}")
-        q_out = torch.empty((B, 15), dtype=torch.float32, device=dev)
-        v_out = torch.empty((B, 14), dtype=torch.float32, device=dev)
+        _check_ant_bounds(self.ks)
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nv), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
         reward = torch.empty((B,), dtype=torch.float32, device=dev)
         term = torch.empty((B,), dtype=torch.bool, device=dev)
         active = (torch.empty((B,), dtype=torch.int32, device=dev)
                   if count_active else None)
+        tr = (torch.empty((B, 4 * self.ks.frame_skip, ANT_TRACE_WORDS),
+                          dtype=torch.int32, device=dev) if trace else None)
         rc = _lib().mmt_ant_step(
             qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
             qpos.stride(0), qvel.stride(0), actions.stride(0),
             q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
             reward.data_ptr(), term.data_ptr(),
             None if active is None else active.data_ptr(),
+            None if tr is None else tr.data_ptr(),
             self.ks.packed.data_ptr(), self.params, B, self.block,
             torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, "ant_step")
-        LAUNCHES["ant_step"] += 1
+        LAUNCHES["ant_blocks_step" if self.ks.n_w else "ant_step"] += 1
         out = (q_out, v_out, t_out, reward, term)
-        return out + (active,) if count_active else out
+        if count_active:
+            out = out + (active,)
+        return out + (tr,) if trace else out
 
 
 class AntRollout:
     """``rollout(qpos, qvel, t, seed) -> (qpos', qvel', t', reward_sum,
     episodes)``: the fused random-policy rollout of the Ant with
-    auto-reset (ctrl U(±30); reset qpos0 + U(±0.1), quaternion
-    renormalised, qvel 0.1 N(0, 1))."""
+    auto-reset (ctrl U(±30); reset: the ant's qpos0 + U(±0.1), quaternion
+    renormalised, its qvel 0.1 N(0, 1); the world dofs back to qpos0 at
+    rest)."""
 
     def __init__(self, ks: AntKernelSpec, num_envs: int,
                  num_steps: int) -> None:
@@ -329,8 +380,9 @@ class AntRollout:
         episode counts ``(B,)`` int32 (and, with ``count_active`` on CUDA,
         the active contacts summed over every forward evaluation)."""
         B, dev = self.num_envs, self.ks.packed.device
-        _check("qpos", qpos, torch.float32, (B, 15), dev)
-        _check("qvel", qvel, torch.float32, (B, 14), dev)
+        nq, nv = _ant_dims(self.ks)
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nv), dev)
         _check("t", t, torch.int32, (B,), dev)
         seed = int(seed)
         if not 0 <= seed < 2 ** 32:
@@ -342,8 +394,9 @@ class AntRollout:
                                      self.num_steps)
         if dev.type != "cuda":
             raise RuntimeError(f"no Ant rollout kernel for device {dev}")
-        q_out = torch.empty((B, 15), dtype=torch.float32, device=dev)
-        v_out = torch.empty((B, 14), dtype=torch.float32, device=dev)
+        _check_ant_bounds(self.ks)
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nv), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
         rew = torch.empty((B,), dtype=torch.float32, device=dev)
         eps = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -358,7 +411,7 @@ class AntRollout:
             self.ks.packed.data_ptr(), self.params, B, self.num_steps, seed,
             self.block, torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, "ant_rollout")
-        LAUNCHES["ant_rollout"] += 1
+        LAUNCHES["ant_blocks_rollout" if self.ks.n_w else "ant_rollout"] += 1
         out = (q_out, v_out, t_out, rew, eps)
         return out + (active,) if count_active else out
 

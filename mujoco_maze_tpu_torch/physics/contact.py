@@ -1,20 +1,23 @@
 """Collision detection + contact forces on batched torch tensors.
 
-Port of ``mujoco_maze_tpu.physics.contact`` for robots in static worlds:
+Port of ``mujoco_maze_tpu.physics.contact`` for robots in worlds of
+static boxes and movable (slide-jointed) boxes:
 
 * the static enumeration of candidate contacts (:class:`ContactSet`,
   :func:`build_contact_set`) is a numpy copy of the JAX package's: every
   dynamic geom lowers to a fixed set of **test spheres** (sphere → itself;
   capsule → 3 samples along its axis; box → its corners with radius 0);
-  every static world geom is an axis-aligned box or the floor plane;
-* :func:`contact_qfrc` detects spheres vs the floor plane and vs the
-  static boxes (the two nearest boxes per sphere) and solves MuJoCo's
-  impedance dynamics per contact with projected Jacobi on the regularised
-  Delassus matrix, batch-first.
+  every static world geom is an axis-aligned box or the floor plane; a
+  movable box meets the robot's spheres in sphere-vs-moving-box pairs;
+* :func:`contact_qfrc` detects spheres vs the floor plane, vs the static
+  boxes (the two nearest boxes per sphere) and vs every movable box, and
+  solves MuJoCo's impedance dynamics per contact with projected Jacobi on
+  the regularised Delassus matrix, batch-first;
+* :func:`falling_support_force` is the closed-form coupled platform
+  support and z limit of a falling block (the Fall worlds).
 
-Sphere-sphere pairs, movable boxes and object balls (the Ant object
-worlds) wait for ROADMAP queue 1 item 11; a contact set that has them is
-refused.  ``falling_support_force`` (AntFall) waits with them.
+Sphere-sphere pairs and object balls (AntSmallBilliard) wait for ROADMAP
+queue 1 item 11d; a contact set that has them is refused.
 """
 
 from __future__ import annotations
@@ -277,13 +280,21 @@ def _min_exit_normal(local: torch.Tensor, bh: torch.Tensor):
     return n_in, -m
 
 
+def candidate_count(cs: ContactSet) -> int:
+    """Candidate contacts of a contact set: floor and the two nearest
+    static boxes per sphere that meets the world, and every
+    sphere-vs-moving-box pair."""
+    return (int(np.sum(cs.sph_vs_static))
+            * (int(cs.has_floor) + min(len(cs.box_center), 2))
+            + len(cs.qpair_s))
+
+
 def _check_supported(cs: ContactSet) -> None:
-    if len(cs.pair_i) or len(cs.qpair_s):
+    if len(cs.pair_i):
         raise NotImplementedError(
-            "sphere-sphere pairs and movable boxes (the Ant object worlds) "
-            "are not ported yet (ROADMAP queue 1 item 11)")
-    n = (int(np.sum(cs.sph_vs_static))
-         * (int(cs.has_floor) + min(len(cs.box_center), 2)))
+            "sphere-sphere pairs (object balls) are not ported yet (ROADMAP "
+            "queue 1 item 11d)")
+    n = candidate_count(cs)
     if n > MAX_ACTIVE_CONTACTS:
         raise NotImplementedError(
             f"{n} candidate contacts: the top-{MAX_ACTIVE_CONTACTS} selection "
@@ -293,8 +304,12 @@ def _check_supported(cs: ContactSet) -> None:
 class _Consts(NamedTuple):
     """A contact set's arrays as tensors on one device, over the test
     spheres that meet the world, and per candidate contact in the order
-    [floor; nearest box; second box] (see ``_consts``)."""
+    [floor; nearest box; second box; sphere-vs-moving-box pairs] (see
+    ``_consts``)."""
 
+    sph_body_all: torch.Tensor  # (S,) long, every test sphere
+    local_all: torch.Tensor    # (S, 3)
+    static_idx: torch.Tensor   # (s,) long: the spheres that meet the world
     sph_body: torch.Tensor     # (s,) long
     local: torch.Tensor        # (s, 3)
     radius: torch.Tensor       # (s,)
@@ -303,7 +318,14 @@ class _Consts(NamedTuple):
     box_center: torch.Tensor   # (nbox, 3)
     box_half: torch.Tensor     # (nbox, 3)
     box_margin: torch.Tensor   # (nbox,)
-    sign_mask: torch.Tensor    # (C, nv) 1 on the dofs that move the sphere
+    q_sph: torch.Tensor        # (Q,) long: the sphere of each moving-box pair
+    q_radius: torch.Tensor     # (Q,)
+    q_body: torch.Tensor       # (Q,) long: the box's body
+    q_local: torch.Tensor      # (Q, 3) box offset in its body frame
+    q_half: torch.Tensor       # (Q, 3)
+    q_margin: torch.Tensor     # (Q,) sphere + box margin
+    sign_mask: torch.Tensor    # (C, nv) 1 on the dofs that move the sphere,
+                               # -1 on those that move a pair's box
     mu: torch.Tensor           # (C,)
     d0: torch.Tensor           # (C,) solimp
     dmax: torch.Tensor
@@ -328,21 +350,39 @@ def _consts(model: RigidModel, cs: ContactSet, chain_mask: np.ndarray,
             return torch.as_tensor(np.asarray(x), dtype=ref.dtype,
                                    device=ref.device)
 
+        def index(x):
+            return torch.as_tensor(np.asarray(x, np.int64), device=ref.device)
+
         idx = np.nonzero(cs.sph_vs_static)[0]
         groups = int(cs.has_floor) + min(len(cs.box_center), 2)
+        if not np.any(cs.sph_vs_static):
+            groups = 0
         sph = np.tile(idx, groups)
-        b1 = cs.sph_body[sph]
-        sim, srf = cs.sph_solimp[sph], cs.sph_solref[sph]
+        qs, qb = cs.qpair_s, cs.qpair_b
+        cm = np.asarray(chain_mask, np.float64).T     # (nb, nv)
+        # pair mixing of the moving-box rows (JAX contact.py:474-477)
+        sim = np.concatenate([cs.sph_solimp[sph],
+                              (cs.sph_solimp[qs] + cs.dbox_solimp[qb]) / 2])
+        srf = np.concatenate([cs.sph_solref[sph],
+                              (cs.sph_solref[qs] + cs.dbox_solref[qb]) / 2])
+        mu = np.concatenate([cs.sph_friction[sph],
+                             np.maximum(cs.sph_friction[qs],
+                                        cs.dbox_friction[qb])])
+        sign = np.concatenate([cm[cs.sph_body[sph]],
+                               cm[cs.sph_body[qs]] - cm[cs.dbox_body[qb]]])
         _CONSTS[key] = (cs, _Consts(
-            sph_body=torch.as_tensor(cs.sph_body[idx], dtype=torch.long,
-                                     device=ref.device),
+            sph_body_all=index(cs.sph_body), local_all=c(cs.sph_local),
+            static_idx=index(idx), sph_body=index(cs.sph_body[idx]),
             local=c(cs.sph_local[idx]), radius=c(cs.sph_radius[idx]),
             margin=c(cs.sph_margin[idx]),
             floor_margin=c(cs.sph_margin[idx] + cs.floor_margin),
             box_center=c(cs.box_center), box_half=c(cs.box_half),
             box_margin=c(cs.box_margin),
-            sign_mask=c(np.asarray(chain_mask, np.float64).T[b1]),
-            mu=c(cs.sph_friction[sph]),
+            q_sph=index(qs), q_radius=c(cs.sph_radius[qs]),
+            q_body=index(cs.dbox_body[qb]), q_local=c(cs.dbox_local[qb]),
+            q_half=c(cs.dbox_half[qb]),
+            q_margin=c(cs.sph_margin[qs] + cs.dbox_margin[qb]),
+            sign_mask=c(sign), mu=c(mu),
             d0=c(sim[:, 0]), dmax=c(sim[:, 1]), width=c(sim[:, 2]),
             tc=torch.clamp(c(srf[:, 0]), min=2.0 * model.timestep),
             dampr=c(srf[:, 1]), axes=c(np.eye(3)),
@@ -350,34 +390,39 @@ def _consts(model: RigidModel, cs: ContactSet, chain_mask: np.ndarray,
     return _CONSTS[key][1]
 
 
-def contact_qfrc(model: RigidModel, cs: ContactSet, kd, qvel: torch.Tensor,
-                 qacc0: torch.Tensor, Minv: torch.Tensor,
-                 chain_mask: np.ndarray) -> torch.Tensor:
-    """Total generalized contact force ``(B, nv)`` over all candidate
-    contacts of a robot in a static world."""
-    _check_supported(cs)
-    _engine._check_precision(qvel)
-    B, nv = qvel.shape
-    if not np.any(cs.sph_vs_static) or not (cs.has_floor or len(cs.box_center)):
-        return torch.zeros_like(qvel)
-    K = _consts(model, cs, chain_mask, qvel)
-    body_R = torch.stack(kd.fkr.body_rot, dim=1)[:, K.sph_body]  # (B, s, 3, 3)
-    body_p = torch.stack(kd.fkr.body_pos, dim=1)[:, K.sph_body]  # (B, s, 3)
-    c = body_p + _engine.mat_vec(body_R, K.local)               # (B, s, 3)
+def _has_candidates(cs: ContactSet) -> bool:
+    statics = np.any(cs.sph_vs_static) and (cs.has_floor or len(cs.box_center))
+    return bool(statics or len(cs.qpair_s))
+
+
+def _detect(cs: ContactSet, K: _Consts, kd):
+    """Every candidate contact's ``(dist (B, C), pos (B, C, 3), normal
+    (B, C, 3), margin (B, C), inside (B, C))``, in the order [floor;
+    nearest box; second box] over the spheres that meet the world, then
+    the sphere-vs-moving-box pairs in the contact set's order; ``inside``:
+    the sphere's centre lies in its box."""
+    statics = np.any(cs.sph_vs_static) and (cs.has_floor or len(cs.box_center))
+    B = kd.origin.shape[0]
+    R_all = torch.stack(kd.fkr.body_rot, dim=1)                 # (B, nb, 3, 3)
+    p_all = torch.stack(kd.fkr.body_pos, dim=1)                 # (B, nb, 3)
+    c_all = (p_all[:, K.sph_body_all]
+             + _engine.mat_vec(R_all[:, K.sph_body_all], K.local_all))
+    c = c_all[:, K.static_idx]                                  # (B, s, 3)
     r = K.radius
     s_ = c.shape[1]
 
     # candidate contacts: [floor; nearest box; second box], each over the
     # spheres that meet the world
-    dists, poss, normals, margins = [], [], [], []
+    dists, poss, normals, margins, insides = [], [], [], [], []
     # -- spheres vs floor plane ------------------------------------------
-    if cs.has_floor:
+    if cs.has_floor and statics:
+        insides.append(torch.zeros_like(c[..., 2], dtype=torch.bool))
         dists.append(c[..., 2] - cs.floor_z - r)
         poss.append(torch.cat([c[..., :2], (c[..., 2] - r)[..., None]], -1))
         normals.append(K.axes[2].expand(B, s_, 3))
         margins.append(K.floor_margin.expand(B, s_))
     # -- spheres vs static AABBs: the two nearest per sphere --------------
-    nbox = len(cs.box_center)
+    nbox = len(cs.box_center) if statics else 0
     if nbox > 0:
         bc, bh = K.box_center, K.box_half
         local = c[:, :, None, :] - bc                           # (B, s, nb, 3)
@@ -402,15 +447,66 @@ def contact_qfrc(model: RigidModel, cs: ContactSet, kd, qvel: torch.Tensor,
             picks.append(torch.argmin(eff2, dim=-1, keepdim=True))
         for k in picks:
             k3 = k[..., None].expand(B, s_, 1, 3)
+            insides.append(~torch.gather(outside, -1, k)[..., 0])
             dists.append(torch.gather(dist, -1, k)[..., 0])
             poss.append(torch.gather(pos, 2, k3)[:, :, 0])
             normals.append(torch.gather(n, 2, k3)[:, :, 0])
             margins.append(K.margin + K.box_margin[k[..., 0]])
+    # -- spheres vs moving boxes, every pair, in the box frame -------------
+    if len(cs.qpair_s):
+        cq = c_all[:, K.q_sph]                                  # (B, Q, 3)
+        Rb = R_all[:, K.q_body]                                 # (B, Q, 3, 3)
+        bcq = p_all[:, K.q_body] + _engine.mat_vec(Rb, K.q_local)
+        RbT = Rb.transpose(-1, -2)
+        local = _engine.mat_vec(RbT, cq - bcq)
+        bh = K.q_half
+        clamped = torch.maximum(torch.minimum(local, bh), -bh)
+        delta = local - clamped
+        d_out = torch.sqrt(torch.sum(delta * delta, dim=-1) + 1e-12)
+        outside = d_out > 1e-6
+        n_out = delta / d_out[..., None]
+        n_in, pen_in = _min_exit_normal(local, bh)
+        insides.append(~outside)
+        dists.append(torch.where(outside, d_out - K.q_radius,
+                                 pen_in - K.q_radius))
+        n_local = torch.where(outside[..., None], n_out, n_in)
+        surf = torch.where(outside[..., None], clamped,
+                           local - n_in * pen_in[..., None])
+        normals.append(_engine.mat_vec(Rb, n_local))
+        poss.append(bcq + _engine.mat_vec(Rb, surf))
+        margins.append(K.q_margin.expand(B, -1))
 
-    dist = torch.cat(dists, dim=1)                              # (B, C)
-    pos = torch.cat(poss, dim=1)                                # (B, C, 3)
-    normal = torch.cat(normals, dim=1)
-    margin = torch.cat(margins, dim=1)
+    return (torch.cat(dists, dim=1), torch.cat(poss, dim=1),
+            torch.cat(normals, dim=1), torch.cat(margins, dim=1),
+            torch.cat(insides, dim=1))
+
+
+def active_candidates(model: RigidModel, cs: ContactSet, kd,
+                      chain_mask: np.ndarray) -> torch.Tensor:
+    """``(B, C)`` bool: the candidate contacts (``_detect``'s order) that
+    are active, dist < margin.  For checks: the solve adds force on these
+    only."""
+    ref = kd.origin
+    if not _has_candidates(cs):
+        return torch.zeros((ref.shape[0], 0), dtype=torch.bool,
+                           device=ref.device)
+    dist, _, _, margin, _ = _detect(cs, _consts(model, cs, chain_mask, ref),
+                                    kd)
+    return dist < margin
+
+
+def contact_qfrc(model: RigidModel, cs: ContactSet, kd, qvel: torch.Tensor,
+                 qacc0: torch.Tensor, Minv: torch.Tensor,
+                 chain_mask: np.ndarray) -> torch.Tensor:
+    """Total generalized contact force ``(B, nv)`` over all candidate
+    contacts of a robot in a world of static and moving boxes."""
+    _check_supported(cs)
+    _engine._check_precision(qvel)
+    B, nv = qvel.shape
+    if not _has_candidates(cs):
+        return torch.zeros_like(qvel)
+    K = _consts(model, cs, chain_mask, qvel)
+    dist, pos, normal, margin, _ = _detect(cs, K, kd)
     sign_mask, mu = K.sign_mask, K.mu
     d0, dmax, width, tc, dampr = K.d0, K.dmax, K.width, K.tc, K.dampr
 
@@ -476,3 +572,71 @@ def contact_qfrc(model: RigidModel, cs: ContactSet, kd, qvel: torch.Tensor,
         resid = aref - a0 - a_f - Rreg * f
         f = project(f + omega * resid / denom)
     return mv(J_T, f)
+
+
+def falling_support_force(z, bottom, s, vz, a0, w, tc: float, mu: float = 1.0,
+                          lim_margin: float = 0.01):
+    """Coupled platform-support + upper-z-limit impedance force of a falling
+    (z-slide) block (JAX contact.py:627-680), elementwise over ``(B,)``
+    tensors.
+
+    The reference block is built overlapping its own elevated platform;
+    box-box contact pops it on top, where it perches with its (-h, 0) z
+    limit softly violated by ~h: an equilibrium between the saturated
+    platform contact (solimp .995/.995/.01, 4 face corners x 4 pyramid
+    facets) and the saturated soft limit (solimp .9/.95/.001).  Pushed past
+    the platform's edge the support target drops to the floor plane and
+    the block falls flush (the Fall bridge).
+
+    The two rows share one diagonal dof, so the coupled solve is closed
+    form with a unilateral case analysis (``falling_support_case``).
+    ``z``: the z slide's value; ``bottom``: the box's bottom height;
+    ``s``: the support target (the highest overlapped platform top, else
+    0); ``w``: the dof's inverse weight (1/mass); ``a0``: the smooth z
+    acceleration.  Returns the net generalized force on the z dof.
+    """
+    return _support_solve(z, bottom, s, vz, a0, w, tc, mu, lim_margin)[0]
+
+
+def falling_support_case(z, bottom, s, vz, a0, w, tc: float, mu: float = 1.0,
+                         lim_margin: float = 0.01) -> torch.Tensor:
+    """Which rows ``falling_support_force`` solves, elementwise: 0 neither,
+    1 the platform row alone, 2 the limit alone, 3 both (for checks)."""
+    return _support_solve(z, bottom, s, vz, a0, w, tc, mu, lim_margin)[1]
+
+
+def _support_solve(z, bottom, s, vz, a0, w, tc, mu, lim_margin):
+    d_c = 0.995
+    k_c = d_c / (0.995 * 0.995 * tc * tc)
+    b_c = 2.0 / (0.995 * tc)
+    pen_c = s - bottom
+    aref_c = -b_c * vz + k_c * pen_c
+    R_c = ((1.0 - d_c) / d_c) * (2.0 * (1.0 + mu * mu)) * w / 16.0
+    act_c = pen_c > 0.0
+    pen_l = z + lim_margin
+    x = torch.clamp(pen_l / 0.001, 0.0, 1.0)
+    y = torch.where(x < 0.5, 2.0 * x * x, 1.0 - 2.0 * (1.0 - x) * (1.0 - x))
+    d_l = 0.9 + y * 0.05
+    k_l = d_l / (0.95 * 0.95 * tc * tc)
+    b_l = 2.0 / (0.95 * tc)
+    aref_l = b_l * vz + k_l * pen_l
+    R_l = ((1.0 - d_l) / d_l) * w
+    act_l = pen_l > 0.0
+    qa_both = ((a0 + w * aref_c / R_c - w * aref_l / R_l)
+               / (1.0 + w / R_c + w / R_l))
+    qa_c = (a0 + w * aref_c / R_c) / (1.0 + w / R_c)
+    qa_l = (a0 - w * aref_l / R_l) / (1.0 + w / R_l)
+    fc_both = (aref_c - qa_both) / R_c
+    fl_both = (aref_l + qa_both) / R_l
+    fc_only = (aref_c - qa_c) / R_c
+    fl_only = (aref_l + qa_l) / R_l
+    use_c = act_c & (fc_only > 0.0)
+    use_l = act_l & (fl_only > 0.0)
+    both = use_c & use_l & (fc_both > 0.0) & (fl_both > 0.0)
+    zero = torch.zeros_like(fc_only)
+    force = torch.where(
+        both, fc_both - fl_both,
+        torch.where(use_c, torch.clamp(fc_only, min=0.0),
+                    torch.where(use_l, -torch.clamp(fl_only, min=0.0), zero)))
+    case = torch.where(both, 3, torch.where(use_c, 1, torch.where(use_l, 2, 0)))
+    return force, case

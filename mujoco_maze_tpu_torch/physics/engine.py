@@ -6,7 +6,7 @@ batched tensors: ``qpos (B, nq)``, ``qvel (B, nv)``, ``ctrl (B, nu)``.
 The loops over bodies and joints run over the static
 :class:`~.model.RigidModel` in Python; each iteration acts on the whole
 batch.  This is the plain PyTorch path of the Ant: the step kernel
-(``csrc/ant_lane.cu``) is held against it.
+(``csrc/ant_lane.cuh``) is held against it.
 
 Conventions: spatial motion vectors ``[ω; v]`` in world axes; qvel of
 free joints is (linear world, angular body-frame) matching MuJoCo's

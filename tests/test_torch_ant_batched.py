@@ -133,7 +133,8 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
         step(state.qpos, state.qvel, state.t, torch.zeros(B, 8),
              count_active=True)
     p = lane_env.ant_params(step.ks)
-    assert (p.n_sph, p.n_box, p.n_near, p.n_goal) == (37, 18, 4, 1)
+    assert (p.n_sph, p.n_box, p.n_goal, p.n_w, p.n_blk) == (37, 18, 1, 0, 0)
+    assert 1.0 < p.reach2 ** 0.5 < 1.5   # the ant's reach from its torso
     assert p.n_floats == step.ks.packed.numel()
 
 
@@ -208,8 +209,8 @@ def test_rollout_words_are_the_point_rollouts():
 
 
 def test_object_worlds_and_float64_are_queued():
-    for env_id in ("AntPush-v0", "AntFall-v0", "AntSmallBilliard-v0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+    for env_id in ("AntSmallBilliard-v0", "AntSmallBilliard-v2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11d"):
             mmt.make_batched(env_id, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         mmt.make_spec("AntUMaze-v0", dtype=torch.float64, device="cpu")

@@ -71,7 +71,8 @@ def test_static_world_matches(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_make_spec_covers_the_object_free_point_mazes(env_id):
-    """The object-free Point and Ant mazes build; every other ID raises."""
+    """The object-free Point mazes and the Ant mazes without object balls
+    build; every other ID raises."""
     je, _, _, _, js, _ = _structures(env_id)
     object_free = not js.movable_blocks and not js.object_balls
     if je.robot_name == "Point" and object_free:
@@ -82,11 +83,13 @@ def test_make_spec_covers_the_object_free_point_mazes(env_id):
         np.testing.assert_array_equal(spec.walls.p2.numpy(),
                                       segs[:, 1].astype(np.float32))
         assert spec.obs_dim == 7
-    elif je.robot_name == "Ant" and object_free:
+    elif je.robot_name == "Ant" and not js.object_balls:
         spec = mmt.make_spec(env_id, device="cpu")
-        np.testing.assert_array_equal(spec.contact_set.box_center,
-                                      js.block_pos)
-        assert spec.obs_dim == 30
+        np.testing.assert_array_equal(
+            spec.contact_set.box_center,
+            np.concatenate([js.block_pos, js.platform_pos]).reshape(-1, 3))
+        n_obs = len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0
+        assert spec.obs_dim == 30 + 3 * n_obs
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             mmt.make_spec(env_id, device="cpu")
