@@ -5,10 +5,11 @@
 Builds the CUDA kernels from ``mujoco_maze_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
-``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0 and
-AntFall-v0, each stepped through the public API, ``rollout_metrics``, and
-the fused random-policy rollout — counts the kernel launches of each path,
-and times them with CUDA events.
+``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
+AntFall-v0 and SwimmerUMaze-v0, each stepped through the public API,
+``rollout_metrics``, and the fused random-policy rollout — counts the
+kernel launches of each path, and times them with CUDA events; and
+measures the card's fp32 peak with its own kernel.
 
 Phases (each fails the run on its own; nothing is caught):
 
@@ -51,7 +52,24 @@ Phases (each fails the run on its own; nothing is caught):
 11. the Fall mechanic through the kernel: the block perches, and drops
     flush over the chasm;
 12. the block-world main paths, AntPush-v0 and AntFall-v0, as phases 7-8;
-13. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+13. the swimmer step kernel against its plain version (the closed form) on
+    SwimmerUMaze-v0, SwimmerUMaze-v1, ReacherUMaze-v0 and SwimmerFall-v0
+    (a world dof, the heads' z against θ) at 4096 envs, teacher-forced
+    over a 1000-step trajectory of the public step API with auto-reset,
+    from t spread over the episode and some envs started on the goal;
+    at four of those steps also through the env's own 4096-env wrapper on
+    the step API's live states and on copies with wider rows;
+14. the swimmer rollout kernel against its plain version (the same Philox
+    stream) on SwimmerUMaze-v0 and SwimmerPush-v0, 64 steps from t spread
+    over [936, 1000): equal episode counts, every reset draw exact, world
+    dofs included;
+15. the swimmer main path, SwimmerUMaze-v0 at 4096 envs, counted, timed
+    and checked as in phase 4, with each swimmer kernel's numbers;
+16. the card's fp32 peak measured by the FMA-chain kernel
+    (``utils/roofline.py``), checked against its plain version on a small
+    array and at the timed launch's chain count, printed beside the data
+    sheet's 67e12;
+17. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -123,10 +141,23 @@ BLOWN_TRAVEL = 1.0
 # reward bound there passes only where the two versions' traces show such
 # a switch in one version only, in at most KNIFE_SHARE of the env-steps.
 KNIFE_SHARE = 1e-3
+# the Swimmer and the Reacher: teacher-forced step checks (the dist and the
+# goal heads, two links, a world dof with the z head), the rollout check
+# with and without world dofs, one main path
+SWIMMER_IDS = ("SwimmerUMaze-v0", "SwimmerUMaze-v1", "ReacherUMaze-v0",
+               "SwimmerFall-v0")
+SWIMMER_ROLL_IDS = ("SwimmerUMaze-v0", "SwimmerPush-v0")
+SWIMMER_MAIN_ID = "SwimmerUMaze-v0"
+SWIMMER_CHUNK = 125         # recorded steps per comparison launch
+SWIMMER_LIVE_STEPS = (0, 1, 500, 999)   # also checked at B envs, live states
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores.  Bounds stay on the data sheet's figure; the
+# measured fp32 peak (phase 16) is printed beside it.
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+PEAK_CHECK_ITERS = 64
+PEAK_CHAINS, PEAK_ITERS = 132 * 2048 * 8, 4096   # fp32_peak_flops' defaults
+PEAK_REL_TOL = 1e-5         # the plain chain rounds twice, the FMA once
 
 
 def log(msg: str) -> None:
@@ -828,6 +859,443 @@ def ant_main_path(env_id: str, phase: str, numbers_phase: str):
     }
 
 
+# fp32 operations that one swimmer env step needs (a sine, cosine, square
+# root, division, min or max counts as one; selects, sign flips and the
+# Philox integer work count none).  Counted from the closed form
+# (csrc/swimmer_lane.cu, mujoco_maze_tpu/ops/swimmer_math.py), not from
+# the kernel's instructions: only the lower triangle of the symmetric mass
+# matrix and its factor, only the Jacobian entries that are not
+# structurally zero (link k's column of hinge i is zero for i > k, the
+# slide columns are constant unit vectors), no product with a constant 0
+# or +-1, and every constant folded (the slide block of M, its factor and
+# the reciprocals).  The kernel does more (it keeps the zero and unit
+# entries in its products, for bit-exact agreement with its plain
+# version), so the bound stays a lower bound.
+def swimmer_forward_flops(nl: int) -> int:
+    """One forward evaluation of an ``nl``-link chain: n = nl + 2
+    coordinates (slides x, y, then the nl hinges), nl - 1 actuators on
+    the hinges after the first."""
+    n, nu = nl + 2, nl - 1
+    hinges = range(nl)            # hinge i turns links i .. nl - 1
+    f = nl - 1                    # link angles, a running sum
+    f += 2 * nl                   # cos, sin of each link angle
+    # CoM vectors (link 0's is (c, s)) and link 0's attachment (the
+    # others' are -(c, s))
+    f += 2 * (nl - 1) + 2
+    f += nl * (nl - 1)            # levers from hinge i to link k's CoM, suffix sums
+    # mass matrix, lower triangle: slide-slide entries are constants;
+    # slide x hinge i: sum over links k >= i, times m
+    f += sum(2 * (nl - i) for i in hinges)
+    # hinge i x hinge j (i <= j): links k >= j, a 2-term dot each, the sum,
+    # times m, plus the constant Iz (nl - j) (+ armature on the diagonal)
+    f += sum(4 * (nl - j) + 1 for j in hinges for _ in range(j + 1))
+    f += (nl - 1) + nl            # angular velocities w_k, -w_k^2
+    # velocity-product CoM accelerations: the -w_m^2 att_m terms (m < nl-1),
+    # the -w_k^2 com_k terms, their prefix sums
+    f += 2 * (nl - 1) + 2 * nl + 2 * max(nl - 2, 0) + 2 * (nl - 1)
+    # bias: slide rows sum the links' accelerations times m; hinge i
+    # dots link k's lever with its acceleration for k >= i
+    f += 2 * nl + sum(4 * (nl - i) for i in hinges)
+    # fluid drag of link k: CoM velocity (slides plus k + 1 levers), into
+    # the link frame (6), viscous (3) and quadratic (9) terms, back (6)
+    f += sum(4 * (k + 1) + 24 for k in range(nl))
+    # generalized forces: slide rows sum the links' forces; hinge i dots
+    # its levers with links k >= i, plus the suffix sum of the torques
+    f += 2 * (nl - 1) + sum(4 * (nl - i) for i in hinges) + (nl - 1)
+    f += 4 * nu                   # clip, gear, add
+    f += n                        # rhs = tau - bias
+    # Cholesky factor: the slide columns are constant reciprocals times
+    # the hinge rows; each later column j: its dots, clamp and root, and
+    # a division per entry below the diagonal
+    f += 2 * nl + sum(2 * j * (n - j) + 2 + (n - j - 1) for j in range(2, n))
+    # one solve: forward (the slide rows against constants), backward (the
+    # zero L[1][0] skipped)
+    solve = 2 + sum(2 * k + 1 for k in range(2, n))
+    solve += sum(2 * (n - 1 - k) + 1 for k in range(2, n)) + 2 * (2 * (n - 2) + 1)
+    f += 2 * solve                # unconstrained, then with the limit forces
+    # diag(M^-1) of each limited hinge d (coordinates 3 ..): L^-1 e_d from
+    # row d down, its squared norm, clamp and reciprocal
+    f += sum(1 + sum(2 * (i - d) for i in range(d + 1, n))
+             + 2 * (n - d) - 1 + 2 for d in range(3, n))
+    f += nu * 2 * 15              # the impedance, both sides of each limit
+    f += nu                       # the limit forces into the rhs
+    return f
+
+
+def swimmer_step_flops(nl: int, goal_dims, dist_reward: bool,
+                       frame_skip: int = 4) -> int:
+    """One env step: frame_skip RK4 steps of the n = nl + 2 robot
+    coordinates (four forward evaluations and 24 a coordinate: 4 per
+    stage state, 12 to average and apply), the inner reward, the heads.
+    ``goal_dims``: each goal's dimensions that its mask keeps."""
+    nu = nl - 1
+    rk4 = 4 * swimmer_forward_flops(nl) + 24 * (nl + 2)
+    inner = 8 + 2 * nu + 1        # planar speed, control cost, difference
+    heads = sum(3 * d for d in goal_dims) + (2 if dist_reward else 0) + 2
+    return frame_skip * rk4 + inner + heads
+
+
+def swimmer_bytes(nq: int, nu: int, per_launch: str) -> int:
+    """Bytes per env of one launch: the step reads qpos, qvel, t and the
+    actions and writes qpos, qvel, t, reward and terminated; a rollout
+    reads qpos, qvel, t and writes them with the reward sum and count."""
+    io = 4 * (2 * nq + 1)
+    return 2 * io + 4 * nu + 5 if per_launch == "step" else 2 * io + 8
+
+
+def swimmer_step_check(env_id: str, seed: int):
+    """Phase 13 for one ID: the step kernel vs its plain version,
+    teacher-forced over 1000 steps of the public step API (auto-reset on),
+    from t spread over the episode and every 64th env on the goal.  The
+    recorded steps are compared SWIMMER_CHUNK at a time, as one batch of
+    SWIMMER_CHUNK * B envs through each version.  At the steps
+    SWIMMER_LIVE_STEPS the env's own wrapper (``make_fast_step(env)``, B
+    envs, the main path's grid) also runs on the step API's live states,
+    and on copies of them with wider rows, and must equal the plain
+    version to the bit."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_step
+    from mujoco_maze_tpu_torch.ops.swimmer_kernel import swimmer_step_plain
+
+    env = mmt.make_batched(env_id, B)
+    spec = env.spec
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    st, _ = env.reset(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = spec.heads.goals
+    on_goal = torch.arange(B, device="cuda") % 64 == 0
+    q = st.qpos.clone()
+    q[:, :3] = torch.where(on_goal[:, None] & (g.dim_mask[0] > 0), g.pos[0],
+                           q[:, :3])
+    t = torch.randint(0, 1000, (B,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    st = st._replace(qpos=q, t=t)
+    obs = spec._observe(st)
+    policy = env.random_policy()
+    nq, nu = spec.nq, spec.robot.action_dim
+    rec = {"qpos": torch.empty(MAIN_STEPS, B, nq, device="cuda"),
+           "qvel": torch.empty(MAIN_STEPS, B, nq, device="cuda"),
+           "t": torch.empty(MAIN_STEPS, B, dtype=torch.int32, device="cuda"),
+           "act": torch.empty(MAIN_STEPS, B, nu, device="cuda")}
+    episodes = torch.zeros((), dtype=torch.int64, device="cuda")
+    terms = torch.zeros((), dtype=torch.int64, device="cuda")
+    live_exact, strides = True, set()
+    for k in range(MAIN_STEPS):
+        act = policy(obs, gen)
+        for name, x in (("qpos", st.qpos), ("qvel", st.qvel), ("t", st.t),
+                        ("act", act)):
+            rec[name][k] = x
+        if k in SWIMMER_LIVE_STEPS:
+            plain = swimmer_step_plain(ks, st.qpos, st.qvel, st.t, act)
+            wide = [torch.zeros(B, x.shape[1] + 3, device="cuda")
+                    for x in (st.qpos, st.qvel, act)]
+            for w, x in zip(wide, (st.qpos, st.qvel, act)):
+                w[:, :x.shape[1]] = x
+            q_w, v_w, a_w = (w[:, :w.shape[1] - 3] for w in wide)
+            for out in (kstep(st.qpos, st.qvel, st.t, act),
+                        kstep(q_w, v_w, st.t, a_w)):
+                live_exact &= all(bool(torch.equal(x, y))
+                                  for x, y in zip(out, plain))
+            strides.add((st.qpos.stride(0), st.qvel.stride(0), act.stride(0)))
+        res = env.step(st, act)
+        episodes += (res.terminated | res.truncated).sum()
+        terms += res.terminated.sum()
+        st, obs = res.state, res.obs
+    big = lane_env.SwimmerStep(ks, SWIMMER_CHUNK * B)
+    nr = spec.robot.nq
+    worst = torch.zeros(4, device="cuda")
+    differ = torch.zeros((), dtype=torch.int64, device="cuda")
+    term_diff = torch.zeros((), dtype=torch.int64, device="cuda")
+    at_limit = torch.zeros((), dtype=torch.int64, device="cuda")
+    hi = float(ks.dyn.limit_hi)
+    for c0 in range(0, MAIN_STEPS, SWIMMER_CHUNK):
+        args = [rec[name][c0:c0 + SWIMMER_CHUNK].reshape(
+            SWIMMER_CHUNK * B, *rec[name].shape[2:]).contiguous()
+            for name in ("qpos", "qvel", "t", "act")]
+        kern = big(*args)
+        plain = swimmer_step_plain(ks, *args)
+        worst = torch.maximum(worst, torch.stack([
+            (kern[i].float() - plain[i].float()).abs().max() for i in range(4)]))
+        differ += torch.stack([(kern[i] != plain[i]).reshape(len(args[0]), -1)
+                               .any(dim=1) for i in range(5)]).any(dim=0).sum()
+        term_diff += (kern[4] != plain[4]).sum()
+        at_limit += (args[0][:, 3:nr].abs() > hi).any(dim=1).sum()
+    e = worst.tolist()
+    n_steps = MAIN_STEPS * B
+    log(f"phase 13: {env_id} the env's own step wrapper ({B} envs) on the "
+        f"step API's states at steps {SWIMMER_LIVE_STEPS} (row strides "
+        f"{sorted(strides)}) and on copies with rows 3 wider: equal to the "
+        f"plain version to the bit: {live_exact}")
+    if not live_exact:
+        raise SystemExit(f"swimmer step kernel disagrees with its plain version "
+                         f"on the step API's states on {env_id}")
+    log(f"phase 13: {env_id} swimmer step kernel vs plain, {MAIN_STEPS} "
+        f"teacher-forced steps x {B} envs ({int(episodes)} episodes ended, "
+        f"{int(terms)} on a goal; {int(at_limit)} env-steps with a hinge past "
+        f"its limit): max |err| qpos {e[0]:.3g} qvel {e[1]:.3g} t {e[2]:.3g} "
+        f"reward {e[3]:.3g} (tol {STEP_TOL}); terminated mismatches "
+        f"{int(term_diff)} (tol 0); env-steps not bit-exact {int(differ)} of "
+        f"{n_steps}")
+    if not max(e) <= STEP_TOL or int(term_diff):
+        raise SystemExit(f"swimmer step kernel disagrees with its plain version on {env_id}")
+    if int(episodes) < B or int(terms) < B // 64 or int(at_limit) == 0:
+        raise SystemExit(f"{env_id}: expected resets, goal hits and hinges at their limits")
+    return max(e)
+
+
+def swimmer_rollout_check(env_id: str, seed: int):
+    """Phase 14 for one ID: the rollout kernel vs its plain version over
+    ROLLOUT_STEPS steps from t spread over the episode's last steps, from
+    the env's own reset states; every reset draw of the envs reset on the
+    last step is the plain version's and the draw itself, to the bit."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout
+    from mujoco_maze_tpu_torch.ops.swimmer_kernel import (rollout_draws,
+                                                          swimmer_rollout_plain)
+
+    env = mmt.make_batched(env_id, B)
+    roll = make_fast_rollout(env, ROLLOUT_STEPS)
+    st, _ = env.reset(seed)
+    idx = torch.arange(B, device="cuda")
+    t0 = (EPISODE_LIMIT - ROLLOUT_STEPS + idx % ROLLOUT_STEPS).to(torch.int32)
+    kern = roll.per_env(st.qpos, st.qvel, t0, seed)
+    plain = swimmer_rollout_plain(roll.ks, st.qpos, st.qvel, t0, seed,
+                                  ROLLOUT_STEPS)
+    eps_diff = int((kern[4] != plain[4]).sum())
+    last = (t0 == EPISODE_LIMIT - ROLLOUT_STEPS) & (plain[2] == 0)
+    _, q_r, v_r = rollout_draws(idx.to(torch.int64), ROLLOUT_STEPS - 1, seed,
+                                env.spec.robot.action_dim, env.spec.nq)
+    draws_exact = all(bool(torch.equal(x[last], y[last])) for x, y in (
+        (kern[0], q_r), (kern[1], v_r), (plain[0], q_r), (plain[1], v_r)))
+    err = max(float((kern[i].float() - plain[i].float()).abs().max())
+              for i in range(4))
+    n_exact = sum(bool(torch.equal(kern[i], plain[i])) for i in range(5))
+    log(f"phase 14: {env_id} swimmer rollout kernel vs plain, {ROLLOUT_STEPS} "
+        f"steps x {B} envs from t in [{EPISODE_LIMIT - ROLLOUT_STEPS}, "
+        f"{EPISODE_LIMIT}): episodes {int(kern[4].sum())} vs "
+        f"{int(plain[4].sum())}, envs whose counts differ {eps_diff} (tol 0); "
+        f"reset draws of the {int(last.sum())} envs reset on the last step "
+        f"({env.spec.nq} qpos and qvel each) exact: {draws_exact}; max |err| "
+        f"{err:.3g} (tol {STEP_TOL}); outputs equal to the bit {n_exact} of 5")
+    if (eps_diff or not draws_exact or not err <= STEP_TOL
+            or int(kern[4].min()) < 1 or int(last.sum()) < B // ROLLOUT_STEPS):
+        raise SystemExit(f"swimmer rollout kernel disagrees with its plain version on {env_id}")
+    return err
+
+
+def swimmer_main_path():
+    """Phase 15: the swimmer main path through the public API, counted,
+    timed and checked; then each swimmer kernel's numbers at its shapes."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import (lane_env, make_fast_rollout,
+                                           make_fast_step)
+    from mujoco_maze_tpu_torch.ops.swimmer_kernel import (swimmer_rollout_plain,
+                                                          swimmer_step_plain)
+    from torch.profiler import ProfilerActivity, profile
+
+    env = mmt.make_batched(SWIMMER_MAIN_ID, B)
+    spec = env.spec
+    policy = env.random_policy()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    st, obs = env.reset(7)
+    fused = make_fast_rollout(env, MAIN_STEPS)
+    for _ in range(3):  # warm-up
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    make_fast_rollout(env, 1)(st.qpos, st.qvel, st.t, 1)
+    torch.cuda.synchronize()
+
+    lane_env.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(MAIN_STEPS):
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    ev[1].record()
+    st_m, rew_m, eps_m = env.rollout_metrics(st, policy, MAIN_STEPS, gen)
+    ev[2].record()
+    qf, vf, tf, rew_f, eps_f = fused(st.qpos, st.qvel, st.t, 29)
+    ev[3].record()
+    torch.cuda.synchronize()
+    launches = dict(lane_env.LAUNCHES)
+    ms_api, ms_metrics, ms_fused = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    log(f"phase 15: swimmer main path {SWIMMER_MAIN_ID} x {B} envs, {MAIN_STEPS} "
+        f"steps per path; launches {launches}")
+    expected = {k: 0 for k in launches}
+    expected.update({"swimmer_step": 2 * MAIN_STEPS, "swimmer_rollout": 1})
+    if launches != expected:
+        raise SystemExit(f"swimmer main path launches {launches}, expected {expected}")
+    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
+    log(f"phase 15: {SWIMMER_MAIN_ID} env-steps/s (CUDA events): step API "
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}, fused "
+        f"rollout {rate(ms_fused):.6g} ({ms_fused:.6g} ms per 1000-step launch)")
+    hinge = float(spec.robot.dyn.limit_hi)
+    checks = {
+        f"obs shape (B, {spec.obs_dim})": tuple(obs.shape) == (B, spec.obs_dim) == (B, 11),
+        "obs finite": bool(torch.isfinite(obs).all()),
+        "obs time channel = t * 0.001": bool(
+            (obs[:, -1] == st.t.float() * 0.001).all()),
+        "obs = (qpos[:5], qvel[:5], t)": bool(
+            (obs[:, :5] == st.qpos).all() and (obs[:, 5:10] == st.qvel).all()),
+        "rollout_metrics reward finite and < 0 (dist reward)": bool(
+            torch.isfinite(rew_m)) and float(rew_m) < 0,
+        "rollout_metrics ended >= B episodes": int(eps_m) >= B,
+        "fused state finite": bool(torch.isfinite(qf).all() and torch.isfinite(vf).all()),
+        f"fused hinges past their {hinge:.4g} rad limits by less than "
+        f"{math.pi - hinge:.3g}": float(qf[:, 3:].abs().max()) < math.pi,
+        "fused t < 1000 (auto-reset at the episode limit)": int(tf.max()) < 1000,
+        "fused reward < 0 (dist reward)": float(rew_f) < 0,
+        "fused episodes >= B (truncation at 1000)": int(eps_f) >= B,
+    }
+    log(f"phase 15: output checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit("the swimmer main path's output failed a check")
+
+    # the port's CUDA path against its CPU path on a small input
+    n_small = 64
+    cpu_env = mmt.make_batched(SWIMMER_MAIN_ID, n_small, auto_reset=False,
+                               device="cpu")
+    gpu_env = mmt.make_batched(SWIMMER_MAIN_ID, n_small, auto_reset=False)
+    s_cpu, _ = cpu_env.reset(5)
+    rng = np.random.RandomState(5)
+    small_err = 0.0
+    for _ in range(10):
+        act = torch.as_tensor(rng.uniform(-1, 1, (n_small, 2)), dtype=torch.float32)
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        small_err = max(small_err, float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
+                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit("the swimmer CUDA path and CPU path disagree on terminated")
+        s_cpu = r_cpu.state
+    log(f"phase 15: CUDA path vs CPU path, {n_small} envs x 10 steps "
+        f"teacher-forced: max |err| obs and reward {small_err:.3g} (tol {STEP_TOL})")
+    if not small_err <= STEP_TOL:
+        raise SystemExit("the swimmer CUDA path disagrees with the CPU path")
+
+    # per-kernel numbers at the main path's shapes
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    act = policy(obs, gen)
+    ms_step = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 200)
+    ms_step_plain = cuda_ms(lambda: swimmer_step_plain(ks, st.qpos, st.qvel,
+                                                       st.t, act), 3)
+    roll = make_fast_rollout(env, ROLLOUT_STEPS)
+    ms_roll = cuda_ms(lambda: roll(st.qpos, st.qvel, st.t, 31), 20)
+    ms_roll_plain = cuda_ms(lambda: swimmer_rollout_plain(
+        ks, st.qpos, st.qvel, st.t, 31, ROLLOUT_STEPS), 1)
+    nq, nu, nl = spec.nq, spec.robot.action_dim, ks.dyn.n_links
+    n_goals = int(ks.goals.shape[0])
+    tables = 4 * 9 * n_goals
+    goal_dims = (ks.goals[:, 3:6] != 0).sum(dim=1).tolist()
+    step_flops = swimmer_step_flops(nl, goal_dims, ks.reward_type == "dist")
+    step_bound = bound(B * swimmer_bytes(nq, nu, "step") + tables,
+                       B * step_flops)
+    roll_bound = bound(B * swimmer_bytes(nq, nu, "rollout") + tables,
+                       B * ROLLOUT_STEPS * step_flops)
+
+    # device times, and where a step-API step's time goes: one profiled
+    # window of 50 steps, then three rollout launches in the same session
+    acts = [policy(obs, gen) for _ in range(50)]
+    s = st
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        for a in acts:
+            s = env.step(s, a).state
+        ev[1].record()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            roll.per_env(st.qpos, st.qvel, st.t, 37)
+        torch.cuda.synchronize()
+    window_us = 1e3 * ev[0].elapsed_time(ev[1])
+    on_device = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0
+                        and "swimmer_rollout_kernel" not in e.key), reverse=True)
+    busy_us = sum(t for t, _, _ in on_device)
+    top = "; ".join(f"{k[:60]} {t / 50:.4g} us/step ({n / 50:.3g}/step)"
+                    for t, n, k in on_device[:4])
+    dev_step, n_dev = device_ms(prof, "swimmer_step_kernel")
+    dev_roll, _ = device_ms(prof, "swimmer_rollout_kernel")
+    log(f"phase 15: profiled {SWIMMER_MAIN_ID} step API, 50 steps in "
+        f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
+        f"{1 - busy_us / window_us:.4g}), {sum(n for _, n, _ in on_device) // 50} "
+        f"kernels/step; top: {top}")
+    log(f"phase 15: swimmer_step {ms_step:.6g} ms/launch, {dev_step:.6g} ms on "
+        f"the device ({n_dev} launches profiled; plain {ms_step_plain:.6g} ms, "
+        f"bound {step_bound[0]:.3g} ms by {step_bound[1]}, "
+        f"{step_flops} fp32 operations per env-step); "
+        f"swimmer_rollout {ms_roll:.6g} ms per {ROLLOUT_STEPS}-step launch, "
+        f"{dev_roll:.6g} ms on the device (plain {ms_roll_plain:.6g} ms, bound "
+        f"{roll_bound[0]:.3g} ms by {roll_bound[1]})")
+    return {
+        "step": {"name": "swimmer_step", "launches": launches["swimmer_step"],
+                 "ms": ms_step, "device_ms": dev_step,
+                 "plain_ms": ms_step_plain, "bound_ms": step_bound[0],
+                 "bound_by": step_bound[1]},
+        "rollout": {"name": "swimmer_rollout",
+                    "launches": launches["swimmer_rollout"], "ms": ms_roll,
+                    "device_ms": dev_roll, "plain_ms": ms_roll_plain,
+                    "bound_ms": roll_bound[0], "bound_by": roll_bound[1]},
+    }
+
+
+def peak_phase():
+    """Phase 16: the FMA-chain kernel against its plain version, on a small
+    array and on the timed launch's chain count (short chains: the plain
+    version rounds twice a step, the kernel once), then the card's fp32
+    peak through ``roofline.fp32_peak_flops``, with the launch counts set
+    to 0 just before and read just after.  The kernel's device time is
+    taken with CUDA events around single launches (best of five): a
+    profiler session this late in the script has recorded no launch."""
+    from mujoco_maze_tpu_torch.ops import lane_env
+    from mujoco_maze_tpu_torch.utils import roofline
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rel = err = 0.0
+    for n_chk in (1 << 16, PEAK_CHAINS):
+        x = torch.rand(n_chk, generator=gen, device="cuda")
+        got = roofline.fma_chain(x, PEAK_CHECK_ITERS)
+        want = roofline.fma_chain_plain(x, PEAK_CHECK_ITERS)
+        rel = max(rel, float(((got - want).abs() / want.abs()).max()))
+        err = max(err, float((got - want).abs().max()))
+    lane_env.reset_launch_counts()
+    peak = roofline.fp32_peak_flops()
+    launches = dict(lane_env.LAUNCHES)
+    n, iters = PEAK_CHAINS, PEAK_ITERS
+    xb = torch.rand(n, device="cuda")
+    ms = cuda_ms(lambda: roofline.fma_chain(xb, iters), 10)
+    dev_ms = min(cuda_ms(lambda: roofline.fma_chain(xb, iters), 1)
+                 for _ in range(5))
+    ms_plain = cuda_ms(lambda: roofline.fma_chain_plain(xb, iters), 1)
+    peak_bound = bound(8 * n, 2 * n * iters)
+    log(f"phase 16: fma_peak vs plain, {PEAK_CHECK_ITERS} steps on 65536 and "
+        f"{PEAK_CHAINS} chains: max relative error {rel:.3g} (tol "
+        f"{PEAK_REL_TOL}); measured fp32 peak {peak:.6g} FLOP/s (launches "
+        f"{launches}), data sheet {FP32_FLOP_S:.6g} ({peak / FP32_FLOP_S:.4g} "
+        f"of it); one launch of {n} chains x {iters} FMAs {ms:.6g} ms back to "
+        f"back, {dev_ms:.6g} ms alone (CUDA events; plain {ms_plain:.6g} ms, "
+        f"bound {peak_bound[0]:.3g} ms by {peak_bound[1]})")
+    others = any(k != "fma_peak" and c for k, c in launches.items())
+    if (not rel <= PEAK_REL_TOL or launches["fma_peak"] < 1 or others
+            or not 0 < peak <= 1.05 * FP32_FLOP_S):
+        raise SystemExit("the fp32 peak kernel disagrees with its plain version, "
+                         "was not launched, or measured an impossible peak")
+    return {"name": "fma_peak", "launches": launches["fma_peak"],
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": ms_plain, "bound_ms": peak_bound[0],
+            "bound_by": peak_bound[1], "measured_fp32_flop_s": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -953,7 +1421,7 @@ def main() -> int:
     log(f"phase 4: main path {MAIN_ID} x {B} envs, {MAIN_STEPS} steps per path; "
         f"launches {launches}")
     if (min(launches["point_step"], launches["point_rollout"]) <= 0
-            or any(n for k, n in launches.items() if k.startswith("ant"))):
+            or any(n for k, n in launches.items() if not k.startswith("point"))):
         raise SystemExit("a kernel of the main path was never launched, or "
                          "another path's kernel was")
     rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
@@ -1089,6 +1557,16 @@ def main() -> int:
     blocks = {env_id: ant_main_path(env_id, "12", "12")
               for env_id in BLOCK_MAIN_IDS}
 
+    # -- 13-15. the Swimmer and the Reacher ----------------------------------
+    swim_step_err = max(swimmer_step_check(env_id, 71 + k)
+                        for k, env_id in enumerate(SWIMMER_IDS))
+    swim_roll_err = max(swimmer_rollout_check(env_id, 81 + k)
+                        for k, env_id in enumerate(SWIMMER_ROLL_IDS))
+    swim = swimmer_main_path()
+
+    # -- 16. the card's fp32 peak ---------------------------------------------
+    peak = peak_phase()
+
     src = "mujoco_maze_tpu_torch/csrc/point_lane.cu"
     kernels = [
         {"name": "point_step", "route": "cuda", "source": src,
@@ -1119,6 +1597,18 @@ def main() -> int:
                 "source": f"mujoco_maze_tpu_torch/csrc/{src}",
                 "replaces": f"mujoco_maze_tpu/ops/ant_pallas.py:{line}",
                 "max_abs_err": err, "library_ms": None, "worlds": worlds})
+    for (kind, line), err in zip((("step", "151"), ("rollout", "143")),
+                                 (swim_step_err, swim_roll_err)):
+        kernels.append({
+            **swim[kind], "route": "cuda",
+            "source": "mujoco_maze_tpu_torch/csrc/swimmer_lane.cu",
+            "replaces": f"mujoco_maze_tpu/ops/swimmer_pallas.py:{line}",
+            "max_abs_err": err, "library_ms": None,
+            "worlds": "the 52 Swimmer and Reacher IDs"})
+    kernels.append({**peak, "route": "cuda",
+                    "source": "mujoco_maze_tpu_torch/csrc/roofline.cu",
+                    "replaces": "mujoco_maze_tpu/utils/roofline.py:54",
+                    "library_ms": None})
     log(f"done in {time.perf_counter() - T0:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

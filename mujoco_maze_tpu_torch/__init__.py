@@ -3,9 +3,10 @@
 The same maze environments, stepped in lockstep for thousands of envs on
 one NVIDIA GPU: plain PyTorch around hand-written CUDA kernels
 (``csrc/point_lane.cu`` for the Point, ``csrc/ant_lane.cuh`` built as
-``ant_lane.cu`` and ``ant_blocks.cu`` for the Ant).  It imports torch,
-numpy and the standard library only — never JAX, gymnasium or the JAX
-package.
+``ant_lane.cu`` and ``ant_blocks.cu`` for the Ant, ``csrc/swimmer_lane.cu``
+for the Swimmer and the Reacher; ``csrc/roofline.cu`` measures the card's
+fp32 peak).  It imports torch, numpy and the standard library only — never
+JAX, gymnasium or the JAX package.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``::
 
@@ -15,12 +16,15 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``::
     state, obs = env.reset(seed=0)
     res = env.step(state, actions)        # one CUDA kernel + auto-reset
 
-The port covers, in float32, 63 of the 145 registered IDs: the 21
-object-free Point mazes, the 21 object-free Ant mazes and the 21 Ant block
+The port covers, in float32, 115 of the 145 registered IDs: the 21
+object-free Point mazes, the 21 object-free Ant mazes, the 21 Ant block
 worlds (movable blocks and the Fall worlds' platforms: AntPush, AntFall,
 AntMultiFall, AntMultiPush, AntMultiPushSmall, AntPushMaze, AntBlockMaze,
-AntBlockCarry).  The other IDs raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+AntBlockCarry) and the 52 Swimmer and Reacher IDs (42 object-free, and
+Push, Fall and MultiFall with one block that the swimmer never moves).
+The other IDs — the 27 Point object worlds and the 3 AntSmallBilliard
+worlds — raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from .maze.cells import MazeCell

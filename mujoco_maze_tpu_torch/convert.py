@@ -15,6 +15,7 @@ import torch
 from .envs.env import EnvState
 from .ops.ant_kernel import AntKernelSpec
 from .ops.point_kernel import PointKernelSpec
+from .ops.swimmer_kernel import SwimmerKernelSpec
 
 
 def from_jax_state(qpos, qvel, t, goal_pos=None, *, device) -> EnvState:
@@ -48,21 +49,21 @@ def lowered_spec(ks) -> Dict[str, object]:
     """The kernel data of ``ks`` under the field names of the JAX package:
     ``point_pallas.PointKernelSpec`` for a :class:`PointKernelSpec`;
     ``ant_math.AntConsts``, ``ant_math.AntWorld`` and
-    ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`.  Numpy
-    arrays (float32 as the kernels read them) and Python scalars."""
+    ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`;
+    ``swimmer_pallas.SwimmerEnvKernelSpec`` (its ``dyn`` fields, those of
+    ``swimmer_math.SwimmerKernelSpec``, under ``dyn.<name>``) for a
+    :class:`SwimmerKernelSpec`.  Numpy arrays (float32 as the kernels read
+    them) and Python scalars."""
     if isinstance(ks, AntKernelSpec):
         return _lowered_ant(ks)
+    if isinstance(ks, SwimmerKernelSpec):
+        return _lowered_swimmer(ks)
     walls = ks.walls.detach().cpu().numpy()
-    goals = ks.env_spec.heads.goals
     out: Dict[str, object] = {
         "walls_p1": walls[:, :2],
         "walls_p2": walls[:, 2:],
         "walls_mask": np.ones(len(walls), dtype=bool),
-        "goal_pos": goals.pos.cpu().numpy(),
-        "goal_dim_mask": goals.dim_mask.cpu().numpy(),
-        "goal_threshold": goals.threshold.cpu().numpy(),
-        "goal_scale": goals.reward_scale.cpu().numpy(),
-        "goal_valid": goals.valid.cpu().numpy(),
+        **_goal_fields(ks.env_spec.heads),
     }
     for name in ("reward_type", "penalty", "scale", "restitution", "com_offset",
                  "eject_margin", "eject_lam", "eject_mu", "dt", "episode_limit",
@@ -72,10 +73,33 @@ def lowered_spec(ks) -> Dict[str, object]:
     return out
 
 
+def _goal_fields(heads) -> Dict[str, np.ndarray]:
+    goals = heads.goals
+    return {
+        "goal_pos": goals.pos.cpu().numpy(),
+        "goal_dim_mask": goals.dim_mask.cpu().numpy(),
+        "goal_threshold": goals.threshold.cpu().numpy(),
+        "goal_scale": goals.reward_scale.cpu().numpy(),
+        "goal_valid": goals.valid.cpu().numpy(),
+    }
+
+
+def _lowered_swimmer(ks: SwimmerKernelSpec) -> Dict[str, object]:
+    d = ks.dyn
+    out: Dict[str, object] = {f"dyn.{name}": getattr(d, name) for name in (
+        "mass", "inertia_z", "armature", "viscosity", "density", "box",
+        "gear", "limit_lo", "limit_hi", "timestep", "n_act", "n_links")}
+    out.update(_goal_fields(ks.env_spec.heads))
+    for name in ("reward_type", "penalty", "scale", "inner_scale",
+                 "frame_skip", "episode_limit", "n_world"):
+        out[name] = getattr(ks, name)
+    out["dynamic_goals"] = False
+    return out
+
+
 def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
     body, dof, act = ks.table("body"), ks.table("dof"), ks.table("act")
     sph, box = ks.table("sph"), ks.table("box")
-    goals = ks.env_spec.heads.goals
     inertias = np.zeros((len(body), 3, 3), np.float32)
     for (r, c), col in zip(((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)),
                            range(14, 20)):
@@ -99,11 +123,7 @@ def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
         # ant_pallas.AntEnvKernelSpec
         "nq": len(ks.table("qpos0")[0]), "nv": len(dof) + ks.n_w,
         "qpos0": ks.table("qpos0")[0],
-        "goal_pos": goals.pos.cpu().numpy(),
-        "goal_dim_mask": goals.dim_mask.cpu().numpy(),
-        "goal_threshold": goals.threshold.cpu().numpy(),
-        "goal_scale": goals.reward_scale.cpu().numpy(),
-        "goal_valid": goals.valid.cpu().numpy(),
+        **_goal_fields(ks.env_spec.heads),
         "reward_type": ks.reward_type, "penalty": ks.penalty,
         "scale": ks.scale, "inner_scale": ks.inner_scale,
         "frame_skip": ks.frame_skip, "episode_limit": ks.episode_limit,

@@ -2,14 +2,15 @@
 ``mujoco_maze_tpu.envs.batched``).
 
 On a CUDA device every step is one launch of the hand-written step kernel
-(``ops.make_fast_step``: the Point or the Ant kernel), followed by the
-observation and a branch-free auto-reset fold in PyTorch — the
-counterpart of the JAX package's ``_build_fast_step``.  On the CPU the
+(``ops.make_fast_step``: the Point, the Ant or the swimmer kernel),
+followed by the observation and a branch-free auto-reset fold in PyTorch —
+the counterpart of the JAX package's ``_build_fast_step``.  On the CPU the
 same wrapper runs the kernel's plain PyTorch version.  ``rollout`` and
 ``rollout_metrics`` are Python loops over ``step``; the fused
 random-policy rollout kernel is ``ops.make_fast_rollout``.  In the block
-worlds the observation holds the blocks' centers (``spec.obs_dim`` wide)
-and a reset puts the blocks back at their start, at rest
+worlds the observation holds the blocks' centers (``spec.obs_dim`` wide);
+a reset puts the Ant's blocks back at their start, at rest, and noises
+the Swimmer's and the Reacher's with the rest of their state
 (``MazeEnvSpec.reset``).
 """
 

@@ -1,11 +1,14 @@
 """Lockstep maze environment: spec construction + batched reset/step.
 
 Port of ``mujoco_maze_tpu.envs.env`` in float32 for the Point robot
-(manual collision) in object-free mazes, and for the Ant robot (the
+(manual collision) in object-free mazes, for the Ant robot (the
 rigid-body engine with contacts) in object-free mazes and in the block
-worlds: movable blocks on slide joints, and the Fall worlds' elevated
-platforms with their falling block.  Construction lowers the grid maze to
-wall, box, block and goal tables on one device; the step is a function
+worlds — movable blocks on slide joints, and the Fall worlds' elevated
+platforms with their falling block — and for the Swimmer and the Reacher
+(closed-form planar dynamics, no contacts) in object-free mazes and in the
+block worlds, whose block dofs they never move.  Construction lowers the
+grid maze to wall, box, block and goal tables on one device; the step is a
+function
 
     step(state, action) -> StepResult(state', obs, reward, terminated, ...)
 
@@ -18,9 +21,10 @@ residual → wall-contact ejection → arrow-tip contacts → robot wall
 resolution → observation (t already incremented) → task heads.  The Ant
 step is frame_skip RK4 steps of the world model with contacts, then the
 observation and the heads, with the inner reward (forward speed minus
-control cost) scaled by the task's ``INNER_REWARD_SCALING``.  Observed
-blocks' centers sit after the first three robot observations, as the
-reference inserts them (maze_env.py:351-369).
+control cost) scaled by the task's ``INNER_REWARD_SCALING``; the
+Swimmer's and the Reacher's the same with their own dynamics on the robot
+dofs.  Observed blocks' centers sit after the first three robot
+observations, as the reference inserts them (maze_env.py:351-369).
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ class StepResult(NamedTuple):
 
 class _BlockRuntime(NamedTuple):
     """Static constants of one movable block (JAX env.py:73-85, the
-    fields the engine path reads)."""
+    fields the port reads)."""
 
     body_pos: np.ndarray            # (3,) body origin at qpos0
     half: np.ndarray                # (3,) box half extents
@@ -71,8 +75,8 @@ class _BlockRuntime(NamedTuple):
 class MazeEnvSpec:
     """Static description of one env ID on one device; batched reset/step.
 
-    The port covers, in float32, the Point robot in
-    object-free mazes and the Ant robot in object-free mazes and in the
+    The port covers, in float32, the Point robot in object-free mazes, and
+    the Ant, the Swimmer and the Reacher in object-free mazes and in the
     worlds with movable blocks and elevated platforms.  Everything else
     raises ``NotImplementedError`` naming the ROADMAP queue item that
     ports it.
@@ -94,10 +98,6 @@ class MazeEnvSpec:
             raise NotImplementedError(
                 "the float64 Point fidelity path is not ported yet "
                 "(ROADMAP queue 1 item 9)")
-        if robot.NAME not in ("Point", "Ant"):
-            raise NotImplementedError(
-                f"the {robot.NAME} robot is not ported yet "
-                "(ROADMAP queue 1 item 10)")
         self.robot = robot
         self.device = torch.device(device)
         self.dtype = dtype
@@ -119,8 +119,8 @@ class MazeEnvSpec:
                 "platforms) are not ported yet (ROADMAP queue 1 item 8)")
         if ms.object_balls:
             raise NotImplementedError(
-                "Ant worlds with object balls are not ported yet (ROADMAP "
-                "queue 1 item 11d)")
+                f"{robot.NAME} worlds with object balls are not ported yet "
+                "(ROADMAP queue 1 item 11d)")
         if any(b.spin for b in ms.movable_blocks):
             raise NotImplementedError(
                 "spin blocks are not ported yet (ROADMAP queue 1 item 11e)")
@@ -143,14 +143,36 @@ class MazeEnvSpec:
             self._build_engine_world()
             self.init_qpos = self.dynamic_model.qpos0.copy()
         else:
-            segs = ms.wall_segments(robot.RADIUS)
-            self.walls = segments.pad_walls(segs, max(len(segs), 1), self.device)
-            self.nq = robot.nq
-            self.nv = robot.nv
-            self.init_qpos = robot.init_qpos(ms.height_offset)
+            if robot.MANUAL_COLLISION:
+                segs = ms.wall_segments(robot.RADIUS)
+                self.walls = segments.pad_walls(segs, max(len(segs), 1),
+                                                self.device)
+            self._build_world_layout()
+            self.init_qpos = np.zeros(self.nq, dtype=np.float64)
+            self.init_qpos[: robot.nq] = robot.init_qpos(ms.height_offset)
         self.init_qvel = np.zeros(self.nv, dtype=np.float64)
         n_objects = len(ms.movable_blocks) if self.task.OBSERVE_BLOCKS else 0
         self.obs_dim = robot.obs_dim + 3 * n_objects + 1
+
+    def _build_world_layout(self) -> None:
+        """World dofs of a robot without the engine world (JAX
+        env.py:225-281): the robot's dofs, then one qpos and one dof per
+        slide of each movable block, in x, y, z order.  Object balls and
+        spin blocks raise before this (ROADMAP items 11d, 11e)."""
+        next_idx = self.robot.nq
+        blocks = []
+        for b in self.structure.movable_blocks:
+            idxs = []
+            for present in (b.move_x, b.move_y, b.move_z):
+                idxs.append(next_idx if present else -1)
+                next_idx += int(present)
+            blocks.append(_BlockRuntime(
+                body_pos=np.asarray(b.pos, np.float64),
+                half=np.asarray(b.size, np.float64), falling=b.falling,
+                qpos_idx=tuple(idxs)))
+        self.block_runtimes = tuple(blocks)
+        self.nq = next_idx
+        self.nv = next_idx
 
     def _build_engine_world(self) -> None:
         """Compose robot + movable blocks + static maze geoms into ONE
@@ -386,8 +408,10 @@ class MazeEnvSpec:
         return StepResult(new_state, obs, reward, terminated, truncated, info)
 
     def _step_dynamic(self, state: EnvState, action: torch.Tensor):
-        """Ant path (JAX env.py:1139-1157): the robot's engine dynamics,
-        then the inner reward terms (ant.py:71-73 info parity)."""
+        """Ant, Swimmer and Reacher path (JAX env.py:1139-1157): the robot's
+        dynamics (the engine with contacts for the Ant, the closed form for
+        the Swimmer and the Reacher), then the inner reward terms
+        (ant.py:71-73, swimmer.py:44-47 info parity)."""
         robot = self.robot
         action = action.to(self.dtype)
         qpos, qvel = robot.dynamics_step(self, state.qpos, state.qvel, action)

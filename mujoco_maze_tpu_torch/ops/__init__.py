@@ -1,16 +1,20 @@
 """Hand-written CUDA kernels for the hot paths (port of
 ``mujoco_maze_tpu.ops``).
 
-- :mod:`.point_kernel` — the Point kernels' tables and plain versions
-- :mod:`.ant_kernel`   — the Ant kernels' tables and plain versions
-- :mod:`.lane_env`     — their launch wrappers and launch counts
-- :mod:`.philox`       — the rollout kernels' random stream, in torch
-- :mod:`._build`       — one ``nvcc`` call over ``csrc/*.cu``, loaded
-  with ``ctypes``
+- :mod:`.point_kernel`   — the Point kernels' tables and plain versions
+- :mod:`.ant_kernel`     — the Ant kernels' tables and plain versions
+- :mod:`.swimmer_kernel` — the swimmer kernels' tables and plain versions
+  (the Swimmer and the Reacher), over :mod:`.swimmer_math`, the
+  closed-form planar dynamics
+- :mod:`.lane_env`       — their launch wrappers and launch counts
+- :mod:`.philox`         — the rollout kernels' random stream, in torch
+- :mod:`._build`         — one ``nvcc`` per ``csrc/*.cu``, linked into one
+  library loaded with ``ctypes``
 
-The port has the Point robot on object-free mazes and the Ant on
-object-free mazes and in the block worlds; the other robots' and worlds'
-kernels are queued in ROADMAP queue 2.
+The port has the Point robot on object-free mazes, and the Ant, the
+Swimmer and the Reacher on object-free mazes and in the block worlds; the
+Point object worlds' and the Ant object balls' kernels are queued in
+ROADMAP queue 2.
 """
 
 from __future__ import annotations
@@ -18,13 +22,19 @@ from __future__ import annotations
 def _kernel(env, which: int):
     """(kernel data, step or rollout wrapper class) of the env's robot, as
     the JAX package's ``_KERNEL_MODULES`` dispatches by robot."""
-    from . import ant_kernel, lane_env, point_kernel
+    from . import ant_kernel, lane_env, point_kernel, swimmer_kernel
 
+    swimmer = (swimmer_kernel.spec_from_env, lane_env.SwimmerStep,
+               lane_env.SwimmerRollout)
     kernels = {
         "Point": (point_kernel.spec_from_env, lane_env.PointStep,
                   lane_env.PointRollout),
         "Ant": (ant_kernel.spec_from_env, lane_env.AntStep,
                 lane_env.AntRollout),
+        # one kernel serves both, as the JAX package routes both to
+        # swimmer_pallas
+        "Swimmer": swimmer,
+        "Reacher": swimmer,
     }
     name = env.spec.robot.NAME
     if name not in kernels:

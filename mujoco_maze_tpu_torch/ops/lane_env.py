@@ -1,14 +1,15 @@
 """Launch wrappers of the CUDA kernels (port of the launch side of
-``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point and Ant step
-and rollout kernels.
+``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point, Ant and
+swimmer (Swimmer and Reacher) step and rollout kernels.
 
 Each wrapper checks device, dtype, shape and the unit inner stride of its
 inputs, allocates outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` through the ``ctypes`` library of
 ``_build``, checks the launch's return code (``cudaGetLastError``) and
 adds one to its entry in :data:`LAUNCHES`.  Inputs on the CPU go to the
-kernel's plain PyTorch version (``point_kernel``, ``ant_kernel``); on a
-CUDA tensor the wrapper launches or raises, it never falls back.
+kernel's plain PyTorch version (``point_kernel``, ``ant_kernel``,
+``swimmer_kernel``); on a CUDA tensor the wrapper launches or raises, it
+never falls back.
 
 The kernels read the public ``(B, nq)`` row-major tensors in place, with
 the row strides passed in: unlike the JAX wrapper (``lane_env.py:245``),
@@ -31,15 +32,24 @@ from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
                           ant_step_plain)
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
+from .swimmer_kernel import (SwimmerKernelSpec, swimmer_rollout_plain,
+                             swimmer_step_plain)
+from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 
 # Launches of each kernel in this process, counted where the wrapper
 # launches it; a run sets them to 0 and reads them back to show that a
 # path went through the kernels.  The Ant kernels have two builds: the
 # object-free mazes' ("ant_step", "ant_rollout") and the block worlds'
-# ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).
+# ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).  The
+# swimmer kernels serve the Swimmer and the Reacher, with or without world
+# dofs (csrc/swimmer_lane.cu).  "fma_peak" counts the fp32 peak kernel
+# (csrc/roofline.cu), which no env path runs; its wrapper is
+# utils/roofline.py fma_chain.
 LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
                             "ant_step": 0, "ant_rollout": 0,
-                            "ant_blocks_step": 0, "ant_blocks_rollout": 0}
+                            "ant_blocks_step": 0, "ant_blocks_rollout": 0,
+                            "swimmer_step": 0, "swimmer_rollout": 0,
+                            "fma_peak": 0}
 # Threads per block of the Ant kernels: one thread per env, and 4096 envs
 # in blocks of 32 spread over 128 of the H100's 132 SMs (PERF.md; a
 # wrapper's ``block`` attribute is what chip_smoke.py varies to measure it).
@@ -135,6 +145,44 @@ def ant_params(ks: AntKernelSpec) -> AntParams:
     )
 
 
+class SwimmerParams(ctypes.Structure):
+    """The constants of one swimmer-family maze, passed by value (mirrors
+    ``struct SwimmerParams`` in ``csrc/swimmer_lane.cu``, field for
+    field)."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "mass", "iz", "armature", "gear",
+        "kv_f", "kv_t", "kq_fx", "kq_fy", "kq_t",
+        "lim_lo", "lim_hi", "lim_b", "lim_d0", "lim_dd",
+        "lim_inv_width", "lim_inv_kden",
+        "h", "h_half", "inv6",
+        "inv_dt", "ctrl_weight", "inner_scale",
+        "penalty", "inv_scale",
+    )] + [(name, ctypes.c_int) for name in (
+        "frame_skip", "reward_type", "episode_limit")]
+
+
+def swimmer_params(ks: SwimmerKernelSpec) -> SwimmerParams:
+    """The struct of ``ks``: each constant the Python double that the plain
+    version (``swimmer_math``, ``models/swimmer.py``) hands to PyTorch,
+    which rounds it once to float32, as ``ctypes`` does here."""
+    d = ks.dyn
+    robot = ks.env_spec.robot
+    return SwimmerParams(
+        mass=d.mass, iz=d.inertia_z, armature=d.armature, gear=d.gear,
+        kv_f=d.kv_f, kv_t=d.kv_t, kq_fx=d.kq_fx, kq_fy=d.kq_fy, kq_t=d.kq_t,
+        lim_lo=d.limit_lo, lim_hi=d.limit_hi, lim_b=d.lim_b,
+        lim_d0=LIMIT_D0, lim_dd=LIMIT_DMAX - LIMIT_D0,
+        lim_inv_width=1.0 / LIMIT_WIDTH, lim_inv_kden=d.lim_inv_kden,
+        h=d.timestep, h_half=d.timestep / 2, inv6=1.0 / 6.0,
+        inv_dt=1.0 / robot.dt, ctrl_weight=robot.CTRL_COST_WEIGHT,
+        inner_scale=ks.inner_scale, penalty=ks.penalty,
+        inv_scale=float(np.float32(1.0) / np.float32(ks.scale)),
+        frame_skip=ks.frame_skip, reward_type=REWARD_TYPES[ks.reward_type],
+        episode_limit=ks.episode_limit,
+    )
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -167,6 +215,19 @@ def _lib() -> ctypes.CDLL:
         _P, AntParams, _I, _I, ctypes.c_uint, _I, _P]
         # tables, params, B, steps, seed, block, stream
     lib.mmt_ant_rollout.restype = _I
+    lib.mmt_swimmer_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
+        _P, _I, SwimmerParams,           # goals, G, params
+        _I, _I, _I, _P]                  # links, world dofs, B, stream
+    lib.mmt_swimmer_step.restype = _I
+    lib.mmt_swimmer_rollout.argtypes = [
+        _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward sum, episodes
+        _P, _I, SwimmerParams,           # goals, G, params
+        _I, _I, _I, _I, ctypes.c_uint, _P]
+        # links, world dofs, B, steps, seed, stream
+    lib.mmt_swimmer_rollout.restype = _I
     lib.mmt_ant_max_world_dofs.restype = _I
     lib.mmt_ant_max_blocks.restype = _I
     return lib
@@ -414,6 +475,100 @@ class AntRollout:
         LAUNCHES["ant_blocks_rollout" if self.ks.n_w else "ant_rollout"] += 1
         out = (q_out, v_out, t_out, rew, eps)
         return out + (active,) if count_active else out
+
+    def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
+        q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)
+        return q, v, tt, torch.sum(rew), torch.sum(eps)
+
+
+def _swimmer_dims(ks: SwimmerKernelSpec):
+    """(nq, n_act) of ``ks``: the robot's coordinates and world dofs."""
+    return 2 + ks.dyn.n_links + ks.n_world, ks.dyn.n_act
+
+
+class SwimmerStep:
+    """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
+    terminated)``: one Swimmer or Reacher step with explicit actions and
+    no reset."""
+
+    def __init__(self, ks: SwimmerKernelSpec, num_envs: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.params = swimmer_params(ks)
+
+    def __call__(self, qpos, qvel, t, actions) -> Tensors5:
+        B, dev = self.num_envs, self.ks.goals.device
+        nq, nu = _swimmer_dims(self.ks)
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nq), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        _check("actions", actions, torch.float32, (B, nu), dev)
+        if dev.type == "cpu":
+            return swimmer_step_plain(self.ks, qpos, qvel, t, actions)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no swimmer step kernel for device {dev}")
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        reward = torch.empty((B,), dtype=torch.float32, device=dev)
+        term = torch.empty((B,), dtype=torch.bool, device=dev)
+        rc = _lib().mmt_swimmer_step(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
+            qpos.stride(0), qvel.stride(0), actions.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            reward.data_ptr(), term.data_ptr(), self.ks.goals.data_ptr(),
+            self.ks.goals.shape[0], self.params, self.ks.dyn.n_links,
+            self.ks.n_world, B, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "swimmer_step")
+        LAUNCHES["swimmer_step"] += 1
+        return q_out, v_out, t_out, reward, term
+
+
+class SwimmerRollout:
+    """``rollout(qpos, qvel, t, seed) -> (qpos', qvel', t', reward_sum,
+    episodes)``: the fused random-policy rollout of the Swimmer or the
+    Reacher with auto-reset (ctrl U(±1); reset: U(±0.1) on every qpos and
+    qvel, world dofs included)."""
+
+    def __init__(self, ks: SwimmerKernelSpec, num_envs: int,
+                 num_steps: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.num_steps = num_steps
+        self.params = swimmer_params(ks)
+
+    def per_env(self, qpos, qvel, t, seed: int) -> Tensors5:
+        """The rollout with per-env reward sums ``(B,)`` float32 and
+        episode counts ``(B,)`` int32."""
+        B, dev = self.num_envs, self.ks.goals.device
+        nq, _ = _swimmer_dims(self.ks)
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nq), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        seed = int(seed)
+        if not 0 <= seed < 2 ** 32:
+            raise ValueError(f"seed must fit in 32 bits, got {seed}")
+        if dev.type == "cpu":
+            return swimmer_rollout_plain(self.ks, qpos, qvel, t, seed,
+                                         self.num_steps)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no swimmer rollout kernel for device {dev}")
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        rew = torch.empty((B,), dtype=torch.float32, device=dev)
+        eps = torch.empty((B,), dtype=torch.int32, device=dev)
+        rc = _lib().mmt_swimmer_rollout(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
+            qpos.stride(0), qvel.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            rew.data_ptr(), eps.data_ptr(), self.ks.goals.data_ptr(),
+            self.ks.goals.shape[0], self.params, self.ks.dyn.n_links,
+            self.ks.n_world, B, self.num_steps, seed,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "swimmer_rollout")
+        LAUNCHES["swimmer_rollout"] += 1
+        return q_out, v_out, t_out, rew, eps
 
     def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
         q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)

@@ -381,13 +381,52 @@ def rne_bias(model: RigidModel, kd: KinDyn, qvel: torch.Tensor) -> torch.Tensor:
 
 
 def fluid_force(model: RigidModel, kd: KinDyn, qvel: torch.Tensor) -> torch.Tensor:
-    """The inertia-box fluid drag of the swimmer; zero for models without
-    viscosity and fluid density (the Ant)."""
-    if model.viscosity != 0.0 or model.fluid_density != 0.0:
-        raise NotImplementedError(
-            "fluid drag (the Swimmer) is not ported yet (ROADMAP queue 1 "
-            "item 10)")
-    return torch.zeros_like(qvel)
+    """MuJoCo's inertia-box fluid model, ``(B, nv)``: viscous and quadratic
+    density drag (JAX ``engine.fluid_force``); zero for models without
+    viscosity and fluid density (the Ant).
+
+    Per body: its velocities in the body frame at the CoM, the drag on the
+    equivalent box of its diagonal inertia, rotated back to world axes and
+    mapped to the dofs on its root path as a spatial force about the
+    reference point ``kd.origin``."""
+    if model.viscosity == 0.0 and model.fluid_density == 0.0:
+        return torch.zeros_like(qvel)
+    cross = torch.linalg.cross
+    B = qvel.shape[0]
+    zeros6 = torch.zeros(B, 6, dtype=qvel.dtype, device=qvel.device)
+    visc, rho = float(model.viscosity), float(model.fluid_density)
+    fs = []
+    for i in range(model.nbody):
+        if model.body_mass[i] <= 0:
+            fs.append(zeros6)
+            continue
+        R = kd.fkr.body_rot[i]
+        Rt = R.transpose(-1, -2)
+        com = kd.fkr.body_com[i] - kd.origin
+        w_w = kd.cvel[i][:, :3]
+        v_w = kd.cvel[i][:, 3:] + cross(w_w, com)   # linear velocity at the CoM
+        w_b, v_b = mat_vec(Rt, w_w), mat_vec(Rt, v_w)
+        box = 2.0 * np.asarray(model.body_fluid_box[i], np.float64)  # full sides
+        force = torch.zeros_like(v_b)
+        torque = torch.zeros_like(w_b)
+        if visc > 0:
+            diam = float(np.mean(box))
+            force = force - 3.0 * np.pi * diam * visc * v_b
+            torque = torque - np.pi * diam ** 3 * visc * w_b
+        if rho > 0:
+            kf = [0.5 * rho * box[(k + 1) % 3] * box[(k + 2) % 3]
+                  for k in range(3)]
+            kt = [rho * box[k] * (box[(k + 1) % 3] ** 4 + box[(k + 2) % 3] ** 4)
+                  / 64.0 for k in range(3)]
+            force = force - torch.as_tensor(kf, dtype=qvel.dtype,
+                                            device=qvel.device) * v_b.abs() * v_b
+            torque = torque - torch.as_tensor(kt, dtype=qvel.dtype,
+                                              device=qvel.device) * w_b.abs() * w_b
+        f_w, t_w = mat_vec(R, force), mat_vec(R, torque)
+        fs.append(torch.cat([t_w + cross(com, f_w), f_w], dim=1))
+    _, chain_mask, _, _ = get_masks(model)
+    proj = kd.cdof @ torch.stack(fs, dim=1).transpose(-1, -2)    # (B, nv, nb)
+    return (proj * _const(chain_mask.astype(np.float64), qvel)).sum(-1)
 
 
 def dof_effective_mass(model: RigidModel, qpos0: np.ndarray) -> np.ndarray:
@@ -509,12 +548,14 @@ def integrate_pos(model: RigidModel, qpos: torch.Tensor, qvel: torch.Tensor,
 def rk4_step(model: RigidModel, qpos: torch.Tensor, qvel: torch.Tensor,
              ctrl: torch.Tensor, extra_qfrc=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One RK4 step of size ``model.timestep`` (MuJoCo's RK4 tableau), the
-    four stages in the order of the JAX engine's ``lax.scan``."""
-    h = float(np.float32(model.timestep))
+    four stages in the order of the JAX engine's ``lax.scan``, with the
+    step sizes rounded to the state's dtype as the JAX engine rounds them."""
+    rnd = np.float32 if qpos.dtype == torch.float32 else np.float64
+    h = float(rnd(model.timestep))
     zero_v = torch.zeros_like(qvel)
     prev_v, prev_a, acc_v, acc_a = qvel, zero_v, zero_v, zero_v
     for hs, w in ((0.0, 1.0), (h / 2, 2.0), (h / 2, 2.0), (h, 1.0)):
-        hs = float(np.float32(hs))
+        hs = float(rnd(hs))
         q_s = integrate_pos(model, qpos, prev_v, hs)
         v_s = qvel + prev_a * hs
         a_s = forward(model, q_s, v_s, ctrl, extra_qfrc)

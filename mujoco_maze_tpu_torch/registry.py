@@ -18,17 +18,15 @@ from ._device import DeviceLike, resolve_device
 from .envs.env import MazeEnvSpec
 from .models.ant import AntRobot
 from .models.point import PointRobot
+from .models.reacher import ReacherRobot
+from .models.swimmer import SwimmerRobot
 from .tasks.core import MazeTask
 from .tasks.library import TaskRegistry
 
 MAX_EPISODE_STEPS = 1000  # reference __init__.py:31
 
-# Robots whose port has not landed, and the ROADMAP queue item that ports them.
-_NOT_PORTED = {
-    "Swimmer": "ROADMAP queue 1 item 10",
-    "Reacher": "ROADMAP queue 1 item 10",
-}
-_ROBOTS = {"Point": PointRobot, "Ant": AntRobot}
+_ROBOTS = {"Point": PointRobot, "Ant": AntRobot, "Swimmer": SwimmerRobot,
+           "Reacher": ReacherRobot}
 
 
 @dataclass(frozen=True)
@@ -102,10 +100,6 @@ def make_spec(
     """Build the :class:`MazeEnvSpec` of a registered env ID on ``device``
     (``None`` means CUDA; pass ``device="cpu"`` to run without a card)."""
     e = entry(env_id)
-    if e.robot_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{env_id}: the {e.robot_name} robot is not ported yet "
-            f"({_NOT_PORTED[e.robot_name]})")
     return MazeEnvSpec(
         robot=_ROBOTS[e.robot_name](),
         maze_task=e.task_cls,

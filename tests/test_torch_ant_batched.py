@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu_torch as mmt  # noqa: E402
 from mujoco_maze_tpu_torch.ops import (lane_env, make_fast_rollout,  # noqa: E402
                                        make_fast_step)

@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu as jmmt  # noqa: E402
 from mujoco_maze_tpu.physics import contact as jcontact  # noqa: E402
 from mujoco_maze_tpu.physics import engine as jeng  # noqa: E402

@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu as jmmt  # noqa: E402
 from mujoco_maze_tpu.physics import contact as jcontact  # noqa: E402
 from mujoco_maze_tpu.physics import engine as jeng  # noqa: E402
@@ -188,14 +190,22 @@ def test_integrate_pos_matches_and_keeps_unit_quaternions(sides):
 
 
 def test_fluid_drag_waits_for_the_swimmer(sides):
+    """The Ant has no fluid drag; set on its 13-body model (the Swimmer's
+    viscosity and density), the ported drag is the JAX engine's."""
     _, spec, _ = sides
     model = spec.dynamic_model
+    jmodel = jmmt.make_spec(ENV_ID).dynamic_model
     q, v, _ = _inputs(spec, 0)
     kd = teng.kin_dyn(model, torch.as_tensor(q), torch.as_tensor(v))
     assert float(teng.fluid_force(model, kd, torch.as_tensor(v)).abs().max()) == 0
-    model.viscosity = 0.1
+    for m in (model, jmodel):
+        m.viscosity, m.fluid_density = 0.1, 4000.0
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            teng.fluid_force(model, kd, torch.as_tensor(v))
+        got = teng.fluid_force(model, kd, torch.as_tensor(v)).numpy()
+        want = jax.vmap(lambda a, b: jeng.fluid_force(
+            jmodel, jeng.kin_dyn(jmodel, a, b), b))(jnp.asarray(q), jnp.asarray(v))
     finally:
-        model.viscosity = 0.0
+        for m in (model, jmodel):
+            m.viscosity, m.fluid_density = 0.0, 0.0
+    assert np.abs(got).max() > 1e-3
+    assert _rel(got, want) < 5e-5

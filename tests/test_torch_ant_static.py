@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu as jmmt  # noqa: E402
 from mujoco_maze_tpu.ops import ant_pallas  # noqa: E402
 

@@ -7,6 +7,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu_torch as mmt  # noqa: E402
 from mujoco_maze_tpu_torch.ops import lane_env, make_fast_step  # noqa: E402
 
@@ -131,7 +133,7 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
 
 
 def test_object_worlds_and_other_robots_are_queued():
-    for env_id in ("PointPush-v0", "AntSmallBilliard-v0", "SwimmerUMaze-v0"):
+    for env_id in ("PointPush-v0", "AntSmallBilliard-v0", "PointFall-v0"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mmt.make_batched(env_id, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu_torch as mmt  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -52,14 +54,21 @@ ant = mmt.make_batched("AntUMaze-v0", 8, device="cpu")
 a_state, a_obs = ant.reset(0)
 a_state = ant.step(a_state, ant.random_policy()(a_obs, gen)).state
 make_fast_rollout(ant, 1)(a_state.qpos, a_state.qvel, a_state.t, 1)
+sw = mmt.make_batched("SwimmerPush-v0", 8, device="cpu")
+s_state, s_obs = sw.reset(0)
+s_state = sw.step(s_state, sw.random_policy()(s_obs, gen)).state
+make_fast_rollout(sw, 1)(s_state.qpos, s_state.qvel, s_state.t, 1)
+from mujoco_maze_tpu_torch.utils import roofline
+roofline.fma_chain(torch.rand(8), 4)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
                                          "mujoco_maze_tpu"))
 print("LOADED", loaded, tuple(obs.shape), int(state.t.max()),
-      tuple(a_obs.shape), int(a_state.t.max()))
+      tuple(a_obs.shape), int(a_state.t.max()), tuple(s_obs.shape),
+      int(s_state.t.max()))
 """)
     assert proc.returncode == 0, proc.stderr
-    assert "LOADED [] (8, 7) 3 (8, 30) 1" in proc.stdout
+    assert "LOADED [] (8, 7) 3 (8, 30) 1 (8, 14) 1" in proc.stdout
 
 
 def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
@@ -89,7 +98,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(entry, monkeypatch):
     """device=None means CUDA: without a card the entry point raises
     instead of carrying on quietly on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for env_id in ("PointUMaze-v0", "AntUMaze-v0"):
+    for env_id in ("PointUMaze-v0", "AntUMaze-v0", "SwimmerUMaze-v0"):
         args = (env_id,) if entry == "make_spec" else (env_id, 4)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             getattr(mmt, entry)(*args)

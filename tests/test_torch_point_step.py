@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 import mujoco_maze_tpu as jmmt  # noqa: E402
 
 import mujoco_maze_tpu_torch as tmmt  # noqa: E402

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
+
 from mujoco_maze_tpu.ops import segments as jseg  # noqa: E402
 
 from mujoco_maze_tpu_torch.maze.collision import CollisionDetector  # noqa: E402

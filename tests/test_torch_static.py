@@ -3,7 +3,8 @@
 For every one of the 145 registered env IDs: the registry entry, the maze
 structure, the wall soups and the lowered goal arrays are equal on both
 sides, and the port's ``make_spec`` either builds the spec (object-free
-Point mazes) or raises ``NotImplementedError`` naming the ROADMAP item.
+Point mazes; Ant, Swimmer and Reacher mazes without object balls) or
+raises ``NotImplementedError`` naming the ROADMAP item.
 """
 
 import dataclasses
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+
+from _torch_threads import one_intraop_thread  # noqa: E402,F401
 
 from mujoco_maze_tpu.maze.structure import analyze_maze as jax_analyze  # noqa: E402
 from mujoco_maze_tpu.registry import ENV_REGISTRY as JAX_REGISTRY  # noqa: E402
@@ -71,8 +74,8 @@ def test_static_world_matches(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_make_spec_covers_the_object_free_point_mazes(env_id):
-    """The object-free Point mazes and the Ant mazes without object balls
-    build; every other ID raises."""
+    """The object-free Point mazes, and the Ant, Swimmer and Reacher mazes
+    without object balls build; every other ID raises."""
     je, _, _, _, js, _ = _structures(env_id)
     object_free = not js.movable_blocks and not js.object_balls
     if je.robot_name == "Point" and object_free:
@@ -90,6 +93,13 @@ def test_make_spec_covers_the_object_free_point_mazes(env_id):
             np.concatenate([js.block_pos, js.platform_pos]).reshape(-1, 3))
         n_obs = len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0
         assert spec.obs_dim == 30 + 3 * n_obs
+    elif je.robot_name in ("Swimmer", "Reacher") and not js.object_balls:
+        spec = mmt.make_spec(env_id, device="cpu")
+        n_robot = 5 if je.robot_name == "Swimmer" else 4
+        n_obs = len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0
+        n_world = sum(b.move_x + b.move_y + b.move_z for b in js.movable_blocks)
+        assert (spec.nq, spec.nv) == (n_robot + n_world,) * 2
+        assert spec.obs_dim == 2 * n_robot + 1 + 3 * n_obs
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             mmt.make_spec(env_id, device="cpu")
