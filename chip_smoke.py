@@ -6,7 +6,8 @@ Builds the CUDA kernels from ``mujoco_maze_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
 ``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
-AntFall-v0 and SwimmerUMaze-v0, each stepped through the public API,
+AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, each stepped through the
+public API,
 ``rollout_metrics``, and the fused random-policy rollout — counts the
 kernel launches of each path, and times them with CUDA events; and
 measures the card's fp32 peak with its own kernel.
@@ -69,7 +70,28 @@ Phases (each fails the run on its own; nothing is caught):
     (``utils/roofline.py``), checked against its plain version on a small
     array and at the timed launch's chain count, printed beside the data
     sheet's 67e12;
-17. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+17. the Point object-world step kernel against its plain version on
+    PointPush-v0, PointBilliard-v0, PointBlockCarry-v0 (the heads on the
+    block), PointFall-v0, PointMultiPushSmall-v0 (three blocks, six object
+    dofs) and PointPushMaze-v0 (676 candidate rows) at 4096 envs,
+    teacher-forced for 8 steps from states with the robot against the
+    blocks and balls, blocks at their travel limits, the Fall block
+    perched, at the floor or in between, and t spread over the episode:
+    the robot's dofs, t and the robot-anchored heads exact, the objects
+    within 1e-4 (qpos) and 2e-3 (qvel) but at a named knife edge (a row
+    active in one version only), the count of bit-exact env-steps printed;
+18. the object-world rollout kernel against its plain version on
+    PointPush-v0 and PointBilliard-v0, as phase 3: episode counts, the
+    robot's dofs and each reset draw exact, the world dofs of the envs
+    that reset on the last step at 0, at rest;
+19. the object-world main path, PointPush-v0 at 4096 envs, counted, timed
+    and checked as in phase 4; the object kernels' times per launch and
+    on the device, their bounds (fp32 operations counted from
+    ``ops/object_lanes.py`` at the run's active rows) and plain times, on
+    PointPush-v0 and on PointPushMaze-v0.  Phases 17-19 run in a process
+    of their own (``python3 chip_smoke.py --point-objects``), with a
+    fresh CUDA context and profiler;
+20. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -1296,6 +1318,561 @@ def peak_phase():
             "bound_by": peak_bound[1], "measured_fp32_flop_s": peak}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the Point object worlds, in a process of their own
+# ---------------------------------------------------------------------------
+# The object worlds' kernels (point_objects_step, point_objects_rollout) do
+# the plain version's float32 operations in its order (csrc/
+# point_objects.cuh, "Arithmetic"), so they agree to the bit; the bounds
+# below are the ones the JAX package holds its lane form of the object
+# solve to against its monolith (tests/test_object_lanes.py), and an
+# env-step beyond them passes only at a knife edge: an active row in one
+# version only, named, in at most KNIFE_SHARE of the env-steps.
+OBJ_IDS = ("PointPush-v0", "PointBilliard-v0", "PointBlockCarry-v0",
+           "PointFall-v0", "PointMultiPushSmall-v0", "PointPushMaze-v0")
+OBJ_ROLL_IDS = ("PointPush-v0", "PointBilliard-v0")
+OBJ_MAIN_ID = "PointPush-v0"
+OBJ_WORST_ID = "PointPushMaze-v0"      # 676 candidate rows, the most
+OBJ_CHECK_STEPS = 8
+OBJ_QPOS_TOL = 1e-4
+OBJ_QVEL_TOL = 2e-3
+OBJ_FLAG = "--point-objects"           # runs phases 17-19 alone
+OBJ_RESULT = "POINT_OBJECTS_RESULT "
+
+
+def obj_geometry_flops(ks) -> int:
+    """fp32 operations of one forward evaluation's candidate tests, counted
+    from ops/object_lanes.py (a sine, cosine, square root, division, min,
+    max or abs counts as one; selects and comparisons count none): the
+    stage pose and its sine and cosine 8; per ball, the sphere-box test of
+    each wall 22, the robot sphere 10, the arrow box 29; per block, the
+    robot sphere 22, the arrow's SAT 45, each reachable wall 19 (29 with a
+    z slide), each earlier block 19, each ball 22, a falling block's floor
+    2; each slide limit 2."""
+    o = ks.object_spec
+    n = 8
+    W = o.wb_c.shape[0]
+    for _ in o.balls:
+        n += 22 * W + 10 + 29
+    for k, bk in enumerate(o.blocks):
+        z = bk.dof_z >= 0
+        n += 22 + 45 + (29 if z else 19) * len(bk.wall_idx) + 19 * k
+        n += 22 * len(o.balls) + (2 if z else 0)
+        if bk.lim is not None:
+            n += 2 * 2 * sum(1 for lim in bk.lim if lim is not None)
+    return n
+
+
+def obj_row_flops(nd: int) -> int:
+    """Per active row of one forward evaluation: its share of its contact's
+    set-up (frame 20, impedance 9, J v 6 nd, k pen and rinv 5, the
+    contact's point and Jacobian 16) and its own J and aref (2 nd + 4);
+    then per Newton step J x - aref and J p (4 nd), the gradient and
+    Hessian terms (2 nd + nd (nd + 1) + 2), and the line search's 11
+    derivative evaluations (5 each)."""
+    build = (20 + 9 + 6 * nd + 5 + 16) / 4 + 2 * nd + 4
+    newton = 4 * nd + 2 * nd + nd * (nd + 1) + 2 + 11 * 5
+    return int(build + 6 * newton)
+
+
+def obj_solve_flops(nd: int) -> int:
+    """Per forward evaluation, the Newton steps' fixed work: the gradient's
+    and Hessian's mass terms (3 nd), the Cholesky factor (nd^3 / 3 + nd^2
+    / 2 + 2 nd), the two solves (2 nd^2), p M x and p M p (6 nd), the
+    bisection (44) and the update (2 nd); six Newton steps."""
+    return 6 * (3 * nd + nd ** 3 // 3 + nd * nd // 2 + 2 * nd + 2 * nd * nd
+                + 6 * nd + 44 + 2 * nd)
+
+
+def obj_step_flops(ks, active_rows_per_eval: float) -> int:
+    """fp32 operations of one object-world env step: the robot's step
+    (``step_flops``), four forward evaluations (candidate tests, the
+    active rows this run's data has, the solve) and the RK4 stages and
+    sum (40 nd + 18)."""
+    nd = ks.object_spec.nd
+    per_eval = (obj_geometry_flops(ks) + obj_solve_flops(nd)
+                + active_rows_per_eval * obj_row_flops(nd))
+    return int(step_flops(int(ks.walls.shape[0]), int(ks.goals.shape[0]))
+               + 4 * per_eval + 40 * nd + 18)
+
+
+def obj_bytes(nq: int, per_launch: str) -> int:
+    """Bytes each env moves per launch: qpos, qvel and t in and out, and
+    the actions, reward and flag of a step (the rollout: reward sum and
+    episode count)."""
+    state = 2 * (8 * nq + 4)
+    return state + (8 + 4 + 1 if per_launch == "step" else 4 + 4)
+
+
+def obj_coverage(spec, qpos: torch.Tensor):
+    """Per env at ``qpos``: a block slide within 0.02 of its travel limit
+    or past it; a falling block perched (z slide at 0, on its platform);
+    a falling block down at the floor (z slide within 0.05 of its lower
+    limit)."""
+    ks = spec.object_spec
+    at_limit = torch.zeros(qpos.shape[0], dtype=torch.bool, device=qpos.device)
+    perched, floor = at_limit.clone(), at_limit.clone()
+    for bk, rt in zip(ks.blocks, spec.block_runtimes):
+        for a, i in enumerate(rt.qpos_idx[:2]):
+            if i < 0:
+                continue
+            lo = float(rt.xy_lo[a]) - float(rt.body_pos[a])
+            hi = float(rt.xy_hi[a]) - float(rt.body_pos[a])
+            at_limit |= (qpos[:, i] <= lo + 0.02) | (qpos[:, i] >= hi - 0.02)
+        if rt.qpos_idx[2] >= 0:
+            z = qpos[:, rt.qpos_idx[2]]
+            perched |= z >= -1e-3
+            floor |= z <= bk.lim[2][0] + 0.05
+    return at_limit, perched, floor
+
+
+def obj_knife_tail(env_id, ks, qpos, qvel, act, kbits, over):
+    """For the env-steps ``over`` beyond a bound: which of them have a row
+    active in one version only (a knife edge), named by the first such
+    row."""
+    from mujoco_maze_tpu_torch.ops import object_lanes
+    from mujoco_maze_tpu_torch.ops.point_kernel import object_active_plain
+
+    if not len(over):
+        return over, []
+    pa = object_active_plain(ks, qpos[over], qvel[over], act[over])
+    kb = kbits[over]
+    differ = (pa != kb).flatten(1).any(dim=1)
+    names = object_lanes.row_names(ks.object_spec)
+    notes = []
+    for j in torch.nonzero(differ).flatten().tolist()[:3]:
+        ev, row = (int(x) for x in torch.nonzero(pa[j] != kb[j])[0])
+        who = "kernel" if bool(kb[j, ev, row]) else "plain"
+        notes.append(f"env {int(over[j])}: forward evaluation {ev}, row {row} "
+                     f"({names[row]}) active in the {who} only")
+    return over[differ], notes
+
+
+def obj_step_check(env_id: str, seed: int):
+    """Phase 17 for one ID: the object-world step kernel vs its plain
+    version at B envs, teacher-forced along the public step API's
+    trajectory from ``point_kernel.object_states`` (the robot within reach
+    of a ball or a block, moving at it; blocks at and inside their travel
+    limits; the Fall block perched, at the floor or in between; t spread
+    over the episode)."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import make_fast_step
+    from mujoco_maze_tpu_torch.ops.point_kernel import (object_states,
+                                                        point_step_plain,
+                                                        trace_bits)
+
+    env = mmt.make_batched(env_id, B)
+    spec = env.spec
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    q, v, t = (torch.as_tensor(x, device="cuda")
+               for x in object_states(spec, B, seed))
+    st = EnvState(qpos=q, qvel=v, t=t)
+    obs = spec._observe(st)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    policy = env.random_policy()
+    lim, perched, floor = obj_coverage(spec, q)
+    robot_off = t_off = head_off = knife_heads = 0
+    knife_steps, notes, exact = 0, [], 0
+    eq_all, ev_all = [], []
+    touching = torch.zeros(B, dtype=torch.bool, device="cuda")
+    floor_rows = 4 * len(ks.object_spec.balls)
+    resets = 0
+    for _ in range(OBJ_CHECK_STEPS):
+        act = policy(obs, gen)
+        qk, vk, tk, rk, mk, tr = kstep(st.qpos, st.qvel, st.t, act, trace=True)
+        qp, vp, tp, rp, mp = point_step_plain(ks, st.qpos, st.qvel, st.t, act)
+        kbits = trace_bits(tr, ks.max_rows)
+        touching |= kbits.sum(dim=-1).max(dim=-1).values > floor_rows
+        robot_off += int(((qk[:, :3] != qp[:, :3]) | (vk[:, :3] != vp[:, :3]))
+                         .any(dim=1).sum())
+        t_off += int((tk != tp).sum())
+        exact += int(((qk == qp).all(dim=1) & (vk == vp).all(dim=1)
+                      & (rk == rp) & (mk == mp)).sum())
+        eq = (qk[:, 3:] - qp[:, 3:]).abs().max(dim=1).values
+        ev = (vk[:, 3:] - vp[:, 3:]).abs().max(dim=1).values
+        over = torch.nonzero((eq > OBJ_QPOS_TOL) | (ev > OBJ_QVEL_TOL))[:, 0]
+        knife, more = obj_knife_tail(env_id, ks, st.qpos, st.qvel, act, kbits,
+                                     over)
+        knife_steps += len(knife)
+        notes += more
+        eq[knife] = 0.0
+        ev[knife] = 0.0
+        eq_all.append(eq)
+        ev_all.append(ev)
+        if ks.obs_offset == 0:
+            head_off += int(((rk != rp) | (mk != mp)).sum())
+        else:
+            edge = knife_edges(ks, EnvState(qpos=qp, qvel=vp, t=tp))
+            bad = ((mk != mp) | ((rk - rp).abs() > OBJ_QPOS_TOL)) & ~edge
+            head_off += int(bad.sum())
+            knife_heads += int(((mk != mp) & edge).sum())
+        res = env.step(st, act)
+        resets += int((res.terminated | res.truncated).sum())
+        st, obs = res.state, res.obs
+    eq_all, ev_all = torch.stack(eq_all), torch.stack(ev_all)
+    n = OBJ_CHECK_STEPS * B
+    cover = {"touching an object": int(touching.sum()),
+             "a block at a travel limit": int(lim.sum()),
+             "Fall block perched": int(perched.sum()),
+             "Fall block at the floor": int(floor.sum())}
+    log(f"phase 17: {env_id} object step kernel vs plain, {OBJ_CHECK_STEPS} "
+        f"teacher-forced steps x {B} envs (R = {ks.max_rows} candidate rows): "
+        f"env-steps bit-exact (qpos, qvel, reward, terminated) {exact} of {n}; "
+        f"robot dofs off {robot_off} (tol 0), t off {t_off} (tol 0); object "
+        f"qpos median {float(eq_all.median()):.3g} max {float(eq_all.max()):.3g} "
+        f"(tol {OBJ_QPOS_TOL}), qvel median {float(ev_all.median()):.3g} max "
+        f"{float(ev_all.max()):.3g} (tol {OBJ_QVEL_TOL}); knife-edge env-steps "
+        f"(a row active in one version only) {knife_steps} (tol "
+        f"{int(KNIFE_SHARE * n)}) {notes}; heads off {head_off} (tol 0), "
+        f"terminated off at a goal-threshold knife edge {knife_heads}; "
+        f"envs {cover}; episodes ended {resets}")
+    if (robot_off or t_off or head_off or knife_steps > KNIFE_SHARE * n
+            or not float(eq_all.max()) <= OBJ_QPOS_TOL
+            or not float(ev_all.max()) <= OBJ_QVEL_TOL):
+        raise SystemExit(f"object step kernel disagrees with its plain version "
+                         f"on {env_id}")
+    blocky = bool(ks.object_spec.blocks)
+    falling = any(b.dof_z >= 0 for b in ks.object_spec.blocks)
+    if (cover["touching an object"] < B // 4
+            or (blocky and cover["a block at a travel limit"] < B // 10)
+            or (falling and (cover["Fall block perched"] < B // 10
+                             or cover["Fall block at the floor"] < B // 10))):
+        raise SystemExit(f"{env_id}: expected the robot on the objects, blocks "
+                         "at their limits, and perched and fallen Fall blocks")
+    return max(float(eq_all.max()), float(ev_all.max()))
+
+
+def obj_rollout_check(env_id: str, seed: int):
+    """Phase 18 for one ID: the object-world rollout kernel vs its plain
+    version (the same Philox stream), ROLLOUT_STEPS steps from t spread
+    over the window's end, from the env's reset states: every env resets;
+    the episode counts, the robot dofs and each reset draw exact; the
+    world dofs of the envs that reset on the last step at 0, at rest."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout
+    from mujoco_maze_tpu_torch.ops.point_kernel import (point_rollout_plain,
+                                                        rollout_draws)
+
+    env = mmt.make_batched(env_id, B)
+    roll = make_fast_rollout(env, ROLLOUT_STEPS)
+    st, _ = env.reset(seed)
+    t0 = (EPISODE_LIMIT - ROLLOUT_STEPS
+          + torch.arange(B, device="cuda") % ROLLOUT_STEPS).to(torch.int32)
+    kern = roll.per_env(st.qpos, st.qvel, t0, seed)
+    plain = point_rollout_plain(roll.ks, st.qpos, st.qvel, t0, seed,
+                                ROLLOUT_STEPS)
+    qk, vk, tk, rk, ek = kern
+    qp, vp, tp, rp, ep = plain
+    robot_off = int(((qk[:, :3] != qp[:, :3]) | (vk[:, :3] != vp[:, :3]))
+                    .any(dim=1).sum())
+    eq = float((qk[:, 3:] - qp[:, 3:]).abs().max())
+    ev = float((vk[:, 3:] - vp[:, 3:]).abs().max())
+    exact = int(((qk == qp).all(dim=1) & (vk == vp).all(dim=1) & (rk == rp)
+                 & (tk == tp) & (ek == ep)).sum())
+    last = tk == 0            # reset on the last step: the draw, world at 0
+    _, q_r, v_r = rollout_draws(torch.arange(B, device="cuda"),
+                                ROLLOUT_STEPS - 1, seed)
+    draw_off = int(((qk[last, :3] != q_r[last]) | (vk[last, :3] != v_r[last]))
+                   .any(dim=1).sum())
+    world_off = int(((qk[last, 3:] != 0) | (vk[last, 3:] != 0)).any(dim=1).sum())
+    eps_diff = int((ek != ep).sum())
+    log(f"phase 18: {env_id} object rollout kernel vs plain, {ROLLOUT_STEPS} "
+        f"steps x {B} envs from t in [{EPISODE_LIMIT - ROLLOUT_STEPS}, "
+        f"{EPISODE_LIMIT}): envs bit-exact {exact} of {B}; robot dofs off "
+        f"{robot_off} (tol 0); object qpos max {eq:.3g} (tol {OBJ_QPOS_TOL}), "
+        f"qvel max {ev:.3g} (tol {OBJ_QVEL_TOL}); episodes {int(ek.sum())} vs "
+        f"{int(ep.sum())}, envs whose counts differ {eps_diff} (tol 0); "
+        f"{int(last.sum())} envs reset on the last step: reset draws off "
+        f"{draw_off}, world dofs not at 0 at rest {world_off} (tol 0)")
+    if (robot_off or eps_diff or draw_off or world_off or int((tk != tp).sum())
+            or not eq <= OBJ_QPOS_TOL or not ev <= OBJ_QVEL_TOL):
+        raise SystemExit(f"object rollout kernel disagrees with its plain "
+                         f"version on {env_id}")
+    if int(ek.sum()) < B or int(last.sum()) == 0:
+        raise SystemExit(f"{env_id}: expected every env to reset in the window")
+    return max(eq, ev)
+
+
+def obj_kernel_numbers(env_id: str, prof_steps: bool):
+    """The object kernels' times at B envs on ``env_id``: per launch by
+    CUDA events (step: 50 back to back; rollout: one 1000-step and one
+    ROLLOUT_STEPS-step launch), and on the device (profiler); the mean
+    active rows of a step (from a traced launch) and the bounds."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+    from mujoco_maze_tpu_torch.ops.point_kernel import trace_bits
+    from torch.profiler import ProfilerActivity, profile
+
+    env = mmt.make_batched(env_id, B)
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    policy = env.random_policy()
+    st, obs = env.reset(17)
+    for _ in range(20):      # leave the start: the robot among the objects
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    act = policy(obs, gen)
+    tr = kstep(st.qpos, st.qvel, st.t, act, trace=True)[-1]
+    rows = float(trace_bits(tr, ks.max_rows).sum(dim=-1).float().mean())
+    roll = make_fast_rollout(env, MAIN_STEPS)
+    roll64 = make_fast_rollout(env, ROLLOUT_STEPS)
+    ms_step = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 50)
+    ms_roll = cuda_ms(lambda: roll.per_env(st.qpos, st.qvel, st.t, 19), 1)
+    ms_roll64 = cuda_ms(lambda: roll64.per_env(st.qpos, st.qvel, st.t, 19), 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kstep(st.qpos, st.qvel, st.t, act)
+        roll64.per_env(st.qpos, st.qvel, st.t, 19)
+        torch.cuda.synchronize()
+    dev_step, n_step = device_ms(prof, "point_obj_step_kernel")
+    dev_roll64, _ = device_ms(prof, "point_obj_rollout_kernel")
+    flops = obj_step_flops(ks, rows)
+    nq = 3 + ks.n_world
+    tables = 4 * (4 * ks.walls.shape[0] + 9 * ks.goals.shape[0]
+                  + ks.obj_table.numel())
+    step_bound = bound(B * obj_bytes(nq, "step") + tables, B * flops)
+    roll_bound = bound(B * obj_bytes(nq, "rollout") + tables,
+                       B * MAIN_STEPS * flops)
+    roll64_bound = bound(B * obj_bytes(nq, "rollout") + tables,
+                         B * ROLLOUT_STEPS * flops)
+    log(f"phase 19: {env_id} point_objects_step {ms_step:.6g} ms/launch, "
+        f"{dev_step:.6g} ms on the device ({n_step} profiled), bound "
+        f"{step_bound[0]:.3g} ms by {step_bound[1]} ({flops} fp32 operations "
+        f"per env-step at {rows:.4g} active rows per forward evaluation, R = "
+        f"{ks.max_rows}); point_objects_rollout {ms_roll:.6g} ms per "
+        f"{MAIN_STEPS}-step launch (bound {roll_bound[0]:.3g} ms), {ms_roll64:.6g} "
+        f"ms per {ROLLOUT_STEPS}-step launch, {dev_roll64:.6g} ms on the device "
+        f"(bound {roll64_bound[0]:.3g} ms)")
+    return {"ms_step": ms_step, "dev_step": dev_step, "step_bound": step_bound,
+            "ms_roll": ms_roll, "roll_bound": roll_bound, "ms_roll64": ms_roll64,
+            "dev_roll64": dev_roll64, "roll64_bound": roll64_bound,
+            "rows": rows, "flops": flops, "st": st, "act": act, "env": env}
+
+
+def obj_main_path():
+    """Phase 19: the main path, PointPush-v0 at B envs through the public
+    API (step, rollout_metrics, the fused rollout), counted, timed and
+    checked as in phase 4; then the kernels' numbers on PointPush-v0 and on
+    PointPushMaze-v0 (676 candidate rows, the most of the 27 worlds)."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_rollout
+    from mujoco_maze_tpu_torch.ops.point_kernel import (point_rollout_plain,
+                                                        point_step_plain)
+    from torch.profiler import ProfilerActivity, profile
+
+    env = mmt.make_batched(OBJ_MAIN_ID, B)
+    spec = env.spec
+    policy = env.random_policy()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    st, obs = env.reset(23)
+    fused = make_fast_rollout(env, MAIN_STEPS)
+    for _ in range(5):  # warm-up
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    make_fast_rollout(env, 1)(st.qpos, st.qvel, st.t, 1)
+    torch.cuda.synchronize()
+
+    lane_env.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(MAIN_STEPS):
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    ev[1].record()
+    st_m, rew_m, eps_m = env.rollout_metrics(st, policy, MAIN_STEPS, gen)
+    ev[2].record()
+    qf, vf, tf, rew_f, eps_f = fused(st.qpos, st.qvel, st.t, 41)
+    ev[3].record()
+    torch.cuda.synchronize()
+    launches = dict(lane_env.LAUNCHES)
+    ms_api, ms_metrics, ms_fused = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    log(f"phase 19: object main path {OBJ_MAIN_ID} x {B} envs, {MAIN_STEPS} "
+        f"steps per path; launches {launches}")
+    expected = {k: 0 for k in launches}
+    expected.update({"point_objects_step": 2 * MAIN_STEPS,
+                     "point_objects_rollout": 1})
+    if launches != expected:
+        raise SystemExit(f"object main path launches {launches}, expected {expected}")
+    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
+    log(f"phase 19: {OBJ_MAIN_ID} env-steps/s (CUDA events): step API "
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}, fused "
+        f"rollout {rate(ms_fused):.6g} ({ms_fused:.6g} ms per 1000-step launch)")
+    xmin, xmax, ymin, ymax = spec.structure.xy_limits()
+    rt = spec.block_runtimes[0]
+    block = spec.block_center(qf, rt)
+    checks = {
+        f"obs shape (B, {spec.obs_dim})": tuple(obs.shape) == (B, spec.obs_dim) == (B, 10),
+        "obs finite": bool(torch.isfinite(obs).all()),
+        "obs time channel = t * 0.001": bool(
+            (obs[:, -1] == st.t.float() * 0.001).all()),
+        "obs block center = body + slides": bool(
+            (obs[:, 3:6] == spec.block_center(st.qpos, rt)).all()),
+        "rollout_metrics reward finite and < 0 (dist reward)": bool(
+            torch.isfinite(rew_m)) and float(rew_m) < 0,
+        "rollout_metrics ended >= B episodes": int(eps_m) >= B,
+        "fused state finite": bool(torch.isfinite(qf).all() and torch.isfinite(vf).all()),
+        "fused robot and block inside the maze (+-0.5)": bool(
+            (qf[:, 0] > xmin - 0.5).all() and (qf[:, 0] < xmax + 0.5).all()
+            and (qf[:, 1] > ymin - 0.5).all() and (qf[:, 1] < ymax + 0.5).all()
+            and (block[:, 0] > xmin - 0.5).all() and (block[:, 0] < xmax + 0.5).all()
+            and (block[:, 1] > ymin - 0.5).all() and (block[:, 1] < ymax + 0.5).all()),
+        "fused blocks moved (some env pushed its block)": bool(
+            (qf[:, 3:].abs().max(dim=1).values > 0.05).any()),
+        "fused t < 1000 (auto-reset at the episode limit)": int(tf.max()) < 1000,
+        "fused reward < 0 (dist reward)": float(rew_f) < 0,
+        "fused episodes >= B (truncation at 1000)": int(eps_f) >= B,
+    }
+    log(f"phase 19: output checks {checks}")
+    if not all(checks.values()):
+        raise SystemExit("the object main path's output failed a check")
+
+    # the port's CUDA path against its CPU path on a small input
+    n_small = 64
+    cpu_env = mmt.make_batched(OBJ_MAIN_ID, n_small, auto_reset=False, device="cpu")
+    gpu_env = mmt.make_batched(OBJ_MAIN_ID, n_small, auto_reset=False)
+    from mujoco_maze_tpu_torch.ops.point_kernel import object_states
+    q, v, t = object_states(cpu_env.spec, n_small, 5)
+    s_cpu = EnvState(qpos=torch.as_tensor(q), qvel=torch.as_tensor(v),
+                     t=torch.as_tensor(t))
+    rng = np.random.RandomState(5)
+    small_err = 0.0
+    for _ in range(5):
+        act = torch.as_tensor(rng.uniform(-1, 1, (n_small, 2)) * [1.0, 0.25],
+                              dtype=torch.float32)
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        small_err = max(small_err, float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
+                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit("the object CUDA path and CPU path disagree on terminated")
+        s_cpu = r_cpu.state
+    log(f"phase 19: CUDA path vs CPU path, {n_small} envs x 5 steps "
+        f"teacher-forced from object states: max |err| obs and reward "
+        f"{small_err:.3g} (tol {STEP_TOL})")
+    if not small_err <= STEP_TOL:
+        raise SystemExit("the object CUDA path disagrees with the CPU path")
+
+    # where a step-API step's time goes: one profiled window of 50 steps
+    acts = [policy(obs, gen) for _ in range(50)]
+    s = st
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        for a in acts:
+            s = env.step(s, a).state
+        ev[1].record()
+        torch.cuda.synchronize()
+    window_us = 1e3 * ev[0].elapsed_time(ev[1])
+    on_device = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(t for t, _, _ in on_device)
+    idle = 1 - busy_us / window_us if busy_us else float("nan")
+    top = "; ".join(f"{k[:60]} {t / 50:.4g} us/step ({n / 50:.3g}/step)"
+                    for t, n, k in on_device[:4])
+    n_kernels = sum(n for _, n, _ in on_device) / 50
+    log(f"phase 19: profiled {OBJ_MAIN_ID} step API, 50 steps in "
+        f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
+        f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
+
+    # the kernels' numbers, and the plain versions' times at the main shapes
+    main = obj_kernel_numbers(OBJ_MAIN_ID, True)
+    worst = obj_kernel_numbers(OBJ_WORST_ID, False)
+    ks = main["env"]._kernel_step.ks
+    mst, mact = main["st"], main["act"]
+    ms_step_plain = cuda_ms(lambda: point_step_plain(ks, mst.qpos, mst.qvel,
+                                                     mst.t, mact), 3)
+    ms_roll_plain = cuda_ms(lambda: point_rollout_plain(
+        ks, mst.qpos, mst.qvel, mst.t, 19, ROLLOUT_STEPS), 1)
+    log(f"phase 19: plain versions on {OBJ_MAIN_ID}: step {ms_step_plain:.6g} "
+        f"ms, rollout {ms_roll_plain:.6g} ms per {ROLLOUT_STEPS} steps (CUDA "
+        f"events); kernel/bound: step {main['ms_step'] / main['step_bound'][0]:.4g}x, "
+        f"rollout {main['ms_roll'] / main['roll_bound'][0]:.4g}x")
+    return {
+        "rates": {"step_api": rate(ms_api), "rollout_metrics": rate(ms_metrics),
+                  "fused": rate(ms_fused), "idle_share": idle,
+                  "kernels_per_step": n_kernels},
+        "step": {"name": "point_objects_step",
+                 "launches": launches["point_objects_step"],
+                 "ms": main["ms_step"], "device_ms": main["dev_step"],
+                 "plain_ms": ms_step_plain, "bound_ms": main["step_bound"][0],
+                 "bound_by": main["step_bound"][1],
+                 "active_rows_per_eval": main["rows"],
+                 "fp32_ops_per_env_step": main["flops"],
+                 "worst_world": {"id": OBJ_WORST_ID, "ms": worst["ms_step"],
+                                 "device_ms": worst["dev_step"],
+                                 "bound_ms": worst["step_bound"][0],
+                                 "active_rows_per_eval": worst["rows"]}},
+        # per ROLLOUT_STEPS-step launch (the plain rollout takes ~0.2 s a
+        # step); the 1000-step launch's time beside it
+        "rollout": {"name": "point_objects_rollout",
+                    "launches": launches["point_objects_rollout"],
+                    "steps_per_launch": ROLLOUT_STEPS,
+                    "ms": main["ms_roll64"], "device_ms": main["dev_roll64"],
+                    "plain_ms": ms_roll_plain,
+                    "bound_ms": main["roll64_bound"][0],
+                    "bound_by": main["roll64_bound"][1],
+                    "ms_per_1000_steps": main["ms_roll"],
+                    "bound_ms_per_1000_steps": main["roll_bound"][0],
+                    "worst_world": {"id": OBJ_WORST_ID, "ms": worst["ms_roll64"],
+                                    "device_ms": worst["dev_roll64"],
+                                    "bound_ms": worst["roll64_bound"][0],
+                                    "ms_per_1000_steps": worst["ms_roll"]}},
+    }
+
+
+def point_objects_phases() -> int:
+    """Phases 17-19, run in a process of their own (``python3 chip_smoke.py
+    --point-objects``, started by ``main``): a fresh CUDA context and
+    profiler, whose sessions late in a long process have recorded no
+    launch.  Prints its result as one ``POINT_OBJECTS_RESULT {json}``
+    line."""
+    from mujoco_maze_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    step_err = max(obj_step_check(env_id, 91 + k)
+                   for k, env_id in enumerate(OBJ_IDS))
+    roll_err = max(obj_rollout_check(env_id, 97 + k)
+                   for k, env_id in enumerate(OBJ_ROLL_IDS))
+    out = obj_main_path()
+    out["step"]["max_abs_err"] = step_err
+    out["rollout"]["max_abs_err"] = roll_err
+    print(OBJ_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def run_point_objects():
+    """Start phases 17-19 in their own process, pass its log through, and
+    return its result; fails the run if that process fails."""
+    proc = subprocess.Popen([sys.executable, __file__, OBJ_FLAG],
+                            stdout=subprocess.PIPE, text=True)
+    result = None
+    for line in proc.stdout:
+        if line.startswith(OBJ_RESULT):
+            result = json.loads(line[len(OBJ_RESULT):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or result is None:
+        raise SystemExit(f"phases 17-19 failed (exit code {proc.returncode})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only",
@@ -1567,6 +2144,9 @@ def main() -> int:
     # -- 16. the card's fp32 peak ---------------------------------------------
     peak = peak_phase()
 
+    # -- 17-19. the Point object worlds, in a process of their own -----------
+    objects = run_point_objects()
+
     src = "mujoco_maze_tpu_torch/csrc/point_lane.cu"
     kernels = [
         {"name": "point_step", "route": "cuda", "source": src,
@@ -1609,6 +2189,16 @@ def main() -> int:
                     "source": "mujoco_maze_tpu_torch/csrc/roofline.cu",
                     "replaces": "mujoco_maze_tpu/utils/roofline.py:54",
                     "library_ms": None})
+    for kind, line in (("step", "635"), ("rollout", "621")):
+        kernels.append({
+            **objects[kind], "route": "cuda",
+            "source": "mujoco_maze_tpu_torch/csrc/point_lane.cu",
+            "replaces": f"mujoco_maze_tpu/ops/point_pallas.py:{line}",
+            "object_solve": "mujoco_maze_tpu_torch/csrc/point_objects.cuh "
+                            "(mujoco_maze_tpu/ops/object_lanes.py:1009)",
+            "library_ms": None, "worlds": "the 27 Point object worlds",
+            "main_path": OBJ_MAIN_ID, **(
+                {"main_path_rates": objects["rates"]} if kind == "step" else {})})
     log(f"done in {time.perf_counter() - T0:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
@@ -1619,4 +2209,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(point_objects_phases() if OBJ_FLAG in sys.argv[1:] else main())

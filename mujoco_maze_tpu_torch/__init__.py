@@ -2,7 +2,8 @@
 
 The same maze environments, stepped in lockstep for thousands of envs on
 one NVIDIA GPU: plain PyTorch around hand-written CUDA kernels
-(``csrc/point_lane.cu`` for the Point, ``csrc/ant_lane.cuh`` built as
+(``csrc/point_lane.cu`` for the Point, with the object worlds' reduced
+object solve in ``csrc/point_objects.cuh``; ``csrc/ant_lane.cuh`` built as
 ``ant_lane.cu`` and ``ant_blocks.cu`` for the Ant, ``csrc/swimmer_lane.cu``
 for the Swimmer and the Reacher; ``csrc/roofline.cu`` measures the card's
 fp32 peak).  It imports torch, numpy and the standard library only — never
@@ -16,15 +17,19 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``::
     state, obs = env.reset(seed=0)
     res = env.step(state, actions)        # one CUDA kernel + auto-reset
 
-The port covers, in float32, 115 of the 145 registered IDs: the 21
-object-free Point mazes, the 21 object-free Ant mazes, the 21 Ant block
-worlds (movable blocks and the Fall worlds' platforms: AntPush, AntFall,
-AntMultiFall, AntMultiPush, AntMultiPushSmall, AntPushMaze, AntBlockMaze,
-AntBlockCarry) and the 52 Swimmer and Reacher IDs (42 object-free, and
-Push, Fall and MultiFall with one block that the swimmer never moves).
-The other IDs — the 27 Point object worlds and the 3 AntSmallBilliard
-worlds — raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+The port covers, in float32, 142 of the 145 registered IDs: the 21
+object-free Point mazes, the 27 Point object worlds (PointPush,
+PointMultiPush, PointMultiPushSmall, PointPushMaze, PointFall,
+PointMultiFall-v2, PointBlockMaze, PointBlockCarry, PointBilliard,
+PointSmallBilliard: movable blocks, the falling block on its platform and
+hinge balls, stepped by the reduced object solve), the 21 object-free Ant
+mazes, the 21 Ant block worlds (movable blocks and the Fall worlds'
+platforms: AntPush, AntFall, AntMultiFall, AntMultiPush,
+AntMultiPushSmall, AntPushMaze, AntBlockMaze, AntBlockCarry) and the 52
+Swimmer and Reacher IDs (42 object-free, and Push, Fall and MultiFall
+with one block that the swimmer never moves).  The 3 AntSmallBilliard
+worlds raise ``NotImplementedError`` naming the ROADMAP item that ports
+them (11d).
 """
 
 from .maze.cells import MazeCell

@@ -47,7 +47,11 @@ def to_numpy(state: EnvState) -> Dict[str, Optional[np.ndarray]]:
 
 def lowered_spec(ks) -> Dict[str, object]:
     """The kernel data of ``ks`` under the field names of the JAX package:
-    ``point_pallas.PointKernelSpec`` for a :class:`PointKernelSpec`;
+    ``point_pallas.PointKernelSpec`` for a :class:`PointKernelSpec` (in an
+    object world with ``n_world``, ``obs_offset``, ``object_dof_idx`` and
+    the fields of its ``object_lanes.ObjectLanesSpec`` under
+    ``object_spec.<name>``, the balls and blocks as lists of dicts of
+    their ``BallL`` / ``BlockL`` fields);
     ``ant_math.AntConsts``, ``ant_math.AntWorld`` and
     ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`;
     ``swimmer_pallas.SwimmerEnvKernelSpec`` (its ``dyn`` fields, those of
@@ -68,8 +72,15 @@ def lowered_spec(ks) -> Dict[str, object]:
     for name in ("reward_type", "penalty", "scale", "restitution", "com_offset",
                  "eject_margin", "eject_lam", "eject_mu", "dt", "episode_limit",
                  "radius", "body_mass", "couple_arm", "spin_inertia",
-                 "arrow_tips"):
+                 "arrow_tips", "n_world", "obs_offset", "object_dof_idx"):
         out[name] = getattr(ks, name)
+    o = ks.object_spec
+    if o is not None:
+        for name in o._fields:
+            val = getattr(o, name)
+            if name in ("balls", "blocks"):
+                val = [e._asdict() for e in val]
+            out[f"object_spec.{name}"] = val
     return out
 
 

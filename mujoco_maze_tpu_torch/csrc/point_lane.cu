@@ -1,4 +1,5 @@
-// Point robot on a plain (object-free) maze: the step and rollout kernels.
+// Point robot: the step and rollout kernels, on a plain (object-free)
+// maze and in the object worlds.
 //
 // Replaces the TPU kernels of the JAX package:
 //   point_step    <- mujoco_maze_tpu/ops/lane_env.py LaneEnvKernel.build_step
@@ -7,6 +8,15 @@
 //   point_rollout <- mujoco_maze_tpu/ops/lane_env.py LaneEnvKernel.build_rollout
 //                    with ops/point_pallas.py build_rollout_kernel
 //                    (sample_ctrl / sample_reset, lane_env.uniform)
+//   point_obj_step, point_obj_rollout <- the same, in the object worlds:
+//                    the reduced object solve of point_objects.cuh runs
+//                    between the kinematics and the residual
+//                    (_step_math :419-430), the heads read the first object
+//                    where the task says so (:567-574), and a reset puts
+//                    the world dofs at 0, at rest (sample_reset :599-612).
+//
+// The plain mazes' kernels are the instantiations without objects
+// (kObj = false): their code is the same as before the object worlds came.
 //
 // Design.  One thread is one env; its state stays in registers for the
 // whole step (or the whole rollout).  Blocks of 128 threads; the last block
@@ -51,6 +61,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "point_objects.cuh"
 
 struct PointParams {
   float dt, com_offset, vel_limit;
@@ -126,13 +137,26 @@ __device__ bool detect(const Tables& tb, float ox, float oy, float nx,
   return any;
 }
 
+// An object world's data for the step: its scalars, its table (shared
+// memory), and this env's row scratch and trace (nullable).
+struct ObjCtx {
+  ObjParams p;
+  const float* tab;
+  float* rows;
+  int n;
+  uint32_t* trace;
+};
+
 // One Point env step (envs/env.py _step_manual, float32 branch, plus the
-// task heads): kinematics and wrap; COM residual; wall ejection; two
-// arrow-tip contacts; wall-crossing resolution with restitution and
-// give-up; t + 1.  No reset.
+// task heads): kinematics and wrap; [the objects' RK4 step;] COM residual;
+// wall ejection; two arrow-tip contacts; wall-crossing resolution with
+// restitution and give-up; t + 1.  No reset.  oq, ov: the object dofs in
+// the solve's order (kObj only).
+template <bool kObj>
 __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
                            float* v, int* t, float ax, float ar,
-                           float* reward, bool* term) {
+                           float* reward, bool* term, const ObjCtx* oc,
+                           float* oq, float* ov) {
   const float ox = q[0], oy = q[1];
   // kinematics (point.py:44-57): single-branch wrap, full qvel clip
   float ori = q[2] + ar;
@@ -143,6 +167,15 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
   float vx = fminf(fmaxf(v[0], -p.vel_limit), p.vel_limit);
   float vy = fminf(fmaxf(v[1], -p.vel_limit), p.vel_limit);
   float vr = fminf(fmaxf(v[2], -p.vel_limit), p.vel_limit);
+  if constexpr (kObj) {
+    // the objects' RK4 step from the post-teleport, pre-residual robot
+    // pose with the clipped velocities; the robot's dofs do not feel it
+#pragma unroll
+    for (int i = 0; i < mmt_obj::kDofs; ++i)
+      ov[i] = fminf(fmaxf(ov[i], -p.vel_limit), p.vel_limit);
+    mmt_obj::object_step(oc->p, oc->tab, oc->rows, oc->n, oc->trace, x, y,
+                         ori, vx, vy, vr, oq, ov);
+  }
 
   // closed-form mj_step residual (models/point.py residual_step)
   const float r = p.com_offset, dt = p.dt;
@@ -251,15 +284,26 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
     }
   }
 
-  // task heads on obs[:3] = (x, y, ori): lane_env.goal_heads, with the
+  // task heads on obs[:3] = (x, y, ori), or on the first object's center
+  // where the task observes it there: lane_env.goal_heads, with the
   // first-hit-wins order of the goals and their dim masks
+  float hx = x, hy = y, hz = ori;
+  if constexpr (kObj) {
+    if (oc->p.head_obj) {
+      const float* base = oc->tab + mmt_obj::kHeadBase;
+      const float* hd = oc->tab + mmt_obj::kHeadDof;
+      hx = base[0] + (hd[0] >= 0.f ? mmt_obj::pick(oq, (int)hd[0]) : 0.f);
+      hy = base[1] + (hd[1] >= 0.f ? mmt_obj::pick(oq, (int)hd[1]) : 0.f);
+      hz = base[2] + (hd[2] >= 0.f ? mmt_obj::pick(oq, (int)hd[2]) : 0.f);
+    }
+  }
   float rew = p.reward_type == 2 ? p.penalty : 0.f;
   bool hit_any = false;
   for (int gi = tb.n_goals - 1; gi >= 0; --gi) {
     const float* gr = tb.goals + gi * kGoalCols;
-    const float ddx = (x - gr[0]) * gr[3];
-    const float ddy = (y - gr[1]) * gr[4];
-    const float ddz = (ori - gr[2]) * gr[5];
+    const float ddx = (hx - gr[0]) * gr[3];
+    const float ddy = (hy - gr[1]) * gr[4];
+    const float ddz = (hz - gr[2]) * gr[5];
     const float d2 = ddx * ddx + ddy * ddy + ddz * ddz;
     if (gi == 0 && p.reward_type == 1) rew = -(sqrtf(d2) * p.inv_scale);
     const bool near = gr[8] != 0.f && d2 <= gr[6];
@@ -303,8 +347,8 @@ __global__ void point_step_kernel(
   int t = t_in[i];
   float rew;
   bool done;
-  point_step(p, tb, q, v, &t, act[i * a_stride], act[i * a_stride + 1], &rew,
-             &done);
+  point_step<false>(p, tb, q, v, &t, act[i * a_stride], act[i * a_stride + 1],
+                    &rew, &done, nullptr, nullptr, nullptr);
   for (int k = 0; k < 3; ++k) {
     qpos_out[i * 3 + k] = q[k];
     qvel_out[i * 3 + k] = v[k];
@@ -339,8 +383,9 @@ __global__ void point_rollout_kernel(
     const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
     float rew;
     bool term;
-    point_step(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
-               mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term);
+    point_step<false>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+                      mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term,
+                      nullptr, nullptr, nullptr);
     // branch-free auto-reset (point_pallas.py sample_reset): q ~ U(+-0.1),
     // v ~ U(0, 0.1), t = 0
     const bool done = term || t >= p.episode_limit;
@@ -369,6 +414,147 @@ __global__ void point_rollout_kernel(
 
 size_t table_bytes(int n_walls, int n_goals) {
   return sizeof(float) * (size_t)(n_walls * kWallCols + n_goals * kGoalCols);
+}
+
+// Stage the object table after the wall and goal tables.
+__device__ const float* stage_objects(float* smem, const float* table,
+                                      int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = table[i];
+  __syncthreads();
+  return smem;
+}
+
+// Load an env's object dofs (solve order) from its qpos / qvel rows.
+__device__ void load_objects(const float* tab, int nd, const float* qrow,
+                             const float* vrow, float* oq, float* ov) {
+#pragma unroll
+  for (int s = 0; s < mmt_obj::kDofs; ++s) {
+    const int a = (int)tab[mmt_obj::kHeadIdx + s];
+    oq[s] = s < nd ? qrow[a] : 0.f;
+    ov[s] = s < nd ? vrow[a] : 0.f;
+  }
+}
+
+__device__ void store_objects(const float* tab, int nd, const float* oq,
+                              const float* ov, float* qrow, float* vrow) {
+#pragma unroll
+  for (int s = 0; s < mmt_obj::kDofs; ++s) {
+    if (s < nd) {
+      const int a = (int)tab[mmt_obj::kHeadIdx + s];
+      qrow[a] = oq[s];
+      vrow[a] = ov[s];
+    }
+  }
+}
+
+__global__ void point_obj_step_kernel(
+    const float* __restrict__ qpos, const float* __restrict__ qvel,
+    const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
+    int v_stride, int a_stride, float* __restrict__ qpos_out,
+    float* __restrict__ qvel_out, int* __restrict__ t_out,
+    float* __restrict__ reward, bool* __restrict__ term,
+    const float* __restrict__ walls, int n_walls,
+    const float* __restrict__ goals, int n_goals, PointParams p,
+    const float* __restrict__ obj_table, ObjParams op, float* rows,
+    uint32_t* trace, int n) {
+  extern __shared__ float smem[];
+  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
+  const float* tab = stage_objects(
+      smem + n_walls * kWallCols + n_goals * kGoalCols, obj_table, op.n_table);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int nq = 3 + op.nd;
+  const float* qrow = qpos + (size_t)i * q_stride;
+  const float* vrow = qvel + (size_t)i * v_stride;
+  float q[3] = {qrow[0], qrow[1], qrow[2]};
+  float v[3] = {vrow[0], vrow[1], vrow[2]};
+  float oq[mmt_obj::kDofs], ov[mmt_obj::kDofs];
+  load_objects(tab, op.nd, qrow, vrow, oq, ov);
+  int t = t_in[i];
+  const ObjCtx oc{op, tab, rows + i, n,
+                  trace ? trace + (size_t)i * 4 * op.trace_words : nullptr};
+  float rew;
+  bool done;
+  point_step<true>(p, tb, q, v, &t, act[(size_t)i * a_stride],
+                   act[(size_t)i * a_stride + 1], &rew, &done, &oc, oq, ov);
+  float* qo = qpos_out + (size_t)i * nq;
+  float* vo = qvel_out + (size_t)i * nq;
+  for (int k = 0; k < 3; ++k) {
+    qo[k] = q[k];
+    vo[k] = v[k];
+  }
+  store_objects(tab, op.nd, oq, ov, qo, vo);
+  t_out[i] = t;
+  reward[i] = rew;
+  term[i] = done;
+}
+
+__global__ void point_obj_rollout_kernel(
+    const float* __restrict__ qpos, const float* __restrict__ qvel,
+    const int* __restrict__ t_in, int q_stride, int v_stride,
+    float* __restrict__ qpos_out, float* __restrict__ qvel_out,
+    int* __restrict__ t_out, float* __restrict__ reward_sum,
+    int* __restrict__ episodes, const float* __restrict__ walls, int n_walls,
+    const float* __restrict__ goals, int n_goals, PointParams p,
+    const float* __restrict__ obj_table, ObjParams op, float* rows, int n,
+    int num_steps, uint32_t seed) {
+  extern __shared__ float smem[];
+  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
+  const float* tab = stage_objects(
+      smem + n_walls * kWallCols + n_goals * kGoalCols, obj_table, op.n_table);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int nq = 3 + op.nd;
+  const float* qrow = qpos + (size_t)i * q_stride;
+  const float* vrow = qvel + (size_t)i * v_stride;
+  float q[3] = {qrow[0], qrow[1], qrow[2]};
+  float v[3] = {vrow[0], vrow[1], vrow[2]};
+  float oq[mmt_obj::kDofs], ov[mmt_obj::kDofs];
+  load_objects(tab, op.nd, qrow, vrow, oq, ov);
+  int t = t_in[i];
+  const ObjCtx oc{op, tab, rows + i, n, nullptr};
+  float rew_sum = 0.f;
+  int eps = 0;
+  for (int s = 0; s < num_steps; ++s) {
+    // counter (env, step, block, 0): actions, then the reset draws; the
+    // world dofs draw nothing
+    const uint4 b0 = mmt::philox_block((uint32_t)i, (uint32_t)s, 0u, seed);
+    const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
+    float rew;
+    bool term;
+    point_step<true>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+                     mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term, &oc,
+                     oq, ov);
+    const bool done = term || t >= p.episode_limit;
+    const float qr[3] = {mmt::uniform24(b0.z, -0.1f, 0.1f),
+                         mmt::uniform24(b0.w, -0.1f, 0.1f),
+                         mmt::uniform24(b1.x, -0.1f, 0.1f)};
+    const float vr[3] = {mmt::uniform24(b1.y, 0.f, 0.1f),
+                         mmt::uniform24(b1.z, 0.f, 0.1f),
+                         mmt::uniform24(b1.w, 0.f, 0.1f)};
+    for (int k = 0; k < 3; ++k) {
+      q[k] = done ? qr[k] : q[k];
+      v[k] = done ? vr[k] : v[k];
+    }
+#pragma unroll
+    for (int k = 0; k < mmt_obj::kDofs; ++k) {
+      oq[k] = done ? 0.f : oq[k];
+      ov[k] = done ? 0.f : ov[k];
+    }
+    t = done ? 0 : t;
+    rew_sum = rew_sum + rew;
+    eps = eps + (done ? 1 : 0);
+  }
+  float* qo = qpos_out + (size_t)i * nq;
+  float* vo = qvel_out + (size_t)i * nq;
+  for (int k = 0; k < 3; ++k) {
+    qo[k] = q[k];
+    vo[k] = v[k];
+  }
+  store_objects(tab, op.nd, oq, ov, qo, vo);
+  t_out[i] = t;
+  reward_sum[i] = rew_sum;
+  episodes[i] = eps;
 }
 
 }  // namespace
@@ -404,6 +590,44 @@ extern "C" int mmt_point_rollout(
         qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
         reward_sum, episodes, walls, n_walls, goals, n_goals, p, n, num_steps,
         seed);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_point_obj_step(
+    const float* qpos, const float* qvel, const int* t, const float* act,
+    int q_stride, int v_stride, int a_stride, float* qpos_out,
+    float* qvel_out, int* t_out, float* reward, bool* term,
+    const float* walls, int n_walls, const float* goals, int n_goals,
+    PointParams p, const float* obj_table, ObjParams op, float* rows,
+    unsigned int* trace, int n, void* stream) {
+  if (n > 0) {
+    point_obj_step_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
+                            table_bytes(n_walls, n_goals) +
+                                sizeof(float) * (size_t)op.n_table,
+                            (cudaStream_t)stream>>>(
+        qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
+        t_out, reward, term, walls, n_walls, goals, n_goals, p, obj_table, op,
+        rows, trace, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_point_obj_rollout(
+    const float* qpos, const float* qvel, const int* t, int q_stride,
+    int v_stride, float* qpos_out, float* qvel_out, int* t_out,
+    float* reward_sum, int* episodes, const float* walls, int n_walls,
+    const float* goals, int n_goals, PointParams p, const float* obj_table,
+    ObjParams op, float* rows, int n, int num_steps, unsigned int seed,
+    void* stream) {
+  if (n > 0) {
+    point_obj_rollout_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
+                               table_bytes(n_walls, n_goals) +
+                                   sizeof(float) * (size_t)op.n_table,
+                               (cudaStream_t)stream>>>(
+        qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
+        reward_sum, episodes, walls, n_walls, goals, n_goals, p, obj_table,
+        op, rows, n, num_steps, seed);
   }
   return (int)cudaGetLastError();
 }

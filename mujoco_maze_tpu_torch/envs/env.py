@@ -1,10 +1,11 @@
 """Lockstep maze environment: spec construction + batched reset/step.
 
 Port of ``mujoco_maze_tpu.envs.env`` in float32 for the Point robot
-(manual collision) in object-free mazes, for the Ant robot (the
-rigid-body engine with contacts) in object-free mazes and in the block
-worlds — movable blocks on slide joints, and the Fall worlds' elevated
-platforms with their falling block — and for the Swimmer and the Reacher
+(manual collision) in object-free mazes and in its object worlds —
+movable blocks, the Fall worlds' falling block on its platform, and hinge
+balls, stepped by the reduced object solve (``ops/object_lanes.py``) —
+for the Ant robot (the rigid-body engine with contacts) in object-free
+mazes and in the block worlds, and for the Swimmer and the Reacher
 (closed-form planar dynamics, no contacts) in object-free mazes and in the
 block worlds, whose block dofs they never move.  Construction lowers the
 grid maze to wall, box, block and goal tables on one device; the step is a
@@ -16,14 +17,15 @@ over an explicit :class:`EnvState` of batched tensors (``qpos (B, nq)``,
 ``qvel (B, nv)``, ``t (B,)`` int32).  Randomness comes from an explicit
 ``torch.Generator``.
 
-Point step order (maze_env.py:448-481): manual robot kinematics → smooth
-residual → wall-contact ejection → arrow-tip contacts → robot wall
+Point step order (maze_env.py:448-481): manual robot kinematics → the
+objects' RK4 step from the post-teleport robot pose (object worlds) →
+smooth residual → wall-contact ejection → arrow-tip contacts → robot wall
 resolution → observation (t already incremented) → task heads.  The Ant
 step is frame_skip RK4 steps of the world model with contacts, then the
 observation and the heads, with the inner reward (forward speed minus
 control cost) scaled by the task's ``INNER_REWARD_SCALING``; the
 Swimmer's and the Reacher's the same with their own dynamics on the robot
-dofs.  Observed blocks' centers sit after the first three robot
+dofs.  Observed balls' and then blocks' centers sit after the first three robot
 observations, as the reference inserts them (maze_env.py:351-369).
 """
 
@@ -35,9 +37,9 @@ import numpy as np
 import torch
 
 from ..maze.cells import MazeCell
-from ..maze.structure import MazeStructure, analyze_maze
+from ..maze.structure import MazeStructure, analyze_maze, with_ball_size
 from ..models.base import Robot
-from ..ops import segments
+from ..ops import object_lanes, segments
 from ..tasks.core import MazeTask, TaskHeads
 
 EPISODE_LIMIT = 1000  # reference max_episode_steps (__init__.py:31)
@@ -70,16 +72,26 @@ class _BlockRuntime(NamedTuple):
     half: np.ndarray                # (3,) box half extents
     falling: bool                   # a z slide resting on a platform
     qpos_idx: Tuple[int, int, int]  # qpos address of the x, y, z slide, or -1
+    xy_lo: np.ndarray               # (2,) float32 travel limits of the center
+    xy_hi: np.ndarray
+
+
+class _BallRuntime(NamedTuple):
+    """One hinge-type object ball (JAX env.py:88-92)."""
+
+    body_pos: np.ndarray            # (2,) body origin at qpos0
+    size: float                     # radius
+    qpos_idx: Tuple[int, int, int]  # qpos address of the x, y, rot dofs
 
 
 class MazeEnvSpec:
     """Static description of one env ID on one device; batched reset/step.
 
-    The port covers, in float32, the Point robot in object-free mazes, and
-    the Ant, the Swimmer and the Reacher in object-free mazes and in the
-    worlds with movable blocks and elevated platforms.  Everything else
-    raises ``NotImplementedError`` naming the ROADMAP queue item that
-    ports it.
+    The port covers, in float32, the Point robot in object-free mazes and
+    in its object worlds (blocks, platforms, hinge balls), and the Ant,
+    the Swimmer and the Reacher in object-free mazes and in the worlds
+    with movable blocks and elevated platforms.  Everything else raises
+    ``NotImplementedError`` naming the ROADMAP queue item that ports it.
     """
 
     def __init__(
@@ -111,13 +123,9 @@ class MazeEnvSpec:
             maze_height,
             put_spin_near_agent=self.task.PUT_SPIN_NEAR_AGENT,
         )
+        ms = with_ball_size(ms, self.task.OBJECT_BALL_SIZE)
         self.structure: MazeStructure = ms
-        if robot.NAME == "Point" and (ms.movable_blocks or ms.object_balls
-                                      or ms.elevated):
-            raise NotImplementedError(
-                "Point object worlds (movable blocks, object balls, elevated "
-                "platforms) are not ported yet (ROADMAP queue 1 item 8)")
-        if ms.object_balls:
+        if ms.object_balls and not robot.MANUAL_COLLISION:
             raise NotImplementedError(
                 f"{robot.NAME} worlds with object balls are not ported yet "
                 "(ROADMAP queue 1 item 11d)")
@@ -138,6 +146,9 @@ class MazeEnvSpec:
         self.dynamic_model = None
         self.contact_set = None
         self.block_runtimes: Tuple[_BlockRuntime, ...] = ()
+        self.ball_runtimes: Tuple[_BallRuntime, ...] = ()
+        self.object_world = None
+        self.object_spec = None
         self._falling_support: tuple = ()
         if getattr(robot, "USES_WORLD_ENGINE", False):
             self._build_engine_world()
@@ -150,15 +161,24 @@ class MazeEnvSpec:
             self._build_world_layout()
             self.init_qpos = np.zeros(self.nq, dtype=np.float64)
             self.init_qpos[: robot.nq] = robot.init_qpos(ms.height_offset)
+            if robot.MANUAL_COLLISION:
+                # the reduced object solve (JAX env.py:164-191, float32)
+                self.object_world = object_lanes.object_world(ms, robot)
+                self.object_spec = object_lanes.spec_from_env(self)
         self.init_qvel = np.zeros(self.nv, dtype=np.float64)
-        n_objects = len(ms.movable_blocks) if self.task.OBSERVE_BLOCKS else 0
+        n_objects = 0
+        if self.task.OBSERVE_BALLS:
+            n_objects += len(ms.object_balls)
+        if self.task.OBSERVE_BLOCKS:
+            n_objects += len(ms.movable_blocks)
         self.obs_dim = robot.obs_dim + 3 * n_objects + 1
 
     def _build_world_layout(self) -> None:
         """World dofs of a robot without the engine world (JAX
         env.py:225-281): the robot's dofs, then one qpos and one dof per
-        slide of each movable block, in x, y, z order.  Object balls and
-        spin blocks raise before this (ROADMAP items 11d, 11e)."""
+        slide of each movable block, in x, y, z order, then each hinge
+        ball's x, y, rot.  Spin blocks raise before this (ROADMAP item
+        11e)."""
         next_idx = self.robot.nq
         blocks = []
         for b in self.structure.movable_blocks:
@@ -166,11 +186,20 @@ class MazeEnvSpec:
             for present in (b.move_x, b.move_y, b.move_z):
                 idxs.append(next_idx if present else -1)
                 next_idx += int(present)
+            lo, hi = self._block_xy_limits(b)
             blocks.append(_BlockRuntime(
                 body_pos=np.asarray(b.pos, np.float64),
                 half=np.asarray(b.size, np.float64), falling=b.falling,
-                qpos_idx=tuple(idxs)))
+                qpos_idx=tuple(idxs), xy_lo=lo.astype(np.float32),
+                xy_hi=hi.astype(np.float32)))
         self.block_runtimes = tuple(blocks)
+        balls = []
+        for ob in self.structure.object_balls:
+            balls.append(_BallRuntime(
+                body_pos=np.asarray(ob.pos, np.float64), size=float(ob.size),
+                qpos_idx=(next_idx, next_idx + 1, next_idx + 2)))
+            next_idx += 3
+        self.ball_runtimes = tuple(balls)
         self.nq = next_idx
         self.nv = next_idx
 
@@ -248,8 +277,10 @@ class MazeEnvSpec:
             _BlockRuntime(
                 body_pos=np.asarray(b.pos, np.float64),
                 half=np.asarray(b.size, np.float64), falling=b.falling,
-                qpos_idx=tuple(qadr.get(f"{b.name}_{a}", -1) for a in "xyz"))
-            for b in ms.movable_blocks)
+                qpos_idx=tuple(qadr.get(f"{b.name}_{a}", -1) for a in "xyz"),
+                xy_lo=lo.astype(np.float32), xy_hi=hi.astype(np.float32))
+            for b in ms.movable_blocks
+            for lo, hi in (self._block_xy_limits(b),))
 
         # Falling blocks (JAX env.py:430-469): the support and the z limit
         # are one coupled solve (contact.falling_support_force) against the
@@ -356,15 +387,35 @@ class MazeEnvSpec:
                             for k in b.qpos_idx], dim=1)
         return base + disp
 
+    def ball_center3(self, qpos: torch.Tensor, b: _BallRuntime) -> torch.Tensor:
+        """``(B, 3)`` current ball body origin, z = 0: the reference's
+        ``get_body_com`` of a hinge ball (JAX env.py:621-628)."""
+        base = torch.as_tensor(b.body_pos, dtype=qpos.dtype, device=qpos.device)
+        xy = base + qpos[:, list(b.qpos_idx[:2])]
+        return torch.cat([xy, torch.zeros_like(xy[:, :1])], dim=1)
+
+    def _object_dof_idx(self) -> Tuple[int, ...]:
+        """qpos addresses of the object dofs in the reduced solve's order:
+        the balls' x, y, rot, then the blocks' x, y, z slides (JAX
+        env.py:594-604)."""
+        if self.object_world is None:
+            return ()
+        idx = [i for b in self.ball_runtimes for i in b.qpos_idx]
+        idx += [i for b in self.block_runtimes for i in b.qpos_idx if i >= 0]
+        return tuple(idx)
+
     # ------------------------------------------------------------------
     # observation assembly (maze_env.py:351-369)
     # ------------------------------------------------------------------
     def _observe(self, state: EnvState) -> torch.Tensor:
         robot_obs = self.robot.observe(state.qpos, state.qvel)
         extras = []
+        if self.task.OBSERVE_BALLS:
+            extras += [self.ball_center3(state.qpos, b)
+                       for b in self.ball_runtimes]
         if self.task.OBSERVE_BLOCKS:
-            extras = [self.block_center(state.qpos, b)
-                      for b in self.block_runtimes]
+            extras += [self.block_center(state.qpos, b)
+                       for b in self.block_runtimes]
         time = state.t.to(self.dtype) * 0.001
         return torch.cat([robot_obs[:, :3], *extras, robot_obs[:, 3:],
                           time[:, None]], dim=1)
@@ -431,6 +482,8 @@ class MazeEnvSpec:
         old_xy = qpos[:, :2]
         # robot kinematics + full-state velocity clip (point.py:44-57)
         qpos, qvel = robot.kinematic_step(qpos, qvel, action.to(self.dtype))
+        if self.object_spec is not None:
+            qpos, qvel = self._step_objects(qpos, qvel)
         # closed-form smooth residual of mj_step
         qpos, qvel = robot.residual_step(qpos, qvel)
         # wall-contact ejection at the position mj_step saw (pre manual
@@ -458,6 +511,21 @@ class MazeEnvSpec:
         qpos = torch.cat([resolved, qpos[:, 2:]], dim=1)
         return EnvState(qpos=qpos, qvel=qvel, t=state.t + 1,
                         goal_pos=state.goal_pos)
+
+    def _step_objects(self, qpos: torch.Tensor, qvel: torch.Tensor):
+        """The objects' RK4 step (``object_lanes.object_step_lanes``), from
+        the post-teleport, pre-residual robot pose with the clipped
+        velocities: what the reference's mj_step saw (JAX env.py:
+        1062-1075).  The robot's dofs are left as they are."""
+        idx = self._object_dof_idx()
+        rq = tuple(qpos[:, k] for k in range(3))
+        rv = tuple(qvel[:, k] for k in range(3))
+        oq, ov = object_lanes.object_step_lanes(
+            self.object_spec, rq, rv, tuple(qpos[:, i] for i in idx),
+            tuple(qvel[:, i] for i in idx))
+        at = torch.tensor(idx, device=qpos.device)
+        return (qpos.index_copy(1, at, torch.stack(oq, dim=1)),
+                qvel.index_copy(1, at, torch.stack(ov, dim=1)))
 
     # ------------------------------------------------------------------
     # spaces / metadata (host side)

@@ -2,6 +2,8 @@
 ``mujoco_maze_tpu.ops``).
 
 - :mod:`.point_kernel`   — the Point kernels' tables and plain versions
+- :mod:`.object_lanes`   — the Point object worlds' reduced object solve
+  (the plain version of the object part of the Point kernels)
 - :mod:`.ant_kernel`     — the Ant kernels' tables and plain versions
 - :mod:`.swimmer_kernel` — the swimmer kernels' tables and plain versions
   (the Swimmer and the Reacher), over :mod:`.swimmer_math`, the
@@ -11,10 +13,10 @@
 - :mod:`._build`         — one ``nvcc`` per ``csrc/*.cu``, linked into one
   library loaded with ``ctypes``
 
-The port has the Point robot on object-free mazes, and the Ant, the
-Swimmer and the Reacher on object-free mazes and in the block worlds; the
-Point object worlds' and the Ant object balls' kernels are queued in
-ROADMAP queue 2.
+The port has the Point robot on object-free mazes and in its object
+worlds, and the Ant, the Swimmer and the Reacher on object-free mazes and
+in the block worlds; the Ant object balls' kernel is queued in ROADMAP
+queue 2.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Launch wrappers of the CUDA kernels (port of the launch side of
-``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point, Ant and
-swimmer (Swimmer and Reacher) step and rollout kernels.
+``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point (plain mazes
+and object worlds), Ant and swimmer (Swimmer and Reacher) step and
+rollout kernels.
 
 Each wrapper checks device, dtype, shape and the unit inner stride of its
 inputs, allocates outputs with ``torch.empty``, launches on
@@ -30,6 +31,7 @@ from . import _build
 from .ant_kernel import NV as NV_ANT
 from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
                           ant_step_plain)
+from . import object_lanes
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
 from .swimmer_kernel import (SwimmerKernelSpec, swimmer_rollout_plain,
@@ -38,7 +40,10 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 
 # Launches of each kernel in this process, counted where the wrapper
 # launches it; a run sets them to 0 and reads them back to show that a
-# path went through the kernels.  The Ant kernels have two builds: the
+# path went through the kernels.  The Point kernels have two
+# instantiations: the plain mazes' ("point_step", "point_rollout") and the
+# object worlds' ("point_objects_step", "point_objects_rollout", with the
+# reduced object solve of csrc/point_objects.cuh).  The Ant kernels have two builds: the
 # object-free mazes' ("ant_step", "ant_rollout") and the block worlds'
 # ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).  The
 # swimmer kernels serve the Swimmer and the Reacher, with or without world
@@ -46,6 +51,8 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 # (csrc/roofline.cu), which no env path runs; its wrapper is
 # utils/roofline.py fma_chain.
 LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
+                            "point_objects_step": 0,
+                            "point_objects_rollout": 0,
                             "ant_step": 0, "ant_rollout": 0,
                             "ant_blocks_step": 0, "ant_blocks_rollout": 0,
                             "swimmer_step": 0, "swimmer_rollout": 0,
@@ -92,6 +99,59 @@ def point_params(ks: PointKernelSpec) -> PointParams:
         reward_type=REWARD_TYPES[ks.reward_type],
         episode_limit=ks.episode_limit,
     )
+
+
+class ObjParams(ctypes.Structure):
+    """The scalars of one Point object world, passed by value (mirrors
+    ``struct ObjParams`` in ``csrc/point_objects.cuh``, field for field)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "nd", "n_walls", "n_balls", "n_blocks", "newton_iters", "ls_iters",
+        "max_rows", "off_walls", "off_ball", "off_blocks", "block_stride",
+        "n_table", "trace_words", "head_obj",
+    )] + [(name, ctypes.c_float) for name in (
+        "h", "ah_half", "bw16", "bw13",
+        "mu", "sphere_r", "sphere_z", "arrow_off", "hl", "hw", "hz_arrow",
+        "az_c", "floor_pen", "inv101",
+    )]
+
+
+def obj_params(ks: PointKernelSpec) -> ObjParams:
+    """The struct of an object world: each constant the float32 value the
+    plain version (``object_lanes``) uses."""
+    from .point_kernel import object_table
+
+    o = ks.object_spec
+    F = object_lanes.F
+    _, off_walls, off_ball, off_blocks, stride = object_table(
+        o, ks.object_dof_idx, ks.head_base, ks.head_dof)
+    h = F(o.dt)
+    return ObjParams(
+        nd=o.nd, n_walls=o.wb_c.shape[0], n_balls=len(o.balls),
+        n_blocks=len(o.blocks), newton_iters=o.newton_iters,
+        ls_iters=o.ls_iters, max_rows=ks.max_rows, off_walls=off_walls,
+        off_ball=off_ball, off_blocks=off_blocks, block_stride=stride,
+        n_table=ks.obj_table.numel(), trace_words=trace_words(ks),
+        head_obj=int(ks.obs_offset == 3),
+        h=h, ah_half=F(np.float32(0.5) * np.float32(h)), bw16=F(1.0 / 6.0),
+        bw13=F(1.0 / 3.0), mu=F(o.mu), sphere_r=F(o.sphere_r),
+        sphere_z=F(o.sphere_z), arrow_off=F(o.arrow_off),
+        hl=F(o.arrow_half_l), hw=F(o.arrow_half_w),
+        hz_arrow=F(0.5 * (o.arrow_z_hi - o.arrow_z_lo)),
+        az_c=F(0.5 * (o.arrow_z_lo + o.arrow_z_hi)),
+        floor_pen=F(object_lanes.FLOOR_PEN), inv101=object_lanes.R(1.01),
+    )
+
+
+def trace_words(ks: PointKernelSpec) -> int:
+    """32-bit words of one forward evaluation's active-row bit set."""
+    return (ks.max_rows + 31) // 32
+
+
+# Floats a row keeps in the object kernels' scratch: J (6), aref, rinv,
+# J x - aref and J p of the current Newton step (kRowFields in
+# csrc/point_objects.cuh).
+OBJ_ROW_FIELDS = 10
 
 
 class AntParams(ctypes.Structure):
@@ -202,6 +262,22 @@ def _lib() -> ctypes.CDLL:
         _P, _I, _P, _I,                  # walls, W, goals, G
         PointParams, _I, _I, ctypes.c_uint, _P]  # params, B, steps, seed, stream
     lib.mmt_point_rollout.restype = _I
+    lib.mmt_point_obj_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _P, ObjParams,      # params, object table, its params
+        _P, _P, _I, _P]                  # row scratch, trace (nullable), B,
+                                         # stream
+    lib.mmt_point_obj_step.restype = _I
+    lib.mmt_point_obj_rollout.argtypes = [
+        _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward sum, episodes
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _P, ObjParams, _P,  # params, object table, its params,
+                                         # row scratch
+        _I, _I, ctypes.c_uint, _P]       # B, steps, seed, stream
+    lib.mmt_point_obj_rollout.restype = _I
     lib.mmt_ant_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
@@ -255,40 +331,81 @@ def _tables(ks: PointKernelSpec):
             ks.goals.shape[0])
 
 
+class _ObjScratch:
+    """The object kernels' row scratch: ``max_rows x OBJ_ROW_FIELDS`` floats
+    per env, allocated with ``torch.empty`` at first use and kept by the
+    wrapper (launches on one stream reuse it in turn)."""
+
+    def __init__(self, ks: PointKernelSpec, num_envs: int) -> None:
+        self.params = obj_params(ks)
+        self.numel = max(ks.max_rows, 1) * OBJ_ROW_FIELDS * num_envs
+        self.buf = None
+
+    def get(self, dev: torch.device) -> torch.Tensor:
+        if self.buf is None or self.buf.device != dev:
+            self.buf = torch.empty(self.numel, dtype=torch.float32, device=dev)
+        return self.buf
+
+
 class PointStep:
     """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
     terminated)``: one Point step with explicit actions and no reset (the
-    counterpart of ``LaneEnvKernel.build_step``)."""
+    counterpart of ``LaneEnvKernel.build_step``).  In an object world
+    ``qpos``/``qvel`` are ``(B, 3 + n_world)`` and the objects' RK4 step
+    runs inside the kernel; ``trace=True`` (CUDA, object worlds) adds each
+    env's active candidate rows per forward evaluation, ``(B, 4,
+    trace_words)`` int32 bit sets in ``object_lanes`` row order."""
 
     def __init__(self, ks: PointKernelSpec, num_envs: int) -> None:
         self.ks = ks
         self.num_envs = num_envs
         self.params = point_params(ks)
+        self.scratch = (_ObjScratch(ks, num_envs)
+                        if ks.object_spec is not None else None)
 
-    def __call__(self, qpos, qvel, t, actions) -> Tensors5:
+    def __call__(self, qpos, qvel, t, actions, trace: bool = False):
         B, dev = self.num_envs, self.ks.walls.device
-        _check("qpos", qpos, torch.float32, (B, 3), dev)
-        _check("qvel", qvel, torch.float32, (B, 3), dev)
+        nq = 3 + self.ks.n_world
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nq), dev)
         _check("t", t, torch.int32, (B,), dev)
         _check("actions", actions, torch.float32, (B, 2), dev)
         if dev.type == "cpu":
+            if trace:
+                raise ValueError("active-row traces come from the kernel")
             return point_step_plain(self.ks, qpos, qvel, t, actions)
         if dev.type != "cuda":
             raise RuntimeError(f"no Point step kernel for device {dev}")
-        q_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        v_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
         reward = torch.empty((B,), dtype=torch.float32, device=dev)
         term = torch.empty((B,), dtype=torch.bool, device=dev)
-        rc = _lib().mmt_point_step(
-            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
-            qpos.stride(0), qvel.stride(0), actions.stride(0),
-            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
-            reward.data_ptr(), term.data_ptr(), *_tables(self.ks),
-            self.params, B, torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "point_step")
-        LAUNCHES["point_step"] += 1
-        return q_out, v_out, t_out, reward, term
+        outs = (q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+                reward.data_ptr(), term.data_ptr())
+        ins = (qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
+               actions.data_ptr(), qpos.stride(0), qvel.stride(0),
+               actions.stride(0))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if self.scratch is None:
+            if trace:
+                raise ValueError("a plain maze has no object rows to trace")
+            rc = _lib().mmt_point_step(*ins, *outs, *_tables(self.ks),
+                                       self.params, B, stream)
+            name = "point_step"
+        else:
+            tr = (torch.zeros((B, 4, trace_words(self.ks)), dtype=torch.int32,
+                              device=dev) if trace else None)
+            rc = _lib().mmt_point_obj_step(
+                *ins, *outs, *_tables(self.ks), self.params,
+                self.ks.obj_table.data_ptr(), self.scratch.params,
+                self.scratch.get(dev).data_ptr(),
+                None if tr is None else tr.data_ptr(), B, stream)
+            name = "point_objects_step"
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+        out = (q_out, v_out, t_out, reward, term)
+        return out + (tr,) if trace else out
 
 
 class PointRollout:
@@ -303,13 +420,16 @@ class PointRollout:
         self.num_envs = num_envs
         self.num_steps = num_steps
         self.params = point_params(ks)
+        self.scratch = (_ObjScratch(ks, num_envs)
+                        if ks.object_spec is not None else None)
 
     def per_env(self, qpos, qvel, t, seed: int) -> Tensors5:
         """The rollout with per-env reward sums ``(B,)`` float32 and
         episode counts ``(B,)`` int32."""
         B, dev = self.num_envs, self.ks.walls.device
-        _check("qpos", qpos, torch.float32, (B, 3), dev)
-        _check("qvel", qvel, torch.float32, (B, 3), dev)
+        nq = 3 + self.ks.n_world
+        _check("qpos", qpos, torch.float32, (B, nq), dev)
+        _check("qvel", qvel, torch.float32, (B, nq), dev)
         _check("t", t, torch.int32, (B,), dev)
         seed = int(seed)
         if not 0 <= seed < 2 ** 32:
@@ -319,20 +439,28 @@ class PointRollout:
                                        self.num_steps)
         if dev.type != "cuda":
             raise RuntimeError(f"no Point rollout kernel for device {dev}")
-        q_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
-        v_out = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
         rew = torch.empty((B,), dtype=torch.float32, device=dev)
         eps = torch.empty((B,), dtype=torch.int32, device=dev)
-        rc = _lib().mmt_point_rollout(
-            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
-            qpos.stride(0), qvel.stride(0),
-            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
-            rew.data_ptr(), eps.data_ptr(), *_tables(self.ks),
-            self.params, B, self.num_steps, seed,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "point_rollout")
-        LAUNCHES["point_rollout"] += 1
+        ins = (qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(),
+               qpos.stride(0), qvel.stride(0),
+               q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+               rew.data_ptr(), eps.data_ptr(), *_tables(self.ks), self.params)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if self.scratch is None:
+            rc = _lib().mmt_point_rollout(*ins, B, self.num_steps, seed,
+                                          stream)
+            name = "point_rollout"
+        else:
+            rc = _lib().mmt_point_obj_rollout(
+                *ins, self.ks.obj_table.data_ptr(), self.scratch.params,
+                self.scratch.get(dev).data_ptr(), B, self.num_steps, seed,
+                stream)
+            name = "point_objects_rollout"
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
         return q_out, v_out, t_out, rew, eps
 
     def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:

@@ -133,8 +133,9 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
 
 
 def test_object_worlds_and_other_robots_are_queued():
-    for env_id in ("PointPush-v0", "AntSmallBilliard-v0", "PointFall-v0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the Point object worlds are ported; the Ant's object balls are not
+    for env_id in ("AntSmallBilliard-v0", "AntSmallBilliard-v1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11d"):
             mmt.make_batched(env_id, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="float64"):
         mmt.make_spec("PointUMaze-v0", dtype=torch.float64, device="cpu")

@@ -71,6 +71,34 @@ print("LOADED", loaded, tuple(obs.shape), int(state.t.max()),
     assert "LOADED [] (8, 7) 3 (8, 30) 1 (8, 14) 1" in proc.stdout
 
 
+def test_point_object_worlds_run_without_jax_or_gymnasium():
+    """The object worlds' modules (``physics/point_world.py``,
+    ``ops/object_lanes.py``, the object tables of ``ops/point_kernel.py``)
+    step, roll out and lower with JAX, gymnasium and the JAX package
+    blocked."""
+    proc = _run(_BLOCKED_IMPORTS + """
+import torch
+import mujoco_maze_tpu_torch as mmt
+from mujoco_maze_tpu_torch import convert
+from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+gen = torch.Generator().manual_seed(0)
+shapes = []
+for env_id in ("PointPush-v0", "PointBilliard-v0"):
+    env = mmt.make_batched(env_id, 4, device="cpu")
+    state, obs = env.reset(0)
+    state = env.step(state, env.random_policy()(obs, gen)).state
+    make_fast_rollout(env, 1)(state.qpos, state.qvel, state.t, 1)
+    convert.lowered_spec(make_fast_step(env).ks)
+    shapes.append(tuple(state.qpos.shape))
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
+                                         "mujoco_maze_tpu"))
+print("LOADED", loaded, shapes)
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED [] [(4, 5), (4, 6)]" in proc.stdout
+
+
 def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
     """chip_smoke.py exits non-zero and prints no result without CUDA, with
     JAX blocked (so it cannot reach for it)."""

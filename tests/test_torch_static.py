@@ -2,9 +2,9 @@
 
 For every one of the 145 registered env IDs: the registry entry, the maze
 structure, the wall soups and the lowered goal arrays are equal on both
-sides, and the port's ``make_spec`` either builds the spec (object-free
-Point mazes; Ant, Swimmer and Reacher mazes without object balls) or
-raises ``NotImplementedError`` naming the ROADMAP item.
+sides, and the port's ``make_spec`` either builds the spec (every Point
+maze; Ant, Swimmer and Reacher mazes without object balls) or raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 import dataclasses
@@ -74,18 +74,23 @@ def test_static_world_matches(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_make_spec_covers_the_object_free_point_mazes(env_id):
-    """The object-free Point mazes, and the Ant, Swimmer and Reacher mazes
-    without object balls build; every other ID raises."""
+    """The Point mazes (the object worlds too), and the Ant, Swimmer and
+    Reacher mazes without object balls build; every other ID raises."""
     je, _, _, _, js, _ = _structures(env_id)
-    object_free = not js.movable_blocks and not js.object_balls
-    if je.robot_name == "Point" and object_free:
+    if je.robot_name == "Point":
         spec = mmt.make_spec(env_id, device="cpu")
         segs = js.wall_segments(0.4)
         np.testing.assert_array_equal(spec.walls.p1.numpy(),
                                       segs[:, 0].astype(np.float32))
         np.testing.assert_array_equal(spec.walls.p2.numpy(),
                                       segs[:, 1].astype(np.float32))
-        assert spec.obs_dim == 7
+        n_obs = ((len(js.object_balls) if je.task_cls.OBSERVE_BALLS else 0)
+                 + (len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0))
+        n_world = (3 * len(js.object_balls)
+                   + sum(b.move_x + b.move_y + b.move_z
+                         for b in js.movable_blocks))
+        assert (spec.nq, spec.nv) == (3 + n_world,) * 2
+        assert spec.obs_dim == 7 + 3 * n_obs
     elif je.robot_name == "Ant" and not js.object_balls:
         spec = mmt.make_spec(env_id, device="cpu")
         np.testing.assert_array_equal(
