@@ -6,8 +6,8 @@ Builds the CUDA kernels from ``mujoco_maze_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
 ``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
-AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, each stepped through the
-public API,
+AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, and the custom robot of
+``make_roller_umaze(4096)``, each stepped through the public API,
 ``rollout_metrics``, and the fused random-policy rollout — counts the
 kernel launches of each path, and times them with CUDA events; and
 measures the card's fp32 peak with its own kernel.
@@ -91,7 +91,30 @@ Phases (each fails the run on its own; nothing is caught):
     PointPush-v0 and on PointPushMaze-v0.  Phases 17-19 run in a process
     of their own (``python3 chip_smoke.py --point-objects``), with a
     fresh CUDA context and profiler;
-20. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+20. the generic engine step kernel of custom robots (``engine_step``)
+    against its plain version at 4096 envs, teacher-forced: the Roller of
+    ``examples/custom_robot.py`` in the UMaze, Push, Fall and BlockCarry
+    tasks for 16 steps from states with the roller on the floor, against
+    wall and block faces, the blocks at and beyond their travel limits,
+    the Fall block perched, over the chasm and between, and t spread over
+    the episode (qpos 1e-5, qvel 1e-4, reward 1e-5, t and terminated
+    exact; an env-step beyond them recomputed by the plain version on the
+    CPU, or else a knife edge named by both versions' traces, or else held
+    coordinate by coordinate to its own float32 rounding spread); the Ant
+    model's AntUMaze-v0 and AntPush-v0 worlds through the generic kernel
+    for 8 steps, as phase 5; a Roller with a ball-jointed arm in a fluid;
+    the count of bit-exact env-steps;
+21. the custom-robot main path, ``make_roller_umaze(4096)`` through the
+    step API and ``rollout_metrics``, 1000 steps each with auto-reset,
+    counted and checked (the rollers on the floor, equal episode counts
+    on the same seeds); the step API's device idle share; engine_step's
+    time per launch, on the device, its bound and its plain version's
+    time on RollerUMaze and on the AntUMaze-v0 world, beside the Ant
+    kernel's.  Phases 20-21 run in a process of their own (``python3
+    chip_smoke.py --engine``, which also runs alone;  ``python3
+    chip_smoke.py --engine-faults`` instead plants faults into a copy of
+    the kernel's source and checks that phase 20 fails on each);
+22. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -103,6 +126,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1857,20 +1881,950 @@ def point_objects_phases() -> int:
     return 0
 
 
-def run_point_objects():
-    """Start phases 17-19 in their own process, pass its log through, and
-    return its result; fails the run if that process fails."""
-    proc = subprocess.Popen([sys.executable, __file__, OBJ_FLAG],
+def run_child(flag: str, prefix: str, phases: str):
+    """Start ``phases`` in their own process (``chip_smoke.py flag``), pass
+    its log through, and return its result (its ``prefix`` line); fails
+    the run if that process fails."""
+    proc = subprocess.Popen([sys.executable, __file__, flag],
                             stdout=subprocess.PIPE, text=True)
     result = None
     for line in proc.stdout:
-        if line.startswith(OBJ_RESULT):
-            result = json.loads(line[len(OBJ_RESULT):])
+        if line.startswith(prefix):
+            result = json.loads(line[len(prefix):])
         else:
             print(line, end="", flush=True)
     if proc.wait() != 0 or result is None:
-        raise SystemExit(f"phases 17-19 failed (exit code {proc.returncode})")
+        raise SystemExit(f"phases {phases} failed (exit code {proc.returncode})")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phases 20-21: custom robots through the generic engine kernel, in a
+# process of their own
+# ---------------------------------------------------------------------------
+# The generic engine kernel (engine_step, csrc/engine_lane.cuh) and its
+# plain version (ops/engine_kernel.py engine_step_plain: the batched engine)
+# compute the same function by different algorithms, so they agree to
+# float32 rounding.  The Roller worlds are held to the bounds the JAX
+# package holds its generic kernel to against its XLA path
+# (tests/test_engine_pallas.py): qpos 1e-5, qvel 1e-4, reward 1e-5, t and
+# terminated exact.  On the card the plain version's matrix products round
+# with fused multiply-adds (cuBLAS) and the kernel without (-fmad=false);
+# in the Fall world the block's saturated platform and limit rows press
+# with ~500 times its weight against each other, so one such rounding
+# moves the block's z by ~1e-5 in a step.  An env-step beyond the bounds is
+# recomputed by the plain version on the CPU (no fused multiply-add) and
+# must agree there; failing that, it passes only at a knife edge (an active
+# contact, limit or support row, a sphere's side of a box face or a tangent
+# frame switched in one version only, by both versions' traces), in at most
+# KNIFE_SHARE of the env-steps.  The Ant model's worlds through the generic
+# kernel are held as phase 5 holds the Ant kernel: qpos and reward at 1e-4
+# under the same rule, qvel at ANT_QVEL_TOL in ANT_QVEL_QUANTILE of the
+# env-steps.
+ENGINE_WORLDS = ("GoalRewardUMaze", "GoalRewardPush", "GoalRewardFall",
+                 "GoalRewardBlockCarry")
+ENGINE_ANT_IDS = ("AntUMaze-v0", "AntPush-v0")
+ENGINE_STEPS = 16
+ENGINE_ANT_STEPS = 8
+ENGINE_TOL = {"qpos": 1e-5, "qvel": 1e-4, "reward": 1e-5}
+ENGINE_ANT_TOL = {"qpos": 1e-4, "qvel": float("inf"), "reward": 1e-4}
+# Where the random policy drives the roller into the Fall block at 10-24
+# m/s, the block's saturated platform and limit rows leave float32 rounding
+# of 1e-5-4e-3 in its z velocity in any implementation: the plain version
+# on the card, on the CPU and from starts one ulp apart each land that far
+# from the float64 step, on either side.  An env-step that neither the CPU
+# recompute nor a knife edge explains is held coordinate by coordinate:
+# (|kernel - float64| - bound) / spread <= ROUNDING_FACTOR, the spread
+# being that coordinate's largest distance from the float64 step over the
+# plain version on the card, on the CPU and on ROUNDING_SAMPLES starts
+# with every coordinate moved by a relative 2^-23; such env-steps may be
+# at most CONDITIONED_SHARE of the run.  Readings (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md): a clean kernel's largest ratio 1.03, a kernel whose
+# support force is off by a relative 1e-5 in one branch 18.9.
+ROUNDING_SAMPLES = 16
+ROUNDING_FACTOR = 2.0
+CONDITIONED_SHARE = 1e-2
+ENGINE_FLAG = "--engine"               # runs phases 20-21 alone
+FAULTS_FLAG = "--engine-faults"        # phase 20's check of planted faults
+CHECK_FLAG = "--engine-check"          # phase 20 on WORLD:SEED arguments
+CHECK_RESULT = "ENGINE_CHECK "
+ENGINE_RESULT = "ENGINE_RESULT "
+ROLLER_SCALE = 4.0                     # examples/custom_robot.py
+
+
+def arm_roller_spec(device):
+    """The Roller with a ball-jointed capsule arm hanging from its centre,
+    in the UMaze, with viscosity and fluid density set on the composed
+    model: the generic kernel's BALL joints and fluid drag, which no robot
+    of the repository has (the CPU tests hold the same robot against the
+    JAX package, tests/_torch_engine.py)."""
+    from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+    from mujoco_maze_tpu_torch.examples.custom_robot import RollerRobot
+    from mujoco_maze_tpu_torch.physics.model import BALL, Body, Geom, Joint
+    from mujoco_maze_tpu_torch.tasks.library import GoalRewardUMaze
+
+    class ArmRoller(RollerRobot):
+        NAME = "ArmRoller"
+        nq = 7
+        nv = 6
+
+        def build_bodies(self, torso_z: float = 0.75):
+            bodies, actuators = super().build_bodies(torso_z)
+            bodies.append(Body(
+                name="arm", parent=0, pos=(0.0, 0.0, 0.0),
+                joints=[Joint(BALL, damping=0.5, armature=0.01,
+                              name="arm_ball")],
+                geoms=[Geom.capsule_fromto(
+                    (0, 0, 0), (0.3, 0.0, -0.35), 0.06, density=300.0,
+                    contype=1, conaffinity=1, friction=(1.0, 0.5, 0.5),
+                    solref=(0.02, 1.0), solimp=(0.8, 0.8, 0.01),
+                    margin=0.01)]))
+            return bodies, actuators
+
+    spec = MazeEnvSpec(ArmRoller(), GoalRewardUMaze, ROLLER_SCALE,
+                       inner_reward_scaling=GoalRewardUMaze.INNER_REWARD_SCALING,
+                       device=device)
+    spec.dynamic_model.viscosity = 0.1
+    spec.dynamic_model.fluid_density = 10.0
+    return spec
+
+
+def engine_spec(world: str, device):
+    """The env spec of a phase-20 world: a Roller task, an Ant ID, or
+    "Arm"."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+    from mujoco_maze_tpu_torch.examples.custom_robot import RollerRobot
+    from mujoco_maze_tpu_torch.tasks import library
+
+    if world == "Arm":
+        return arm_roller_spec(device)
+    if world.startswith("Ant"):
+        return mmt.make_spec(world, device=device)
+    task = getattr(library, world)
+    return MazeEnvSpec(RollerRobot(), task, ROLLER_SCALE,
+                       inner_reward_scaling=task.INNER_REWARD_SCALING,
+                       device=device)
+
+
+def _matvec_ops(x) -> int:
+    """fp32 operations of R x for a 3x3 R that changes with the state:
+    three rows over x's non-zero entries."""
+    import numpy as np
+
+    n = int(np.count_nonzero(np.abs(np.asarray(x)) > 0))
+    return 3 * (2 * n - 1) if n else 0
+
+
+def _cholesky_ops(n: int) -> int:
+    """A Cholesky factor of an n x n block (pivot square roots included)."""
+    return sum((n - j) * (2 * j + 1) + 1 + (n - j) for j in range(n))
+
+
+def engine_structure(ks):
+    """What the model's structure fixes, for engine_step_flops: per dof
+    its kind ("const": a slide whose world axis is a constant coordinate
+    axis; "slide": any other slide; "rot": a rotational dof), each tree's
+    dofs and whether its mass matrix is a constant (every joint of the tree
+    a slide on a body that never turns), per body whether it turns, and
+    the constant trees' M^-1 (from the constant M of slides: the composite
+    mass times the axes' dot products, plus armature)."""
+    import numpy as np
+
+    body, jnt, dof = ks.table("body"), ks.table("jnt"), ks.table("dof")
+    nb, nv = len(body), ks.nv
+    kind = ["const"] * nv
+    axis = np.zeros((nv, 3))
+    turns = [False] * nb
+    r_const = [None] * nb
+    for b in range(nb):
+        par = int(body[b][0])
+        R_rel = body[b][6:15].astype(np.float64).reshape(3, 3)
+        turns[b] = par >= 0 and turns[par]
+        r_const[b] = None if turns[b] else (
+            R_rel if par < 0 else r_const[par] @ R_rel)
+        j0, nj = int(body[b][1]), int(body[b][2])
+        for jr in jnt[j0:j0 + nj]:
+            jt, va = int(jr[0]), int(jr[2])
+            if jt == 0:                                # free
+                for k in range(3):
+                    axis[va + k, k] = 1.0
+                    kind[va + 3 + k] = "rot"
+                turns[b], r_const[b] = True, None
+            elif jt == 2:                              # slide
+                if turns[b]:
+                    kind[va] = "slide"
+                else:
+                    axis[va] = r_const[b] @ jr[3:6].astype(np.float64)
+                    unit = np.sort(np.abs(axis[va]))
+                    kind[va] = ("const" if np.allclose(unit, (0, 0, 1))
+                                else "slide")
+            else:                                      # ball, hinge
+                for d in range(va, va + (3 if jt == 1 else 1)):
+                    kind[d] = "rot"
+                turns[b], r_const[b] = True, None
+    trees = sorted({(int(d[3]), int(d[4])) for d in dof})
+    const_tree, minv = {}, {}
+    for lo, hi in trees:
+        const_tree[(lo, hi)] = all(kind[d] != "rot" and not turns[int(dof[d][0])]
+                                   for d in range(lo, hi))
+        if const_tree[(lo, hi)]:
+            n = hi - lo
+            M = np.zeros((n, n))
+            for a in range(lo, hi):
+                for c in range(lo, hi):
+                    # the bodies below both dofs carry both axes
+                    bits = (1 << a) | (1 << c)
+                    mass = sum(float(body[k][15]) for k in range(nb)
+                               if int(body[k][25]) & bits == bits)
+                    M[a - lo, c - lo] = mass * float(axis[a] @ axis[c])
+                M[a - lo, a - lo] += float(dof[a][1])
+            minv[(lo, hi)] = np.linalg.inv(M)
+    return dict(kind=kind, axis=axis, turns=turns, trees=trees,
+                const_tree=const_tree, minv=minv)
+
+
+def engine_step_flops(ks, trace: torch.Tensor) -> float:
+    """fp32 operations one env step needs, at the model's structure and
+    at this run's active sets (``trace``: the kernel's (B, 4 frame_skip,
+    trace_words) active sets of one step launch), averaged over the envs.
+    A sine, cosine, square root, division, min or max counts as one;
+    index, sign and bit work, and products with a structural 0 or +-1,
+    count none.  What the structure fixes is not counted: a tree of
+    slides on bodies that never turn (the Roller, the movable blocks) has
+    a constant M, M^-1 and gravity bias, constant dof axes and no
+    velocity products.  Per forward evaluation:
+    * kinematics: a slide of a body that never turns moves its body's
+      origin along a constant axis (an add per non-zero axis entry, a
+      product more where it is not +-1); a turning body composes its
+      frame (45 unless its rest rotation is I, and R pos unless pos = 0),
+      its joints (free 25; ball 106 and hinge 170, less 36 without an
+      anchor offset, less 45 for a ball and 15 for a hinge on a frame
+      that does not turn yet or about a coordinate axis), its com (R
+      ipos), cdof (12 a rotational dof), the velocities (12 a rotational
+      dof, 6 a slide, plus 30 and 9 for their derivatives) and its
+      spatial inertia about O (117; 27 with a constant rotation);
+    * a turning tree's composite inertias (10 a child), M (42 a dof, 11
+      an entry of its root path, 1 armature), the RNE bias (96 a body, 6
+      a child, 23 a dof) and its Cholesky factor; a product M^-1 x is
+      two triangular solves (2 n^2) there, and in a constant tree the
+      constant M^-1's non-zero entries (one product and one add each);
+    * actuation (3 an actuator), damping (2 a damped dof), fluid drag (95
+      a body with mass, when on), limits (4 each, 28 more when violated),
+      qacc0 and qacc (their M^-1 x, and an add per dof and force term);
+    * per test sphere that meets the world its centre (R local), the
+      floor (4), each static box's distance (32) and the nearest two's
+      point and normal (12 each); each sphere-box pair (75; 30 on a box
+      body that never turns); each falling block's support (60 + 6 a
+      platform);
+    * per active contact (from ``trace``): its frame (30), per row
+      (three) the moment arm's cross product when a column turns (9, and
+      3 once), its Jacobian over the non-zero columns of both root paths
+      (a constant axis 0, a slide 5, a rotational dof 11), the Delassus
+      diagonal (3 a column with a diagonal M^-1, else w^2 + 2w over the
+      contact's w columns of a tree), J v and J qacc0 (4 a column) and 20;
+      per Jacobi sweep 12 a column and 40, and J^T f once (6 a column);
+      per evaluation with contacts one M^-1 x per sweep.
+    Per step: the RK4 stages' and the final integration (2 a slide or
+    hinge, 40 a quaternion, 6 a free position), 21 nv of stage sums, and
+    the reward and heads (30 + 12 a goal)."""
+    import numpy as np
+
+    st = engine_structure(ks)
+    kind, turns, trees = st["kind"], st["turns"], st["trees"]
+    const_tree, minv = st["const_tree"], st["minv"]
+    body, jnt, dof = ks.table("body"), ks.table("jnt"), ks.table("dof")
+    sph, pair, dbox = ks.table("sph"), ks.table("pair"), ks.table("dbox")
+    nb, nv = len(body), ks.nv
+    tree_of = {d: t for t in trees for d in range(*t)}
+    chain = [int(b[25]) for b in body]
+
+    def minv_mul(t) -> int:
+        lo, hi = t
+        if const_tree[t]:
+            nnz = int(np.count_nonzero(np.abs(minv[t]) > 1e-12))
+            return 2 * nnz - (hi - lo)
+        return 2 * (hi - lo) ** 2
+
+    def diagonal(t) -> bool:
+        m = minv.get(t)
+        return m is not None and np.count_nonzero(m - np.diag(np.diag(m))) == 0
+
+    fwd = 0
+    for b in range(nb):
+        par = int(body[b][0])
+        j0, nj = int(body[b][1]), int(body[b][2])
+        joints = jnt[j0:j0 + nj]
+        if not turns[b]:
+            fwd += 3 * (par >= 0 and np.any(body[b][3:6] != 0))
+            for jr in joints:
+                ax = st["axis"][int(jr[2])]
+                fwd += sum(1 + (abs(x) != 1) for x in ax if x != 0)
+            fwd += int(np.count_nonzero(body[b][16:19]))
+            continue
+        frame_turns = par >= 0 and turns[par]
+        if par >= 0:
+            fwd += 45 * (not np.allclose(body[b][6:15], np.eye(3).ravel()))
+            fwd += (_matvec_ops(body[b][3:6]) + 3 if frame_turns
+                    else 3) * bool(np.any(body[b][3:6] != 0))
+        for jr in joints:
+            jt, va = int(jr[0]), int(jr[2])
+            anchor = bool(np.any(jr[6:9] != 0))
+            coord = np.sort(np.abs(jr[3:6])).tolist() == [0, 0, 1]
+            if jt == 0:
+                fwd += 25
+            elif jt == 1:
+                fwd += 106 - 36 * (not anchor) - 45 * (not frame_turns)
+            elif jt == 3:
+                fwd += 170 - 36 * (not anchor) - 15 * (coord or not frame_turns)
+            elif jt == 2:
+                fwd += _matvec_ops(jr[3:6]) + 6
+            frame_turns = frame_turns or jt in (0, 1, 3)
+        fwd += (_matvec_ops(body[b][16:19]) + 3) * bool(np.any(body[b][16:19]))
+    for d in range(nv):
+        turning = turns[int(dof[d][0])]
+        if kind[d] == "rot":
+            fwd += 12 + 12 + 30
+        elif turning:
+            fwd += 6 + 9
+    for t in trees:
+        if const_tree[t]:
+            continue
+        lo, hi = t
+        bodies = sorted({int(dof[d][0]) for d in range(lo, hi)})
+        fwd += sum(117 if turns[b] else 27 for b in bodies)
+        fwd += 10 * sum(int(body[b][0]) >= 0 for b in bodies)
+        fwd += sum(42 + 11 * bin(chain[int(dof[a][0])] & ((2 << a) - 1)).count("1") + 1
+                   for a in range(lo, hi))
+        fwd += 96 * len(bodies) + 6 * len(bodies) + 23 * (hi - lo)
+        fwd += _cholesky_ops(hi - lo)
+    model = ks.env_spec.dynamic_model
+    if model.viscosity > 0 or model.fluid_density > 0:
+        fwd += 95 * int(np.sum(body[:, 15] > 0))
+    fwd += 3 * ks.nu + 2 * int(np.count_nonzero(dof[:, 2]))
+    terms = 2 + (ks.n_limits > 0) + (ks.offsets["fall"][1] > 0)  # tau, fc
+    fwd += 2 * sum(minv_mul(t) for t in trees) + terms * nv
+    fwd += 4 * ks.n_limits
+    n_box, n_pair = ks.offsets["box"][1], ks.offsets["pair"][1]
+    for s in sph:
+        if int(s[13]) < 0:
+            continue
+        b = int(s[0])
+        fwd += ((_matvec_ops(s[1:4]) if turns[b] else 0) + 3) * bool(
+            np.any(s[1:4] != 0))
+        fwd += 4 * ks.env_spec.contact_set.has_floor + 32 * n_box
+        fwd += 12 * min(n_box, 2)
+    for p in pair:
+        fwd += 75 if turns[int(dbox[int(p[1])][0])] else 30
+    fwd += sum(60 + 6 * int(f[4]) for f in ks.table("fall"))
+
+    def contact_ops(bits_a: int, bits_b: int) -> int:
+        cols = [d for d in range(nv) if (bits_a | bits_b) >> d & 1]
+        w = len(cols)
+        turning = any(kind[d] == "rot" for d in cols)
+        jac = sum({"const": 0, "slide": 5, "rot": 11}[kind[d]] for d in cols)
+        dl = 0
+        for t in trees:
+            wt = sum(1 for d in cols if tree_of[d] == t)
+            dl += 3 * wt if diagonal(t) else wt * wt + 2 * wt
+        row = 9 * turning + jac + dl + 4 * w + 20
+        return (30 + 3 * turning + 3 * row + ks.solver_iters * (12 * w + 40)
+                + 6 * w)
+
+    S = ks.n_static
+    groups = int(ks.env_spec.contact_set.has_floor) + min(n_box, 2)
+    cand = []
+    for g in range(groups):
+        for s in sph:
+            if int(s[13]) >= 0:
+                cand.append((g * S + int(s[13]), chain[int(s[0])], 0))
+    for qp, p in enumerate(pair):
+        cand.append((groups * S + qp, chain[int(sph[int(p[0])][0])],
+                     chain[int(dbox[int(p[1])][0])]))
+    words = trace.to(torch.int64) & 0xFFFFFFFF
+    B, E = words.shape[0], words.shape[1]
+    nw = (ks.n_cand + 31) // 32
+    per_env = 0.0
+    any_active = torch.zeros(B, E, dtype=torch.bool, device=words.device)
+    for i, ba, bb in cand:
+        on = (words[:, :, i // 32] >> (i % 32)) & 1
+        any_active |= on.bool()
+        per_env += float(on.sum()) / B * contact_ops(ba, bb)
+    sweeps = ks.solver_iters * sum(minv_mul(t) for t in trees)
+    per_env += float(any_active.sum()) / B * sweeps
+    lim = words[:, :, 3 * nw] & 0xFFFFFF
+    n_viol = sum(float(((lim >> k) & 1).sum()) for k in range(ks.n_limits))
+    per_env += 28 * n_viol / B
+    integ = sum({0: 46, 1: 40, 2: 2, 3: 2}[int(j[0])] for j in jnt)
+    return (E * fwd + per_env
+            + ks.frame_skip * (4 * integ + 21 * nv)
+            + 30 + 12 * ks.offsets["goal"][1])
+
+
+def engine_bytes(ks) -> int:
+    """Bytes per env of one step launch: it reads qpos, qvel, t and the
+    actions and writes qpos, qvel, t, reward and terminated."""
+    return 4 * (2 * ks.nq + 2 * ks.nv + 2 + ks.nu + 1) + 1
+
+
+def rounding_ratio(ks, kern, plain, cpu, q, v, t, a, envs, tol) -> float:
+    """For the env-steps ``envs``: the largest (|kernel - x| - bound) /
+    spread over their qpos, qvel and reward coordinates, x being the plain
+    version run in float64 from the same start and the spread each
+    coordinate's largest distance from x over the plain version on the
+    card (``plain``), on the CPU (``cpu``) and on ROUNDING_SAMPLES starts
+    with every coordinate of qpos and qvel moved by a relative 2^-23."""
+    from mujoco_maze_tpu_torch.ops import engine_kernel
+
+    q, v, t, a = q[envs], v[envs], t[envs], a[envs]
+    exact = engine_kernel.engine_step_plain(ks, q.double(), v.double(), t,
+                                            a.double())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nudge = lambda x: x * (1 + 2.0 ** -23 * torch.randint(
+        -1, 2, x.shape, generator=gen, device="cuda"))
+    starts = [(nudge(q), nudge(v)) for _ in range(ROUNDING_SAMPLES)]
+    n = len(envs)
+    out = engine_kernel.engine_step_plain(
+        ks, torch.cat([x for x, _ in starts]), torch.cat([y for _, y in starts]),
+        t.repeat(ROUNDING_SAMPLES), a.repeat(ROUNDING_SAMPLES, 1))
+    samples = [[x[envs] for x in plain], [x[envs] for x in cpu]]
+    samples += [[out[i][k * n:(k + 1) * n] for i in (0, 1, 3)]
+                for k in range(ROUNDING_SAMPLES)]
+    worst = -math.inf
+    for k, (name, x) in enumerate(zip(("qpos", "qvel", "reward"),
+                                      (exact[0], exact[1], exact[3]))):
+        spread = torch.stack([(smp[k].double() - x).abs()
+                              for smp in samples]).max(0).values
+        over = (kern[k][envs].double() - x).abs() - tol[name]
+        worst = max(worst, float((over / spread.clamp_min(1e-30)).max()))
+    return worst
+
+
+def engine_states(spec, world: str, seed: int):
+    """Start states of a phase-20 world at B envs, on the card."""
+    from mujoco_maze_tpu_torch.ops import ant_kernel, engine_kernel
+
+    if world == "AntUMaze-v0":
+        q, v, t = ant_kernel.contact_states(spec, B, seed)
+    elif world.startswith("Ant"):
+        q, v, t = ant_kernel.block_states(spec, B, seed)
+    else:
+        q, v, t = engine_kernel.sphere_robot_states(spec, B, seed)
+    return tuple(torch.as_tensor(x, device="cuda") for x in (q, v, t))
+
+
+CHECK_READINGS: dict = {}   # the last engine_step_check's rounding readings
+
+
+def engine_step_check(world: str, seed: int):
+    """Phase 20 for one world: engine_step against engine_step_plain at B
+    envs, teacher-forced (both start every step from the plain version's
+    state), from states that put the robot on the floor, against wall and
+    block faces, the blocks at and beyond their travel limits, the Fall
+    block perched, over the chasm and between, with t spread over the
+    episode.  Returns the max error and the env-steps compared."""
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT, EnvState
+    from mujoco_maze_tpu_torch.ops import engine_kernel, lane_env
+
+    ant = world.startswith("Ant")
+    tol = ENGINE_ANT_TOL if ant else ENGINE_TOL
+    steps = ENGINE_ANT_STEPS if ant or world == "Arm" else ENGINE_STEPS
+    spec = engine_spec(world, "cuda")
+    ks = engine_kernel.spec_from_env(spec)
+    kstep = lane_env.EngineStep(ks, B)
+    ks_cpu = None
+    q, v, t = engine_states(spec, world, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lo, hi = (float(x[0]) for x in spec.robot.action_bounds())
+    nw = (ks.n_cand + 31) // 32
+    errs = {"qpos": 0.0, "qvel": 0.0, "reward": 0.0}
+    qv_all = []
+    exact = t_mis = term_mis = knife_mis = knife_steps = cpu_steps = 0
+    blow_mis = trunc = noise_steps = 0
+    worst_ratio = -math.inf
+    active = 0
+    cover = {k: torch.zeros(B, dtype=torch.bool, device="cuda")
+             for k in ("floor", "wall", "block", "limit", "platform row")}
+    knife_notes = []
+    for it in range(steps):
+        a = (lo + (hi - lo) * torch.rand(B, ks.nu, generator=gen,
+                                         device="cuda")).contiguous()
+        kq, kv, kt, kr, km, ka, ktr = kstep(q, v, t, a, count_active=True,
+                                            trace=True)
+        pq, pv, pt, pr, pm = engine_kernel.engine_step_plain(ks, q, v, t, a)
+        words = ktr.to(torch.int64) & 0xFFFFFFFF
+        act_bits = words[:, :, :nw]
+        bit = lambda i: ((act_bits[:, :, i // 32] >> (i % 32)) & 1).any(dim=1)
+        groups = int(spec.contact_set.has_floor) + min(ks.offsets["box"][1], 2)
+        for k in range(ks.n_static):
+            if spec.contact_set.has_floor:
+                cover["floor"] |= bit(k)
+            for g in range(int(spec.contact_set.has_floor), groups):
+                cover["wall"] |= bit(g * ks.n_static + k)
+        for p in range(ks.offsets["pair"][1]):
+            cover["block"] |= bit(groups * ks.n_static + p)
+        last = words[:, :, 3 * nw]
+        cover["limit"] |= ((last & 0xFFFFFF) != 0).any(dim=1)
+        sup = (last >> 24) & 3
+        cover["platform row"] |= ((sup == 1) | (sup == 3)).any(dim=1)
+        active += int(ka.sum())
+        blown_k = ~torch.isfinite(kq).all(1) | ~torch.isfinite(kv).all(1) | (
+            kv.abs().max(1).values > BLOWN_QVEL)
+        blown_p = ~torch.isfinite(pq).all(1) | ~torch.isfinite(pv).all(1) | (
+            pv.abs().max(1).values > BLOWN_QVEL)
+        blow_mis += int((blown_k != blown_p).sum())
+        ok = ~(blown_k | blown_p)
+        zero = torch.zeros(B, device="cuda")
+        eq = torch.where(ok, (kq - pq).abs().max(1).values, zero)
+        ev = torch.where(ok, (kv - pv).abs().max(1).values, zero)
+        er = torch.where(ok, (kr - pr).abs(), zero)
+        exact += int((ok & (eq == 0) & (ev == 0) & (er == 0)).sum())
+        over = torch.nonzero((eq > tol["qpos"]) | (ev > tol["qvel"])
+                             | (er > tol["reward"]))[:, 0]
+        if len(over):
+            # recompute those env-steps by the plain version on the CPU
+            if ks_cpu is None:
+                ks_cpu = engine_kernel.spec_from_env(engine_spec(world, "cpu"))
+            cpu = engine_kernel.engine_step_plain(
+                ks_cpu, *(x[over].cpu() for x in (q, v, t, a)))
+            cq, cv, cr = pq.clone(), pv.clone(), pr.clone()
+            cq[over], cv[over], cr[over] = (cpu[k].cuda() for k in (0, 1, 3))
+            still = ((kq[over] - cq[over]).abs().max(1).values > tol["qpos"]) | (
+                (kv[over] - cv[over]).abs().max(1).values > tol["qvel"]) | (
+                (kr[over] - cr[over]).abs() > tol["reward"])
+            cpu_steps += int((~still).sum())
+            eq[over[~still]] = 0.0
+            ev[over[~still]] = 0.0
+            er[over[~still]] = 0.0
+            rest = over[still]
+            if len(rest):
+                tr_p = engine_kernel.active_trace(ks, q[rest], v[rest], a[rest])
+                switch = (ktr[rest] != tr_p).flatten(1).any(dim=1)
+                knife = rest[switch]
+                knife_steps += len(knife)
+                for e in knife[:2].tolist():
+                    knife_notes.append(
+                        f"step {it} env {e}: qpos {float(eq[e]):.3g} qvel "
+                        f"{float(ev[e]):.3g} reward {float(er[e]):.3g}")
+                eq[knife] = 0.0
+                ev[knife] = 0.0
+                er[knife] = 0.0
+                rest = rest[~switch]
+            if len(rest):
+                # float32 rounding alone: each coordinate against its own
+                # float32 spread
+                worst_ratio = max(worst_ratio, rounding_ratio(
+                    ks, (kq, kv, kr), (pq, pv, pr), (cq, cv, cr), q, v, t, a,
+                    rest, tol))
+                noise_steps += len(rest)
+                eq[rest] = 0.0
+                ev[rest] = 0.0
+                er[rest] = 0.0
+        errs["qpos"] = max(errs["qpos"], float(eq.max()))
+        errs["reward"] = max(errs["reward"], float(er.max()))
+        if ant:
+            qv_all.append(ev)
+        else:
+            errs["qvel"] = max(errs["qvel"], float(ev.max()))
+        t_mis += int((kt != pt).sum())
+        edge = knife_edges(ks, EnvState(qpos=pq, qvel=pv, t=pt))
+        term_mis += int(((km != pm) & ~edge & ok).sum())
+        knife_mis += int(((km != pm) & edge & ok).sum())
+        trunc += int((pt >= EPISODE_LIMIT).sum())
+        q, v, t = pq, pv, pt
+    n = steps * B
+    cov = {k: int(x.sum()) for k, x in cover.items()}
+    qv_note = ""
+    if ant:
+        qv = torch.cat(qv_all)
+        errs["qvel"] = float(qv.max())
+        qv_q = float(torch.quantile(qv, ANT_QVEL_QUANTILE))
+        qv_note = (f"; qvel {100 * ANT_QVEL_QUANTILE:g}th percentile "
+                   f"{qv_q:.3g} (tol {ANT_QVEL_TOL})")
+    # the env-steps that float32 rounding alone puts beyond the bounds
+    noise_ok = (noise_steps <= CONDITIONED_SHARE * n
+                and worst_ratio <= ROUNDING_FACTOR)
+    noise_note = (f"beyond the bounds by float32 rounding alone {noise_steps} "
+                  f"(tol {int(CONDITIONED_SHARE * n)})")
+    if noise_steps:
+        noise_note += (f", their largest (|kernel - float64| - bound) / "
+                       f"float32 spread {worst_ratio:.4g} (tol "
+                       f"{ROUNDING_FACTOR:g})")
+    CHECK_READINGS.update(world=world, seed=seed, rounding_steps=noise_steps,
+                          rounding_ratio=worst_ratio if noise_steps else None,
+                          cpu_steps=cpu_steps, knife_steps=knife_steps)
+    log(f"phase 20: {world} engine_step vs plain, {steps} teacher-forced "
+        f"steps x {B} envs: max |err| qpos {errs['qpos']:.3g} qvel "
+        f"{errs['qvel']:.3g} reward {errs['reward']:.3g} (tol {tol}){qv_note}; "
+        f"bit-exact env-steps {exact} of {n}; beyond the bounds on the card "
+        f"but within them against the plain version on the CPU {cpu_steps}; "
+        f"at a knife edge (a switch in one version only) {knife_steps} (tol "
+        f"{int(KNIFE_SHARE * n)}){': ' + '; '.join(knife_notes) if knife_notes else ''}; "
+        f"t mismatches {t_mis} (tol 0), terminated {term_mis} (tol 0) and "
+        f"{knife_mis} at goal-threshold knife edges; {noise_note}; "
+        f"env-steps past t = 1000 "
+        f"{trunc}; blown up in one version only {blow_mis} (tol 0); envs "
+        f"seen {cov}; active contacts per env-step {active / n:.4g}")
+    bad = (not errs["qpos"] <= tol["qpos"] or not errs["reward"] <= tol["reward"]
+           or t_mis or term_mis or blow_mis or knife_steps > KNIFE_SHARE * n
+           or not noise_ok)
+    if ant:
+        bad = bad or not qv_q <= ANT_QVEL_TOL or not errs["qvel"] < BLOWN_QVEL
+    else:
+        bad = bad or not errs["qvel"] <= tol["qvel"]
+    if bad:
+        raise SystemExit(f"engine_step disagrees with its plain version on {world}")
+    # the robot stands on the floor, or on the elevated floor's boxes
+    need = {"wall": 1}
+    need["floor" if spec.structure.height_offset == 0 else "wall"] = B // 2
+    if spec.block_runtimes:
+        need.update({"block": 1, "limit": 1})
+    if spec._falling_support:
+        need["platform row"] = 1
+    if any(cov[k] < m for k, m in need.items()) or trunc == 0:
+        raise SystemExit(f"{world}: expected the floor, walls, blocks, limits, "
+                         "the Fall block's platform and truncations")
+    return max(errs["qpos"], errs["reward"],
+               errs["qvel"] if not ant else 0.0)
+
+
+
+def engine_main_path():
+    """Phase 21: the main path, make_roller_umaze(B) through the public step
+    API and rollout_metrics (1000 steps each, from the same seeds, with
+    auto-reset), the launch counts set to 0 just before and read just
+    after; checks of what comes out; engine_step's time per launch, on the
+    device, its bound and its plain version's time on RollerUMaze and on
+    the AntUMaze-v0 world, beside the Ant kernel's on the same state."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.examples.custom_robot import make_roller_umaze
+    from mujoco_maze_tpu_torch.ops import (engine_kernel, lane_env,
+                                           make_fast_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    env = make_roller_umaze(B)
+    spec = env.spec
+    policy = env.random_policy()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    st, obs = env.reset(3)
+    for _ in range(5):  # warm-up
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    torch.cuda.synchronize()
+
+    lane_env.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    st, obs = env.reset(3)
+    gen.manual_seed(5)
+    st0 = st
+    eps_api = torch.zeros((), dtype=torch.int64, device="cuda")
+    ev[0].record()
+    for _ in range(MAIN_STEPS):
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+        eps_api = eps_api + (res.terminated | res.truncated).sum()
+    ev[1].record()
+    env.reset(3)
+    gen.manual_seed(5)
+    st_m, rew_m, eps_m = env.rollout_metrics(st0, policy, MAIN_STEPS, gen)
+    ev[2].record()
+    torch.cuda.synchronize()
+    launches = dict(lane_env.LAUNCHES)
+    ms_api, ms_metrics = (ev[i].elapsed_time(ev[i + 1]) for i in range(2))
+    log(f"phase 21: main path make_roller_umaze({B}), {MAIN_STEPS} steps per "
+        f"path; launches {launches}")
+    expected = {k: 0 for k in launches}
+    expected["engine_step"] = 2 * MAIN_STEPS
+    if launches != expected:
+        raise SystemExit(f"engine main path launches {launches}, expected {expected}")
+    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
+    log(f"phase 21: RollerUMaze env-steps/s (CUDA events): step API "
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}")
+    r = float(spec.contact_set.sph_radius[0])
+    rest_z = float(spec.dynamic_model.body_pos[0][2])
+    z = st.qpos[:, 2] + rest_z
+    settled = st.t >= 20
+    zs = z[settled]
+    cs_ = spec.contact_set
+    reach = r + float(cs_.sph_margin[0] + cs_.floor_margin)  # dist < margin
+    on_floor = (zs > r - 0.02) & (zs < reach)
+    checks = {
+        "obs shape (B, 7)": tuple(obs.shape) == (B, spec.obs_dim) == (B, 7),
+        "obs and state finite": bool(torch.isfinite(obs).all()
+                                     and torch.isfinite(st.qpos).all()
+                                     and torch.isfinite(st.qvel).all()),
+        "obs time channel = t * 0.001": bool(
+            (obs[:, -1] == st.t.float() * 0.001).all()),
+        "no roller through the floor (centre z > r - 0.1; a roller landing "
+        "from its 0.75 start sinks ~0.035 into the soft contact)": bool(
+            (z > r - 0.1).all()),
+        ">= 90 % of the settled rollers on the floor (r - 0.02 < z < r + "
+        "the contact margins: within the floor contact's reach)": bool(
+            on_floor.float().mean() >= 0.9),
+        "settled envs (t >= 20) >= B / 2": int(settled.sum()) >= B // 2,
+        "rollout_metrics reward finite": bool(torch.isfinite(rew_m)),
+        "episode counts equal on the same seeds": int(eps_api) == int(eps_m),
+        "rollout_metrics ends on the step API's state": bool(
+            torch.equal(st_m.qpos, st.qpos) and torch.equal(st_m.t, st.t)),
+        "episodes ended >= B (truncation at 1000)": int(eps_m) >= B,
+    }
+    log(f"phase 21: output checks {checks} (episodes {int(eps_api)} and "
+        f"{int(eps_m)}; settled rollers' centre height min {float(zs.min()):.4g}"
+        f" median {float(zs.median()):.4g} max {float(zs.max()):.4g}, on the "
+        f"floor {float(on_floor.float().mean()):.4g}, r = {r}, reach "
+        f"{reach:.4g}; every roller's min {float(z.min()):.4g} at t = "
+        f"{int(st.t[z.argmin()])})")
+    if not all(checks.values()):
+        raise SystemExit("the engine main path's output failed a check")
+
+    # the port's CUDA path against its CPU path on a small input
+    n_small = 64
+    cpu_env = make_roller_umaze(n_small, device="cpu", auto_reset=False)
+    gpu_env = make_roller_umaze(n_small, auto_reset=False)
+    q, v, t = engine_kernel.sphere_robot_states(cpu_env.spec, n_small, 5)
+    s_cpu = EnvState(qpos=torch.as_tensor(q), qvel=torch.as_tensor(v),
+                     t=torch.as_tensor(t))
+    rng = np.random.RandomState(5)
+    small_err = 0.0
+    for _ in range(5):
+        act = torch.as_tensor(rng.uniform(-1, 1, (n_small, 2)),
+                              dtype=torch.float32)
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        small_err = max(small_err,
+                        float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
+                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit("the engine CUDA path and CPU path disagree on "
+                             "terminated")
+        s_cpu = r_cpu.state
+    log(f"phase 21: CUDA path vs CPU path, {n_small} envs x 5 steps "
+        f"teacher-forced from contact states: max |err| obs and reward "
+        f"{small_err:.3g} (tol {ENGINE_TOL['qvel']})")
+    if not small_err <= ENGINE_TOL["qvel"]:
+        raise SystemExit("the engine CUDA path disagrees with the CPU path")
+
+    # where a step-API step's time goes: one profiled window of 50 steps
+    acts = [policy(obs, gen) for _ in range(50)]
+    s = st
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        for a in acts:
+            s = env.step(s, a).state
+        ev[1].record()
+        torch.cuda.synchronize()
+    window_us = 1e3 * ev[0].elapsed_time(ev[1])
+    on_device = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(x for x, _, _ in on_device)
+    idle = 1 - busy_us / window_us if busy_us else float("nan")
+    n_kernels = sum(n for _, n, _ in on_device) / 50
+    top = "; ".join(f"{k[:60]} {x / 50:.4g} us/step ({n / 50:.3g}/step)"
+                    for x, n, k in on_device[:4])
+    log(f"phase 21: profiled RollerUMaze step API, 50 steps in "
+        f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
+        f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
+
+    # engine_step's numbers on RollerUMaze (the main path's state) and on
+    # the AntUMaze-v0 world, beside the Ant kernel on the same state
+    out = {"rates": {"step_api": rate(ms_api), "rollout_metrics": rate(ms_metrics),
+                     "idle_share": idle, "kernels_per_step": n_kernels,
+                     "episodes": int(eps_m)}}
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    act = policy(obs, gen)
+    n_act, tr = kstep(st.qpos, st.qvel, st.t, act, count_active=True,
+                      trace=True)[5:]
+    per_eval = float(n_act.float().mean()) / (4 * ks.frame_skip)
+    ms = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 50)
+    ms_plain = cuda_ms(lambda: engine_kernel.engine_step_plain(
+        ks, st.qpos, st.qvel, st.t, act), 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kstep(st.qpos, st.qvel, st.t, act)
+        torch.cuda.synchronize()
+    dev, n_prof = device_ms(prof, "engine_step_kernel")
+    flops = engine_step_flops(ks, tr)
+    b = bound(B * engine_bytes(ks) + 4 * ks.packed.numel(), B * flops)
+    log(f"phase 21: RollerUMaze engine_step {ms:.6g} ms/launch, {dev:.6g} ms "
+        f"on the device ({n_prof} profiled), plain {ms_plain:.6g} ms; bound "
+        f"{b[0]:.3g} ms by {b[1]} ({flops:.6g} fp32 operations per env-step at "
+        f"{per_eval:.4g} active contacts per forward evaluation, on the "
+        f"data sheet's {FP32_FLOP_S:.3g} FLOP/s; the measured peak's bound "
+        f"follows phase 16); kernel/bound {ms / b[0]:.4g}x")
+    out["step"] = {"name": "engine_step", "launches": launches["engine_step"],
+                   "ms": ms, "device_ms": dev, "plain_ms": ms_plain,
+                   "bound_ms": b[0], "bound_by": b[1],
+                   "fp32_ops_per_env_step": flops,
+                   "active_contacts_per_eval": per_eval}
+
+    ant_env = mmt.make_batched("AntUMaze-v0", B)
+    ant_st, ant_obs = ant_env.reset(7)
+    ant_policy = ant_env.random_policy()
+    for _ in range(20):
+        res = ant_env.step(ant_st, ant_policy(ant_obs, gen))
+        ant_st, ant_obs = res.state, res.obs
+    ant_act = ant_policy(ant_obs, gen)
+    gks = engine_kernel.spec_from_env(ant_env.spec)
+    gstep = lane_env.EngineStep(gks, B)
+    n_act, g_tr = gstep(ant_st.qpos, ant_st.qvel, ant_st.t, ant_act,
+                        count_active=True, trace=True)[5:]
+    ant_per_eval = float(n_act.float().mean()) / (4 * gks.frame_skip)
+    ant_kstep = make_fast_step(ant_env)
+    ms_g = cuda_ms(lambda: gstep(ant_st.qpos, ant_st.qvel, ant_st.t, ant_act), 10)
+    ms_a = cuda_ms(lambda: ant_kstep(ant_st.qpos, ant_st.qvel, ant_st.t,
+                                     ant_act), 10)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            gstep(ant_st.qpos, ant_st.qvel, ant_st.t, ant_act)
+            ant_kstep(ant_st.qpos, ant_st.qvel, ant_st.t, ant_act)
+        torch.cuda.synchronize()
+    dev_g, _ = device_ms(prof, "engine_step_kernel")
+    dev_a, _ = device_ms(prof, "ant_step_kernel")
+    ms_gp = cuda_ms(lambda: engine_kernel.engine_step_plain(
+        gks, ant_st.qpos, ant_st.qvel, ant_st.t, ant_act), 1)
+    g_flops = engine_step_flops(gks, g_tr)
+    gb = bound(B * engine_bytes(gks) + 4 * gks.packed.numel(), B * g_flops)
+    log(f"phase 21: AntUMaze-v0 world: engine_step {ms_g:.6g} ms/launch, "
+        f"{dev_g:.6g} ms on the device, plain {ms_gp:.6g} ms, bound "
+        f"{gb[0]:.3g} ms by {gb[1]} ({g_flops:.6g} fp32 operations per env-step "
+        f"at {ant_per_eval:.4g} active contacts per forward evaluation); the "
+        f"Ant kernel on the same state {ms_a:.6g} ms/launch, {dev_a:.6g} ms "
+        f"on the device: the topology-specific kernel is "
+        f"{ms_g / ms_a:.3g}x faster")
+    out["step"]["ant_world"] = {"id": "AntUMaze-v0", "ms": ms_g,
+                                "device_ms": dev_g, "plain_ms": ms_gp,
+                                "bound_ms": gb[0], "bound_by": gb[1],
+                                "ant_step_ms": ms_a, "ant_step_device_ms": dev_a}
+    return out
+
+
+def engine_phases() -> int:
+    """Phases 20-21, run in a process of their own (``python3 chip_smoke.py
+    --engine``, started by ``main``; it also runs alone).  Prints its
+    result as one ``ENGINE_RESULT {json}`` line."""
+    from mujoco_maze_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _build.load()
+    worlds = ENGINE_WORLDS + ENGINE_ANT_IDS + ("Arm",)
+    err = max(engine_step_check(w, 101 + k) for k, w in enumerate(worlds))
+    out = engine_main_path()
+    out["step"]["max_abs_err"] = err
+    print(ENGINE_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+# Faults that --engine-faults plants, one at a time, into a copy of
+# csrc/engine_lane.cuh (the falling support: its both-rows branch, which
+# most perched env-steps take, and its rarer single-row branches), with
+# the size of each; phase 20 must fail on each.
+ENGINE_FAULTS = (
+    ("both rows' net force x (1 + 1e-5)", "return both ? fc_both - fl_both",
+     "return both ? (fc_both - fl_both) * 1.00001f"),
+    ("platform row alone x (1 + 1e-4)", ": (use_c ? fmaxf(fc_only, 0.f)",
+     ": (use_c ? fmaxf(fc_only, 0.f) * 1.0001f"),
+    ("limit row alone x (1 + 1e-3)", ": (use_l ? -fmaxf(fl_only, 0.f) : 0.f)",
+     ": (use_l ? -fmaxf(fl_only, 0.f) * 1.001f : 0.f)"),
+)
+FAULT_WORLDS = ("GoalRewardFall:103", "GoalRewardFall:203")
+
+
+def engine_check(args) -> int:
+    """``--engine-check WORLD:SEED ...``: phase 20's check of each world
+    alone, each printing its readings as one ``ENGINE_CHECK {json}``
+    line; exits non-zero at the first that fails."""
+    from mujoco_maze_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _build.load()
+    for arg in args:
+        world, seed = arg.rsplit(":", 1)
+        CHECK_READINGS.clear()
+        passed = False
+        try:
+            engine_step_check(world, int(seed))
+            passed = True
+        finally:
+            print(CHECK_RESULT + json.dumps(
+                {**CHECK_READINGS, "world": world, "seed": int(seed),
+                 "passed": passed}), flush=True)
+    return 0
+
+
+def engine_faults() -> int:
+    """``--engine-faults``: phase 20's Fall check on this checkout at two
+    seeds (the phase's own, 103, and 203), which must pass, then on copies
+    of this script and the package in a temporary directory with one of
+    ENGINE_FAULTS planted in each, which must fail.  Prints the readings of
+    every run and, last, one JSON line of them."""
+    import shutil
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run(root, worlds):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"), CHECK_FLAG,
+             *worlds], cwd=root, stdout=subprocess.PIPE, text=True)
+        readings = []
+        for line in proc.stdout.splitlines():
+            if line.startswith(CHECK_RESULT):
+                readings.append(json.loads(line[len(CHECK_RESULT):]))
+            else:
+                print(line, flush=True)
+        return proc.returncode, readings
+
+    log(nvidia_smi())
+    rc, clean = run(here, FAULT_WORLDS)
+    ok = rc == 0 and len(clean) == len(FAULT_WORLDS)
+    log(f"faults: the checkout: passed {ok} (exit code {rc}); {clean}")
+    result = {"clean": clean, "faults": []}
+    for name, old, new in ENGINE_FAULTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(os.path.join(here, "chip_smoke.py"), tmp)
+            shutil.copytree(os.path.join(here, "mujoco_maze_tpu_torch"),
+                            os.path.join(tmp, "mujoco_maze_tpu_torch"),
+                            ignore=shutil.ignore_patterns(".kernel_build",
+                                                          "__pycache__"))
+            src = os.path.join(tmp, "mujoco_maze_tpu_torch", "csrc",
+                               "engine_lane.cuh")
+            with open(src) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise SystemExit(f"no single site for the fault {name!r}")
+            with open(src, "w") as f:
+                f.write(text.replace(old, new))
+            rc, readings = run(tmp, FAULT_WORLDS[:1])
+        log(f"faults: {name}: caught {rc != 0} (exit code {rc}); {readings}")
+        result["faults"].append({"fault": name, "caught": rc != 0,
+                                 "readings": readings})
+        ok = ok and rc != 0
+    print(json.dumps(result), flush=True)
+    return 0 if ok else 1
 
 
 def main() -> int:
@@ -2145,7 +3099,20 @@ def main() -> int:
     peak = peak_phase()
 
     # -- 17-19. the Point object worlds, in a process of their own -----------
-    objects = run_point_objects()
+    objects = run_child(OBJ_FLAG, OBJ_RESULT, "17-19")
+
+    # -- 20-21. custom robots through the generic engine kernel ---------------
+    engine = run_child(ENGINE_FLAG, ENGINE_RESULT, "20-21")
+    # engine_step's operation bound against the fp32 peak phase 16 measured
+    # (the child process's bound is on the data sheet's 67e12)
+    eng = engine["step"]
+    eng["bound_ms_measured_peak"] = (
+        1e3 * B * eng["fp32_ops_per_env_step"] / peak["measured_fp32_flop_s"])
+    log(f"phase 21: RollerUMaze engine_step bound {eng['bound_ms']:.3g} ms on "
+        f"the data sheet's {FP32_FLOP_S:.3g} FLOP/s, "
+        f"{eng['bound_ms_measured_peak']:.3g} ms on the measured "
+        f"{peak['measured_fp32_flop_s']:.6g}; kernel/bound "
+        f"{eng['ms'] / eng['bound_ms_measured_peak']:.4g}x on the measured peak")
 
     src = "mujoco_maze_tpu_torch/csrc/point_lane.cu"
     kernels = [
@@ -2199,6 +3166,15 @@ def main() -> int:
             "library_ms": None, "worlds": "the 27 Point object worlds",
             "main_path": OBJ_MAIN_ID, **(
                 {"main_path_rates": objects["rates"]} if kind == "step" else {})})
+    kernels.append({
+        **engine["step"], "route": "cuda",
+        "source": "mujoco_maze_tpu_torch/csrc/engine_lane.cu",
+        "replaces": "mujoco_maze_tpu/ops/engine_pallas.py:190",
+        "device_code": "mujoco_maze_tpu_torch/csrc/engine_lane.cuh",
+        "library_ms": None,
+        "worlds": "custom USES_WORLD_ENGINE robots (examples/custom_robot.py)",
+        "main_path": "make_roller_umaze(4096)",
+        "main_path_rates": engine["rates"]})
     log(f"done in {time.perf_counter() - T0:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
@@ -2209,4 +3185,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(point_objects_phases() if OBJ_FLAG in sys.argv[1:] else main())
+    ARGS = sys.argv[1:]
+    sys.exit(point_objects_phases() if OBJ_FLAG in ARGS
+             else engine_phases() if ENGINE_FLAG in ARGS
+             else engine_faults() if FAULTS_FLAG in ARGS
+             else engine_check(ARGS[1:]) if ARGS[:1] == [CHECK_FLAG]
+             else main())

@@ -5,9 +5,10 @@ one NVIDIA GPU: plain PyTorch around hand-written CUDA kernels
 (``csrc/point_lane.cu`` for the Point, with the object worlds' reduced
 object solve in ``csrc/point_objects.cuh``; ``csrc/ant_lane.cuh`` built as
 ``ant_lane.cu`` and ``ant_blocks.cu`` for the Ant, ``csrc/swimmer_lane.cu``
-for the Swimmer and the Reacher; ``csrc/roofline.cu`` measures the card's
-fp32 peak).  It imports torch, numpy and the standard library only — never
-JAX, gymnasium or the JAX package.
+for the Swimmer and the Reacher; ``csrc/engine_lane.cu`` steps any custom
+robot composed through the extension API; ``csrc/roofline.cu`` measures
+the card's fp32 peak).  It imports torch, numpy and the standard library
+only — never JAX, gymnasium or the JAX package.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``::
 
@@ -30,6 +31,15 @@ Swimmer and Reacher IDs (42 object-free, and Push, Fall and MultiFall
 with one block that the swimmer never moves).  The 3 AntSmallBilliard
 worlds raise ``NotImplementedError`` naming the ROADMAP item that ports
 them (11d).
+
+Custom robots: a ``models.base.Robot`` subclass with ``USES_WORLD_ENGINE``
+and ``build_bodies``, composed with any task by ``envs.env.MazeEnvSpec``
+and batched by ``envs.batched.BatchedMazeEnv``, is stepped by the generic
+engine kernel (``examples/custom_robot.py``: ``make_roller_umaze``)::
+
+    from mujoco_maze_tpu_torch.examples.custom_robot import make_roller_umaze
+
+    env = make_roller_umaze(4096)          # device="cpu" without a card
 """
 
 from .maze.cells import MazeCell

@@ -14,6 +14,7 @@ import torch
 
 from .envs.env import EnvState
 from .ops.ant_kernel import AntKernelSpec
+from .ops.engine_kernel import EngineKernelSpec
 from .ops.point_kernel import PointKernelSpec
 from .ops.swimmer_kernel import SwimmerKernelSpec
 
@@ -56,10 +57,13 @@ def lowered_spec(ks) -> Dict[str, object]:
     ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`;
     ``swimmer_pallas.SwimmerEnvKernelSpec`` (its ``dyn`` fields, those of
     ``swimmer_math.SwimmerKernelSpec``, under ``dyn.<name>``) for a
-    :class:`SwimmerKernelSpec`.  Numpy arrays (float32 as the kernels read
-    them) and Python scalars."""
+    :class:`SwimmerKernelSpec`; ``engine_pallas.EngineEnvKernelSpec`` for
+    an :class:`EngineKernelSpec` (see :func:`_lowered_engine`).  Numpy
+    arrays (float32 as the kernels read them) and Python scalars."""
     if isinstance(ks, AntKernelSpec):
         return _lowered_ant(ks)
+    if isinstance(ks, EngineKernelSpec):
+        return _lowered_engine(ks)
     if isinstance(ks, SwimmerKernelSpec):
         return _lowered_swimmer(ks)
     walls = ks.walls.detach().cpu().numpy()
@@ -164,4 +168,72 @@ def lowered_blocks(ks: AntKernelSpec) -> List[Dict[str, object]]:
             "margin": qpair[b * n_sph, 0] - sph[0, 5],
             "plats": plat[p0:p0 + int(row[10])],
         })
+    return out
+
+
+def _lowered_engine(ks: EngineKernelSpec) -> Dict[str, object]:
+    """The generic engine kernel's data under the names of the JAX
+    ``engine_pallas.EngineEnvKernelSpec``, read back from the packed
+    tables: its scalars and goals; its ``LaneWorld`` under ``lw.<name>``
+    (``lw.sph_solref`` holds the solref time constant as the kernels use
+    it, clamped to 2 dt; the moving boxes' own margins, solref, solimp and
+    friction, which the tables carry only mixed per pair, come from the
+    contact set; the JAX prune's ``n_near_boxes`` has no counterpart); the
+    model's arrays under ``lw.model.<name>``; and the pair table's mixed
+    constants under ``pair.<name>``."""
+    body, jnt, dof, act = (ks.table(n) for n in ("body", "jnt", "dof", "act"))
+    sph, box, dbox, pair = (ks.table(n) for n in ("sph", "box", "dbox", "pair"))
+    fall, plat = ks.table("fall"), ks.table("plat")
+    cs = ks.env_spec.contact_set
+    inertia = np.zeros((len(body), 3, 3), np.float32)
+    for (r, c), col in zip(((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)),
+                           range(19, 25)):
+        inertia[:, r, c] = inertia[:, c, r] = body[:, col]
+    falling = tuple(
+        (int(f[0]), int(f[1]), float(f[2]),
+         tuple(tuple(float(x) for x in p)
+               for p in plat[int(f[3]):int(f[3]) + int(f[4])]))
+        for f in fall)
+    out: Dict[str, object] = {
+        "nq": ks.nq, "nv": ks.nv, "nu": ks.nu,
+        **_goal_fields(ks.env_spec.heads),
+        "lw.model.body_parent": body[:, 0].astype(np.int64),
+        "lw.model.body_pos": body[:, 3:6],
+        "lw.model.body_rot": body[:, 6:15].reshape(-1, 3, 3),
+        "lw.model.body_mass": body[:, 15], "lw.model.body_com": body[:, 16:19],
+        "lw.model.body_inertia": inertia,
+        "lw.model.jnt_type": jnt[:, 0].astype(np.int64),
+        "lw.model.jnt_qposadr": jnt[:, 1].astype(np.int64),
+        "lw.model.jnt_dofadr": jnt[:, 2].astype(np.int64),
+        "lw.model.jnt_axis": jnt[:, 3:6], "lw.model.jnt_pos": jnt[:, 6:9],
+        "lw.model.jnt_range": jnt[:, 10:12],
+        "lw.model.dof_armature": dof[:, 1], "lw.model.dof_damping": dof[:, 2],
+        "lw.model.act_dofadr": act[:, 0].astype(np.int64),
+        "lw.model.act_gear": act[:, 1], "lw.model.act_ctrlrange": act[:, 2:4],
+        "lw.sph_body": sph[:, 0].astype(np.int64), "lw.sph_local": sph[:, 1:4],
+        "lw.sph_radius": sph[:, 4], "lw.sph_margin": sph[:, 5],
+        "lw.sph_friction": sph[:, 7], "lw.sph_solimp": sph[:, 8:11],
+        "lw.sph_solref": sph[:, 11:13], "lw.sph_vs_static": sph[:, 13] >= 0,
+        "lw.box_center": box[:, :3], "lw.box_half": box[:, 3:6],
+        "lw.box_margin": box[:, 6], "lw.has_floor": bool(cs.has_floor),
+        "lw.floor_margin": float(cs.floor_margin),
+        "lw.pair_i": np.asarray(cs.pair_i, np.int64),
+        "lw.pair_j": np.asarray(cs.pair_j, np.int64),
+        "lw.dbox_body": dbox[:, 0].astype(np.int64),
+        "lw.dbox_local": dbox[:, 1:4], "lw.dbox_half": dbox[:, 4:7],
+        "lw.dbox_margin": np.asarray(cs.dbox_margin, np.float32),
+        "lw.dbox_solref": np.asarray(cs.dbox_solref, np.float32),
+        "lw.dbox_solimp": np.asarray(cs.dbox_solimp, np.float32),
+        "lw.dbox_friction": np.asarray(cs.dbox_friction, np.float32),
+        "lw.qpair_s": pair[:, 0].astype(np.int64),
+        "lw.qpair_b": pair[:, 1].astype(np.int64),
+        "lw.falling": falling,
+        "pair.margin": pair[:, 2], "pair.friction": pair[:, 3],
+        "pair.solimp": pair[:, 4:7], "pair.solref": pair[:, 7:9],
+    }
+    for name in ("reward_type", "penalty", "scale", "inner_scale",
+                 "frame_skip", "episode_limit", "solver_iters", "fwd_weight",
+                 "ctrl_cost", "obs_offset", "head_qadr", "head_base",
+                 "dynamic_goals"):
+        out[name] = getattr(ks, name)
     return out

@@ -36,6 +36,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ..maze.cells import MazeCell
 from ..maze.structure import MazeStructure, analyze_maze, with_ball_size
 from ..models.base import Robot
@@ -90,8 +91,14 @@ class MazeEnvSpec:
     The port covers, in float32, the Point robot in object-free mazes and
     in its object worlds (blocks, platforms, hinge balls), and the Ant,
     the Swimmer and the Reacher in object-free mazes and in the worlds
-    with movable blocks and elevated platforms.  Everything else raises
+    with movable blocks and elevated platforms.  It is also the extension
+    API's entry point: any custom robot with ``USES_WORLD_ENGINE`` and
+    ``build_bodies`` gets the composed engine world (robot, movable
+    blocks, static maze boxes, floor), the reset of its own
+    ``reset_noise`` law and its own ``dynamics_step``
+    (``examples/custom_robot.py``).  Everything else raises
     ``NotImplementedError`` naming the ROADMAP queue item that ports it.
+    ``device=None`` means CUDA; without a card pass ``device="cpu"``.
     """
 
     def __init__(
@@ -104,14 +111,14 @@ class MazeEnvSpec:
         restitution_coef: float = 0.8,
         task_kwargs: Optional[Dict[str, Any]] = None,
         dtype: torch.dtype = torch.float32,
-        device: torch.device = torch.device("cpu"),
+        device: DeviceLike = None,
     ) -> None:
         if dtype != torch.float32:
             raise NotImplementedError(
                 "the float64 Point fidelity path is not ported yet "
                 "(ROADMAP queue 1 item 9)")
         self.robot = robot
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.task: MazeTask = maze_task(maze_size_scaling, **(task_kwargs or {}))
         self.inner_reward_scaling = float(inner_reward_scaling)
@@ -368,6 +375,38 @@ class MazeEnvSpec:
         for zdof, args in self._support_inputs(kd, qacc0, Minv, qvel):
             qfrc[:, zdof] = qfrc[:, zdof] + falling_support_force(*args)
         return qfrc
+
+    def world_extra_qfrc(self):
+        """The constraint forces the engine adds to the joint limits:
+        contacts and the falling blocks' support (JAX models/ant.py:201-205),
+        as the engine's ``extra_qfrc(kd, qacc0, Minv, qvel)``."""
+        from ..physics import contact, engine
+
+        model, cset = self.dynamic_model, self.contact_set
+        _, chain_mask, _, _ = engine.get_masks(model)
+
+        def extra(kd, qacc0, Minv, qvel):
+            qfrc = contact.contact_qfrc(model, cset, kd, qvel, qacc0, Minv,
+                                        chain_mask)
+            if self._falling_support:
+                qfrc = qfrc + self.support_qfrc(kd, qacc0, Minv, qvel)
+            return qfrc
+
+        return extra
+
+    def world_step(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                   ctrl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``robot.frame_skip`` RK4 steps of the engine world with its
+        contacts and support: the dynamics of every ``USES_WORLD_ENGINE``
+        robot."""
+        from ..physics import engine
+
+        extra = self.world_extra_qfrc()
+        ctrl = ctrl.to(qpos.dtype)
+        for _ in range(self.robot.frame_skip):
+            qpos, qvel = engine.rk4_step(self.dynamic_model, qpos, qvel, ctrl,
+                                         extra_qfrc=extra)
+        return qpos, qvel
 
     def support_cases(self, kd, qacc0: torch.Tensor, Minv: torch.Tensor,
                       qvel: torch.Tensor) -> dict:

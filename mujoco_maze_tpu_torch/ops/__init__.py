@@ -8,23 +8,30 @@
 - :mod:`.swimmer_kernel` — the swimmer kernels' tables and plain versions
   (the Swimmer and the Reacher), over :mod:`.swimmer_math`, the
   closed-form planar dynamics
+- :mod:`.engine_kernel`  — the generic engine step kernel's tables and
+  plain version: any other robot with ``USES_WORLD_ENGINE`` (custom robots
+  composed through the extension API)
 - :mod:`.lane_env`       — their launch wrappers and launch counts
 - :mod:`.philox`         — the rollout kernels' random stream, in torch
 - :mod:`._build`         — one ``nvcc`` per ``csrc/*.cu``, linked into one
   library loaded with ``ctypes``
 
 The port has the Point robot on object-free mazes and in its object
-worlds, and the Ant, the Swimmer and the Reacher on object-free mazes and
-in the block worlds; the Ant object balls' kernel is queued in ROADMAP
-queue 2.
+worlds, the Ant, the Swimmer and the Reacher on object-free mazes and in
+the block worlds, and custom engine-world robots through the generic
+kernel; the Ant object balls' kernel is queued in ROADMAP queue 2.
 """
 
 from __future__ import annotations
 
+
 def _kernel(env, which: int):
     """(kernel data, step or rollout wrapper class) of the env's robot, as
-    the JAX package's ``_KERNEL_MODULES`` dispatches by robot."""
-    from . import ant_kernel, lane_env, point_kernel, swimmer_kernel
+    the JAX package's ``_KERNEL_MODULES`` dispatches by robot; any other
+    robot with ``USES_WORLD_ENGINE`` goes to the generic engine kernel
+    (JAX ``ops/__init__.py:100-107``)."""
+    from . import (ant_kernel, engine_kernel, lane_env, point_kernel,
+                   swimmer_kernel)
 
     swimmer = (swimmer_kernel.spec_from_env, lane_env.SwimmerStep,
                lane_env.SwimmerRollout)
@@ -38,12 +45,20 @@ def _kernel(env, which: int):
         "Swimmer": swimmer,
         "Reacher": swimmer,
     }
-    name = env.spec.robot.NAME
-    if name not in kernels:
+    robot = env.spec.robot
+    if robot.NAME in kernels:
+        lower, step, rollout = kernels[robot.NAME]
+        return lower(env.spec), (step, rollout)[which]
+    if not getattr(robot, "USES_WORLD_ENGINE", False):
         raise NotImplementedError(
-            f"no kernel for the {name} robot yet (ROADMAP queue 2)")
-    lower, step, rollout = kernels[name]
-    return lower(env.spec), (step, rollout)[which]
+            f"no kernel for the {robot.NAME} robot: it is neither a known "
+            "robot nor an engine-world robot")
+    if which == 1:
+        raise NotImplementedError(
+            "the generic engine kernel is step-only, as in the JAX package "
+            "(engine_pallas.py:176-179): roll a custom robot out through "
+            "BatchedMazeEnv.rollout or rollout_metrics")
+    return engine_kernel.spec_from_env(env.spec), lane_env.EngineStep
 
 
 def make_fast_step(env):

@@ -530,7 +530,6 @@ def block_states(spec: MazeEnvSpec, num_envs: int, seed: int):
     s, half = ms.size_scaling, ms.size_scaling / 2
     grid = ms.grid
     blocks = spec.block_runtimes
-    support = {zdof: plats for _, zdof, _, plats in spec._falling_support}
 
     def cell_of(x, y):
         j = int(np.floor((x + ms.torso_x) / s + 0.5))
@@ -550,50 +549,7 @@ def block_states(spec: MazeEnvSpec, num_envs: int, seed: int):
     r = cs.sph_radius
     low = (c_rel[..., 2] - r).min(axis=1)
     for e in range(num_envs):
-        # the blocks' slides
-        centers = []
-        for b in blocks:
-            idx = b.qpos_idx
-            for k in range(3):
-                a = idx[k]
-                if a < 0 or (k == 2 and b.falling):
-                    continue
-                lo, hi = model.jnt_range[_joint_of(model, a)]
-                mode = rng.randint(3)
-                if mode == 0:
-                    qpos[e, a] = (lo, hi)[rng.randint(2)]
-                elif mode == 1:
-                    qpos[e, a] = ((lo - rng.uniform(0, 0.05)) if rng.randint(2)
-                                  else (hi + rng.uniform(0, 0.05)))
-                else:
-                    qpos[e, a] = rng.uniform(lo, hi)
-            if b.falling:
-                zq = b.qpos_idx[2]
-                plats = support[zq - 1]
-                z_perch = max(p[4] for p in plats) - b.body_pos[2] + b.half[2]
-                if e % 3 == 2:
-                    # over the chasm: a slide limit where no platform holds it
-                    opts = []
-                    for k in range(2):
-                        a = b.qpos_idx[k]
-                        if a < 0:
-                            continue
-                        for v in model.jnt_range[_joint_of(model, a)]:
-                            xy = b.body_pos[:2].copy()
-                            for kk in range(2):
-                                if b.qpos_idx[kk] >= 0:
-                                    xy[kk] += v if kk == k else qpos[e, b.qpos_idx[kk]]
-                            if not any(abs(xy[0] - p[0]) < p[2]
-                                       and abs(xy[1] - p[1]) < p[3] for p in plats):
-                                opts.append((a, v))
-                    if opts:
-                        a, v = opts[rng.randint(len(opts))]
-                        qpos[e, a] = v
-                    qpos[e, zq] = rng.uniform(0.0, z_perch)
-                else:
-                    qpos[e, zq] = z_perch - rng.uniform(0.0, 0.12)
-            centers.append(b.body_pos + np.array(
-                [qpos[e, a] if a >= 0 else 0.0 for a in b.qpos_idx]))
+        centers = _place_blocks(spec, qpos[e], rng, e)
         # the ant
         for attempt in range(100):
             mode = e % 3 if attempt < 50 else 2
@@ -641,6 +597,63 @@ def block_states(spec: MazeEnvSpec, num_envs: int, seed: int):
             t.astype(np.int32))
 
 
+def _place_blocks(spec: MazeEnvSpec, q: np.ndarray,
+                  rng: np.random.RandomState, e: int) -> list:
+    """Draw env ``e``'s movable blocks into its qpos row ``q`` (in place)
+    and return their centres: each slide a third of the time exactly at a
+    travel limit, a third up to 0.05 beyond one, a third anywhere between;
+    a falling block perched on its platform (its bottom up to 0.12 below
+    the platform's top) when ``e % 3 != 2``, else pushed over the chasm (a
+    slide limit where no platform holds it, z anywhere between the floor
+    and its perch)."""
+    model = spec.dynamic_model
+    support = {zdof: plats for _, zdof, _, plats in spec._falling_support}
+    centers = []
+    for b in spec.block_runtimes:
+        idx = b.qpos_idx
+        for k in range(3):
+            a = idx[k]
+            if a < 0 or (k == 2 and b.falling):
+                continue
+            lo, hi = model.jnt_range[_joint_of(model, a)]
+            mode = rng.randint(3)
+            if mode == 0:
+                q[a] = (lo, hi)[rng.randint(2)]
+            elif mode == 1:
+                q[a] = ((lo - rng.uniform(0, 0.05)) if rng.randint(2)
+                        else (hi + rng.uniform(0, 0.05)))
+            else:
+                q[a] = rng.uniform(lo, hi)
+        if b.falling:
+            zq = b.qpos_idx[2]
+            plats = support[int(model.jnt_dofadr[_joint_of(model, zq)])]
+            z_perch = max(p[4] for p in plats) - b.body_pos[2] + b.half[2]
+            if e % 3 == 2:
+                # over the chasm: a slide limit where no platform holds it
+                opts = []
+                for k in range(2):
+                    a = b.qpos_idx[k]
+                    if a < 0:
+                        continue
+                    for v in model.jnt_range[_joint_of(model, a)]:
+                        xy = b.body_pos[:2].copy()
+                        for kk in range(2):
+                            if b.qpos_idx[kk] >= 0:
+                                xy[kk] += v if kk == k else q[b.qpos_idx[kk]]
+                        if not any(abs(xy[0] - p[0]) < p[2]
+                                   and abs(xy[1] - p[1]) < p[3] for p in plats):
+                            opts.append((a, v))
+                if opts:
+                    a, v = opts[rng.randint(len(opts))]
+                    q[a] = v
+                q[zq] = rng.uniform(0.0, z_perch)
+            else:
+                q[zq] = z_perch - rng.uniform(0.0, 0.12)
+        centers.append(b.body_pos + np.array(
+            [q[a] if a >= 0 else 0.0 for a in b.qpos_idx]))
+    return centers
+
+
 def _joint_of(model, qadr: int) -> int:
     (j,) = np.nonzero(np.asarray(model.jnt_qposadr) == qadr)[0]
     return int(j)
@@ -678,7 +691,7 @@ def active_trace(ks: AntKernelSpec, qpos: torch.Tensor, qvel: torch.Tensor,
     spec = ks.env_spec
     model, cs = spec.dynamic_model, spec.contact_set
     _, chain_mask, _, _ = engine.get_masks(model)
-    extra = spec.robot.extra_force(spec)
+    extra = spec.world_extra_qfrc()
     S = int(np.sum(cs.sph_vs_static))
     idx = {int(x): k for k, x in enumerate(np.nonzero(cs.sph_vs_static)[0])}
     groups = int(cs.has_floor) + min(len(cs.box_center), 2)

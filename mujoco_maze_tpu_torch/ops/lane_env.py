@@ -1,7 +1,7 @@
 """Launch wrappers of the CUDA kernels (port of the launch side of
 ``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point (plain mazes
 and object worlds), Ant and swimmer (Swimmer and Reacher) step and
-rollout kernels.
+rollout kernels, and the generic engine step kernel of custom robots.
 
 Each wrapper checks device, dtype, shape and the unit inner stride of its
 inputs, allocates outputs with ``torch.empty``, launches on
@@ -9,7 +9,7 @@ inputs, allocates outputs with ``torch.empty``, launches on
 ``_build``, checks the launch's return code (``cudaGetLastError``) and
 adds one to its entry in :data:`LAUNCHES`.  Inputs on the CPU go to the
 kernel's plain PyTorch version (``point_kernel``, ``ant_kernel``,
-``swimmer_kernel``); on a CUDA tensor the wrapper launches or raises, it
+``swimmer_kernel``, ``engine_kernel``); on a CUDA tensor the wrapper launches or raises, it
 never falls back.
 
 The kernels read the public ``(B, nq)`` row-major tensors in place, with
@@ -31,6 +31,7 @@ from . import _build
 from .ant_kernel import NV as NV_ANT
 from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
                           ant_step_plain)
+from .engine_kernel import EngineKernelSpec, engine_step_plain, row_floats
 from . import object_lanes
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
@@ -47,7 +48,9 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 # object-free mazes' ("ant_step", "ant_rollout") and the block worlds'
 # ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).  The
 # swimmer kernels serve the Swimmer and the Reacher, with or without world
-# dofs (csrc/swimmer_lane.cu).  "fma_peak" counts the fp32 peak kernel
+# dofs (csrc/swimmer_lane.cu).  "engine_step" counts the generic engine
+# step of custom robots (csrc/engine_lane.cu), which has no rollout kernel,
+# as in the JAX package.  "fma_peak" counts the fp32 peak kernel
 # (csrc/roofline.cu), which no env path runs; its wrapper is
 # utils/roofline.py fma_chain.
 LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
@@ -56,11 +59,15 @@ LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
                             "ant_step": 0, "ant_rollout": 0,
                             "ant_blocks_step": 0, "ant_blocks_rollout": 0,
                             "swimmer_step": 0, "swimmer_rollout": 0,
-                            "fma_peak": 0}
+                            "engine_step": 0, "fma_peak": 0}
 # Threads per block of the Ant kernels: one thread per env, and 4096 envs
 # in blocks of 32 spread over 128 of the H100's 132 SMs (PERF.md; a
 # wrapper's ``block`` attribute is what chip_smoke.py varies to measure it).
 ANT_BLOCK = 32
+# Threads per block of the generic engine kernel: one thread per env, and,
+# as for the Ant, 4096 envs in blocks of 32 spread over 128 of the H100's
+# 132 SMs (32, 64 and 128 timed alike once, PERF.md).
+ENGINE_BLOCK = 32
 
 
 def reset_launch_counts() -> None:
@@ -243,6 +250,64 @@ def swimmer_params(ks: SwimmerKernelSpec) -> SwimmerParams:
     )
 
 
+class EngineParams(ctypes.Structure):
+    """The scalars of one engine world, passed by value (mirrors ``struct
+    EngineParams`` in ``csrc/engine_lane.cuh``, field for field)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "off_body", "off_jnt", "off_dof", "off_act", "off_sph", "off_box",
+        "off_dbox", "off_pair", "off_fall", "off_plat", "off_goal",
+        "n_floats", "nb", "nj", "nq", "nv", "nu", "n_sph", "n_box", "n_pair",
+        "n_fall", "n_goal", "has_floor", "n_static", "n_pick", "n_cand",
+        "row_floats", "trace_words", "frame_skip", "solver_iters",
+        "reward_type", "head_q0", "head_q1", "head_q2",
+        "visc_on", "rho_on",
+    )] + [(name, ctypes.c_float) for name in (
+        "h", "h_half", "dt_outer", "gx", "gy", "gz", "floor_z",
+        "fwd_weight", "ctrl_weight", "inner_scale", "penalty", "inv_scale",
+        "head_b0", "head_b1", "head_b2",
+        "lim_b", "lim_d0", "lim_dd", "lim_width", "lim_kden", "omega",
+        "sup_kc", "sup_bc", "sup_kl_den", "sup_bl",
+    )]
+
+
+def engine_params(ks: EngineKernelSpec) -> EngineParams:
+    """The struct of ``ks``: constants computed as the engine computes them
+    (Python double, rounded once to float32)."""
+    o = ks.offsets
+    model = ks.env_spec.dynamic_model
+    cs = ks.env_spec.contact_set
+    tc = max(0.02, 2.0 * ks.timestep)
+    d0, dmax, width = 0.9, 0.95, 0.001
+    gx, gy, gz = (float(g) for g in model.gravity)
+    return EngineParams(
+        **{f"off_{name}": o[name][0] for name in o},
+        n_floats=ks.packed.numel(),
+        nb=o["body"][1], nj=o["jnt"][1], nq=ks.nq, nv=ks.nv, nu=ks.nu,
+        n_sph=o["sph"][1], n_box=o["box"][1], n_pair=o["pair"][1],
+        n_fall=o["fall"][1], n_goal=o["goal"][1],
+        has_floor=int(cs.has_floor), n_static=ks.n_static,
+        n_pick=min(o["box"][1], 2), n_cand=ks.n_cand,
+        row_floats=row_floats(ks.nv), trace_words=ks.trace_words,
+        frame_skip=ks.frame_skip, solver_iters=ks.solver_iters,
+        reward_type=REWARD_TYPES[ks.reward_type],
+        head_q0=ks.head_qadr[0], head_q1=ks.head_qadr[1],
+        head_q2=ks.head_qadr[2],
+        visc_on=int(model.viscosity > 0), rho_on=int(model.fluid_density > 0),
+        h=ks.timestep, h_half=float(np.float32(np.float32(ks.timestep) / 2)),
+        dt_outer=ks.dt_outer, gx=gx, gy=gy, gz=gz, floor_z=float(cs.floor_z),
+        fwd_weight=ks.fwd_weight, ctrl_weight=ks.ctrl_cost,
+        inner_scale=ks.inner_scale, penalty=ks.penalty,
+        inv_scale=float(np.float32(1.0) / np.float32(ks.scale)),
+        head_b0=ks.head_base[0], head_b1=ks.head_base[1],
+        head_b2=ks.head_base[2],
+        lim_b=2.0 / (dmax * tc), lim_d0=d0, lim_dd=dmax - d0,
+        lim_width=width, lim_kden=dmax * dmax * tc * tc, omega=0.6,
+        sup_kc=0.995 / (0.995 * 0.995 * tc * tc), sup_bc=2.0 / (0.995 * tc),
+        sup_kl_den=0.95 * 0.95 * tc * tc, sup_bl=2.0 / (0.95 * tc),
+    )
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -304,6 +369,15 @@ def _lib() -> ctypes.CDLL:
         _I, _I, _I, _I, ctypes.c_uint, _P]
         # links, world dofs, B, steps, seed, stream
     lib.mmt_swimmer_rollout.restype = _I
+    lib.mmt_engine_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
+                                         # active contacts, trace (nullable)
+        _P, _P, EngineParams, _I, _I, _P]  # scratch, tables, params, B,
+                                           # block, stream
+    lib.mmt_engine_step.restype = _I
+    lib.mmt_engine_caps.argtypes = [_P]
+    lib.mmt_engine_caps.restype = None
     lib.mmt_ant_max_world_dofs.restype = _I
     lib.mmt_ant_max_blocks.restype = _I
     return lib
@@ -701,3 +775,90 @@ class SwimmerRollout:
     def __call__(self, qpos, qvel, t, seed: int) -> Tensors5:
         q, v, tt, rew, eps = self.per_env(qpos, qvel, t, seed)
         return q, v, tt, torch.sum(rew), torch.sum(eps)
+
+
+def engine_caps() -> Dict[str, int]:
+    """The generic engine kernel's compile-time caps (``mmt_engine_caps``)."""
+    out = (ctypes.c_int * 5)()
+    _lib().mmt_engine_caps(out)
+    return dict(zip(("bodies", "nv", "nq", "nu", "table_floats"), out))
+
+
+def _check_engine_caps(ks: EngineKernelSpec) -> None:
+    """Refuse a world beyond the engine kernel's compile-time caps."""
+    caps = engine_caps()
+    have = {"bodies": ks.offsets["body"][1], "nv": ks.nv, "nq": ks.nq,
+            "nu": ks.nu, "table_floats": ks.packed.numel()}
+    over = {k: (n, caps[k]) for k, n in have.items() if n > caps[k]}
+    if over:
+        raise NotImplementedError(
+            "the model exceeds the generic engine kernel's caps "
+            + ", ".join(f"{k} {n} > {c}" for k, (n, c) in over.items()))
+
+
+class EngineStep:
+    """``step(qpos, qvel, t, actions) -> (qpos', qvel', t', reward,
+    terminated)``: one step of an engine-world robot with explicit actions
+    and no reset (the generic kernel is step-only, as in the JAX package).
+
+    The wrapper owns the contact scratch: ``max(n_cand, 1) x row_floats``
+    floats per env, allocated with ``torch.empty`` at first use (launches
+    on one stream reuse it in turn).  ``count_active=True`` (CUDA only)
+    adds a sixth output, each env's active contacts summed over the
+    step's forward evaluations; ``trace=True`` (CUDA only) adds, last, the
+    active sets per forward evaluation, ``(B, 4 * frame_skip,
+    trace_words)`` int32 (``engine_kernel.active_trace`` lays the plain
+    version's out alike)."""
+
+    def __init__(self, ks: EngineKernelSpec, num_envs: int) -> None:
+        self.ks = ks
+        self.num_envs = num_envs
+        self.params = engine_params(ks)
+        self.scratch = None
+
+    def _scratch(self, dev: torch.device) -> torch.Tensor:
+        n = max(self.ks.n_cand, 1) * row_floats(self.ks.nv) * self.num_envs
+        if self.scratch is None or self.scratch.device != dev:
+            self.scratch = torch.empty(n, dtype=torch.float32, device=dev)
+        return self.scratch
+
+    def __call__(self, qpos, qvel, t, actions, count_active: bool = False,
+                 trace: bool = False):
+        ks, B = self.ks, self.num_envs
+        dev = ks.packed.device
+        _check("qpos", qpos, torch.float32, (B, ks.nq), dev)
+        _check("qvel", qvel, torch.float32, (B, ks.nv), dev)
+        _check("t", t, torch.int32, (B,), dev)
+        _check("actions", actions, torch.float32, (B, ks.nu), dev)
+        if dev.type == "cpu":
+            if count_active or trace:
+                raise ValueError("active-contact counts and traces come from "
+                                 "the kernel")
+            return engine_step_plain(ks, qpos, qvel, t, actions)
+        if dev.type != "cuda":
+            raise RuntimeError(f"no engine step kernel for device {dev}")
+        _check_engine_caps(ks)
+        q_out = torch.empty((B, ks.nq), dtype=torch.float32, device=dev)
+        v_out = torch.empty((B, ks.nv), dtype=torch.float32, device=dev)
+        t_out = torch.empty((B,), dtype=torch.int32, device=dev)
+        reward = torch.empty((B,), dtype=torch.float32, device=dev)
+        term = torch.empty((B,), dtype=torch.bool, device=dev)
+        active = (torch.empty((B,), dtype=torch.int32, device=dev)
+                  if count_active else None)
+        tr = (torch.empty((B, 4 * ks.frame_skip, ks.trace_words),
+                          dtype=torch.int32, device=dev) if trace else None)
+        rc = _lib().mmt_engine_step(
+            qpos.data_ptr(), qvel.data_ptr(), t.data_ptr(), actions.data_ptr(),
+            qpos.stride(0), qvel.stride(0), actions.stride(0),
+            q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
+            reward.data_ptr(), term.data_ptr(),
+            None if active is None else active.data_ptr(),
+            None if tr is None else tr.data_ptr(),
+            self._scratch(dev).data_ptr(), ks.packed.data_ptr(), self.params,
+            B, ENGINE_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(rc, "engine_step")
+        LAUNCHES["engine_step"] += 1
+        out = (q_out, v_out, t_out, reward, term)
+        if count_active:
+            out = out + (active,)
+        return out + (tr,) if trace else out

@@ -88,7 +88,7 @@ def test_forward_with_blocks_matches(sides, seed):
     jqacc = np.asarray(ref(jnp.asarray(q), jnp.asarray(v), jnp.asarray(ctrl)))
     tq, tv, tc = (torch.as_tensor(x) for x in (q, v, ctrl))
     tqacc = teng.forward(spec.dynamic_model, tq, tv, tc,
-                         extra_qfrc=spec.robot.extra_force(spec)).numpy()
+                         extra_qfrc=spec.world_extra_qfrc()).numpy()
     assert _rel(tqacc, jqacc) < 1e-4
     # the world dofs feel the contacts, the limits and the support
     assert np.abs(jqacc[:, 14:]).max() > 1.0

@@ -99,6 +99,42 @@ print("LOADED", loaded, shapes)
     assert "LOADED [] [(4, 5), (4, 6)]" in proc.stdout
 
 
+def test_custom_robot_runs_without_jax_or_gymnasium():
+    """The extension API's example, the generic engine kernel's module and
+    its lowering step, reset and lower with JAX, gymnasium and the JAX
+    package blocked; the example runs as a module on the CPU."""
+    proc = _run(_BLOCKED_IMPORTS + """
+import torch
+from mujoco_maze_tpu_torch import convert
+from mujoco_maze_tpu_torch.examples import custom_robot
+from mujoco_maze_tpu_torch.ops import engine_kernel, make_fast_step
+env = custom_robot.make_roller_umaze(4, device="cpu")
+state, obs = env.reset(0)
+gen = torch.Generator().manual_seed(0)
+state = env.step(state, env.random_policy()(obs, gen)).state
+ks = make_fast_step(env).ks
+convert.lowered_spec(ks)
+engine_kernel.sphere_robot_states(env.spec, 4, 0)
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
+                                         "mujoco_maze_tpu"))
+print("LOADED", loaded, type(ks).__name__, tuple(obs.shape))
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED [] EngineKernelSpec (4, 7)" in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS + """
+import runpy, sys
+sys.argv = ["custom_robot", "--cpu"]
+runpy.run_module("mujoco_maze_tpu_torch.examples.custom_robot",
+                 run_name="__main__")
+"""], cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "RollerUMaze: 64 envs on cpu through EngineStep" in proc.stdout
+    assert "rollout: (100, 64, 7)" in proc.stdout
+
+
 def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
     """chip_smoke.py exits non-zero and prints no result without CUDA, with
     JAX blocked (so it cannot reach for it)."""
