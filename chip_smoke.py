@@ -6,8 +6,9 @@ Builds the CUDA kernels from ``mujoco_maze_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
 ``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
-AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, and the custom robot of
-``make_roller_umaze(4096)``, each stepped through the public API,
+AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, the custom robot of
+``make_roller_umaze(4096)``, and the same robot in the SmallBilliard task
+with its free object ball, each stepped through the public API,
 ``rollout_metrics``, and the fused random-policy rollout — counts the
 kernel launches of each path, and times them with CUDA events; and
 measures the card's fp32 peak with its own kernel.
@@ -110,11 +111,31 @@ Phases (each fails the run on its own; nothing is caught):
     on the same seeds); the step API's device idle share; engine_step's
     time per launch, on the device, its bound and its plain version's
     time on RollerUMaze and on the AntUMaze-v0 world, beside the Ant
-    kernel's.  Phases 20-21 run in a process of their own (``python3
-    chip_smoke.py --engine``, which also runs alone;  ``python3
-    chip_smoke.py --engine-faults`` instead plants faults into a copy of
-    the kernel's source and checks that phase 20 fails on each);
-22. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+    kernel's;
+22. engine_step against its plain version with free object balls, at
+    4096 envs, teacher-forced as in phase 20: the Roller in the
+    SmallBilliard task (maze scaling 2.0) for 16 steps from states with
+    the ball against the roller, against walls and in corners, spinning,
+    or on the goal, and t spread over the episode, at phase 20's bounds
+    and rule; the Ant model's AntSmallBilliard-v0 world for 8 steps with
+    legs on the ball, as phase 20 holds the Ant worlds; each with the
+    count of bit-exact env-steps and the mean active sphere-sphere pair
+    rows per forward evaluation;
+23. the ball-world main path: the Roller in the SmallBilliard task
+    (``MazeEnvSpec`` then ``BatchedMazeEnv(spec, 4096)``) through the step
+    API and ``rollout_metrics``, 1000 steps each with auto-reset, counted;
+    checked over a third pass (no NaN; at every step at least 99 % of the
+    balls' bottoms within (-0.05, 0.5) of the floor and none through it;
+    some ball struck; equal episode counts on the same seeds) and against
+    the CPU path on a small input; the step API's
+    device idle share; engine_step's time per launch, on the device, its
+    bound and its plain version's time on that world and on the
+    AntSmallBilliard-v0 world.  Phases 20-23 run in a process of their
+    own (``python3 chip_smoke.py --engine``, which also runs alone;
+    ``python3 chip_smoke.py --engine-faults`` instead plants faults into a
+    copy of the kernel's source and checks that phase 20 or 22 fails on
+    each);
+24. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 It needs one CUDA device and exits non-zero without one.  It imports
@@ -228,6 +249,24 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_events(fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launch in ms over ``reps`` single
+    launches by CUDA events, each queued with its events behind a
+    device-side sleep so that the host's enqueue time falls outside them."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10 ** 7)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def ori_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1899,8 +1938,8 @@ def run_child(flag: str, prefix: str, phases: str):
 
 
 # ---------------------------------------------------------------------------
-# phases 20-21: custom robots through the generic engine kernel, in a
-# process of their own
+# phases 20-23: custom robots through the generic engine kernel, without
+# and with free object balls, in a process of their own
 # ---------------------------------------------------------------------------
 # The generic engine kernel (engine_step, csrc/engine_lane.cuh) and its
 # plain version (ops/engine_kernel.py engine_step_plain: the batched engine)
@@ -1944,12 +1983,28 @@ ENGINE_ANT_TOL = {"qpos": 1e-4, "qvel": float("inf"), "reward": 1e-4}
 ROUNDING_SAMPLES = 16
 ROUNDING_FACTOR = 2.0
 CONDITIONED_SHARE = 1e-2
-ENGINE_FLAG = "--engine"               # runs phases 20-21 alone
+ENGINE_FLAG = "--engine"               # runs phases 20-23 alone
 FAULTS_FLAG = "--engine-faults"        # phase 20's check of planted faults
 CHECK_FLAG = "--engine-check"          # phase 20 on WORLD:SEED arguments
 CHECK_RESULT = "ENGINE_CHECK "
 ENGINE_RESULT = "ENGINE_RESULT "
 ROLLER_SCALE = 4.0                     # examples/custom_robot.py
+# phases 22-23: free object balls through the generic kernel.  The Roller
+# in the SmallBilliard task at the task's own scaling for engine-world
+# robots (MAZE_SIZE_SCALING.ant): the ball one 2 m cell from the start.
+BALL_WORLD = "GoalRewardSmallBilliard"
+BALL_SCALE = 2.0
+BALL_ANT_ID = "AntSmallBilliard-v0"
+# The ball's bottom above the floor: at every step at least BALL_Z_SHARE
+# of the balls within BALL_Z (a ball on the floor, or lifted a little by a
+# strike), and none more than half its radius into the floor.  A roller
+# at up to ~60 m/s launches a struck ball (its bottom rose to 2.22 m and
+# sank to -0.090 into the soft floor contact in a 512-env CPU run of the
+# plain engine; at least 99.4 % of the balls were within BALL_Z at every
+# step).
+BALL_Z = (-0.05, 0.5)
+BALL_Z_SHARE = 0.99
+BALL_STRUCK = 0.1                      # m/s of the ball's centre: struck
 
 
 def arm_roller_spec(device):
@@ -1990,8 +2045,9 @@ def arm_roller_spec(device):
 
 
 def engine_spec(world: str, device):
-    """The env spec of a phase-20 world: a Roller task, an Ant ID, or
-    "Arm"."""
+    """The env spec of a phase-20 or phase-22 world: a Roller task (the
+    SmallBilliard task at BALL_SCALE, the others at ROLLER_SCALE), an Ant
+    ID, or "Arm"."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
     from mujoco_maze_tpu_torch.examples.custom_robot import RollerRobot
@@ -2002,7 +2058,8 @@ def engine_spec(world: str, device):
     if world.startswith("Ant"):
         return mmt.make_spec(world, device=device)
     task = getattr(library, world)
-    return MazeEnvSpec(RollerRobot(), task, ROLLER_SCALE,
+    return MazeEnvSpec(RollerRobot(), task,
+                       BALL_SCALE if world == BALL_WORLD else ROLLER_SCALE,
                        inner_reward_scaling=task.INNER_REWARD_SCALING,
                        device=device)
 
@@ -2114,9 +2171,10 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
       qacc0 and qacc (their M^-1 x, and an add per dof and force term);
     * per test sphere that meets the world its centre (R local), the
       floor (4), each static box's distance (32) and the nearest two's
-      point and normal (12 each); each sphere-box pair (75; 30 on a box
-      body that never turns); each falling block's support (60 + 6 a
-      platform);
+      point and normal (12 each); each sphere-sphere pair's normal and
+      distance (15, and the centre of a sphere that meets no static geom);
+      each sphere-box pair (75; 30 on a box body that never turns); each
+      falling block's support (60 + 6 a platform);
     * per active contact (from ``trace``): its frame (30), per row
       (three) the moment arm's cross product when a column turns (9, and
       3 once), its Jacobian over the non-zero columns of both root paths
@@ -2124,6 +2182,9 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
       diagonal (3 a column with a diagonal M^-1, else w^2 + 2w over the
       contact's w columns of a tree), J v and J qacc0 (4 a column) and 20;
       per Jacobi sweep 12 a column and 40, and J^T f once (6 a column);
+      an active sphere-sphere pair's point 8 more; its columns are both
+      spheres' root paths, the ball's free tree a turning tree of 6
+      (its 6x6 block and bias counted above as a turning tree's);
       per evaluation with contacts one M^-1 x per sweep.
     Per step: the RK4 stages' and the final integration (2 a slide or
     hinge, 40 a quaternion, 6 a free position), 21 nv of stage sums, and
@@ -2135,6 +2196,7 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
     const_tree, minv = st["const_tree"], st["minv"]
     body, jnt, dof = ks.table("body"), ks.table("jnt"), ks.table("dof")
     sph, pair, dbox = ks.table("sph"), ks.table("pair"), ks.table("dbox")
+    spair = ks.table("spair")
     nb, nv = len(body), ks.nv
     tree_of = {d: t for t in trees for d in range(*t)}
     chain = [int(b[25]) for b in body]
@@ -2214,12 +2276,18 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
             np.any(s[1:4] != 0))
         fwd += 4 * ks.env_spec.contact_set.has_floor + 32 * n_box
         fwd += 12 * min(n_box, 2)
+    for p in spair:
+        fwd += 15
+        for k in (int(p[0]), int(p[1])):
+            if int(sph[k][13]) < 0 and np.any(sph[k][1:4] != 0):
+                fwd += (_matvec_ops(sph[k][1:4]) if turns[int(sph[k][0])]
+                        else 0) + 3
     for p in pair:
         fwd += 75 if turns[int(dbox[int(p[1])][0])] else 30
     fwd += sum(60 + 6 * int(f[4]) for f in ks.table("fall"))
 
-    def contact_ops(bits_a: int, bits_b: int) -> int:
-        cols = [d for d in range(nv) if (bits_a | bits_b) >> d & 1]
+    def contact_ops(bits_a: int, bits_b: int, point: int) -> int:
+        cols = [d for d in range(nv) if (bits_a ^ bits_b) >> d & 1]
         w = len(cols)
         turning = any(kind[d] == "rot" for d in cols)
         jac = sum({"const": 0, "slide": 5, "rot": 11}[kind[d]] for d in cols)
@@ -2229,7 +2297,7 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
             dl += 3 * wt if diagonal(t) else wt * wt + 2 * wt
         row = 9 * turning + jac + dl + 4 * w + 20
         return (30 + 3 * turning + 3 * row + ks.solver_iters * (12 * w + 40)
-                + 6 * w)
+                + 6 * w + point)
 
     S = ks.n_static
     groups = int(ks.env_spec.contact_set.has_floor) + min(n_box, 2)
@@ -2237,19 +2305,23 @@ def engine_step_flops(ks, trace: torch.Tensor) -> float:
     for g in range(groups):
         for s in sph:
             if int(s[13]) >= 0:
-                cand.append((g * S + int(s[13]), chain[int(s[0])], 0))
+                cand.append((g * S + int(s[13]), chain[int(s[0])], 0, 0))
+    for ps, p in enumerate(spair):
+        cand.append((groups * S + ps, chain[int(sph[int(p[0])][0])],
+                     chain[int(sph[int(p[1])][0])], 8))
     for qp, p in enumerate(pair):
-        cand.append((groups * S + qp, chain[int(sph[int(p[0])][0])],
-                     chain[int(dbox[int(p[1])][0])]))
+        cand.append((groups * S + len(spair) + qp,
+                     chain[int(sph[int(p[0])][0])],
+                     chain[int(dbox[int(p[1])][0])], 0))
     words = trace.to(torch.int64) & 0xFFFFFFFF
     B, E = words.shape[0], words.shape[1]
     nw = (ks.n_cand + 31) // 32
     per_env = 0.0
     any_active = torch.zeros(B, E, dtype=torch.bool, device=words.device)
-    for i, ba, bb in cand:
+    for i, ba, bb, point in cand:
         on = (words[:, :, i // 32] >> (i % 32)) & 1
         any_active |= on.bool()
-        per_env += float(on.sum()) / B * contact_ops(ba, bb)
+        per_env += float(on.sum()) / B * contact_ops(ba, bb, point)
     sweeps = ks.solver_iters * sum(minv_mul(t) for t in trees)
     per_env += float(any_active.sum()) / B * sweeps
     lim = words[:, :, 3 * nw] & 0xFFFFFF
@@ -2301,10 +2373,13 @@ def rounding_ratio(ks, kern, plain, cpu, q, v, t, a, envs, tol) -> float:
 
 
 def engine_states(spec, world: str, seed: int):
-    """Start states of a phase-20 world at B envs, on the card."""
+    """Start states of a phase-20 or phase-22 world at B envs, on the
+    card."""
     from mujoco_maze_tpu_torch.ops import ant_kernel, engine_kernel
 
-    if world == "AntUMaze-v0":
+    if spec.ball_runtimes:
+        q, v, t = engine_kernel.ball_states(spec, B, seed)
+    elif world == "AntUMaze-v0":
         q, v, t = ant_kernel.contact_states(spec, B, seed)
     elif world.startswith("Ant"):
         q, v, t = ant_kernel.block_states(spec, B, seed)
@@ -2316,13 +2391,14 @@ def engine_states(spec, world: str, seed: int):
 CHECK_READINGS: dict = {}   # the last engine_step_check's rounding readings
 
 
-def engine_step_check(world: str, seed: int):
-    """Phase 20 for one world: engine_step against engine_step_plain at B
-    envs, teacher-forced (both start every step from the plain version's
-    state), from states that put the robot on the floor, against wall and
-    block faces, the blocks at and beyond their travel limits, the Fall
-    block perched, over the chasm and between, with t spread over the
-    episode.  Returns the max error and the env-steps compared."""
+def engine_step_check(world: str, seed: int, phase: str = "20"):
+    """Phase 20 (or 22, the ball worlds) for one world: engine_step against
+    engine_step_plain at B envs, teacher-forced (both start every step from
+    the plain version's state), from states that put the robot on the
+    floor, against wall and block faces, the blocks at and beyond their
+    travel limits, the Fall block perched, over the chasm and between, the
+    ball against the robot, walls and corners, spinning, or on the goal,
+    with t spread over the episode.  Returns the max error."""
     from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT, EnvState
     from mujoco_maze_tpu_torch.ops import engine_kernel, lane_env
 
@@ -2342,9 +2418,11 @@ def engine_step_check(world: str, seed: int):
     exact = t_mis = term_mis = knife_mis = knife_steps = cpu_steps = 0
     blow_mis = trunc = noise_steps = 0
     worst_ratio = -math.inf
-    active = 0
+    active = pair_rows = 0
+    n_spair = ks.offsets["spair"][1]
     cover = {k: torch.zeros(B, dtype=torch.bool, device="cuda")
-             for k in ("floor", "wall", "block", "limit", "platform row")}
+             for k in ("floor", "wall", "ball", "block", "limit",
+                       "platform row")}
     knife_notes = []
     for it in range(steps):
         a = (lo + (hi - lo) * torch.rand(B, ks.nu, generator=gen,
@@ -2361,8 +2439,13 @@ def engine_step_check(world: str, seed: int):
                 cover["floor"] |= bit(k)
             for g in range(int(spec.contact_set.has_floor), groups):
                 cover["wall"] |= bit(g * ks.n_static + k)
+        for p in range(n_spair):
+            on = (act_bits[:, :, (groups * ks.n_static + p) // 32]
+                  >> ((groups * ks.n_static + p) % 32)) & 1
+            pair_rows += int(on.sum())
+            cover["ball"] |= on.any(dim=1).bool()
         for p in range(ks.offsets["pair"][1]):
-            cover["block"] |= bit(groups * ks.n_static + p)
+            cover["block"] |= bit(groups * ks.n_static + n_spair + p)
         last = words[:, :, 3 * nw]
         cover["limit"] |= ((last & 0xFFFFFF) != 0).any(dim=1)
         sup = (last >> 24) & 3
@@ -2452,8 +2535,10 @@ def engine_step_check(world: str, seed: int):
                        f"{ROUNDING_FACTOR:g})")
     CHECK_READINGS.update(world=world, seed=seed, rounding_steps=noise_steps,
                           rounding_ratio=worst_ratio if noise_steps else None,
-                          cpu_steps=cpu_steps, knife_steps=knife_steps)
-    log(f"phase 20: {world} engine_step vs plain, {steps} teacher-forced "
+                          cpu_steps=cpu_steps, knife_steps=knife_steps,
+                          max_err=dict(errs), exact_steps=exact,
+                          pair_rows_per_eval=pair_rows / (n * 4 * ks.frame_skip))
+    log(f"phase {phase}: {world} engine_step vs plain, {steps} teacher-forced "
         f"steps x {B} envs: max |err| qpos {errs['qpos']:.3g} qvel "
         f"{errs['qvel']:.3g} reward {errs['reward']:.3g} (tol {tol}){qv_note}; "
         f"bit-exact env-steps {exact} of {n}; beyond the bounds on the card "
@@ -2464,7 +2549,9 @@ def engine_step_check(world: str, seed: int):
         f"{knife_mis} at goal-threshold knife edges; {noise_note}; "
         f"env-steps past t = 1000 "
         f"{trunc}; blown up in one version only {blow_mis} (tol 0); envs "
-        f"seen {cov}; active contacts per env-step {active / n:.4g}")
+        f"seen {cov}; active contacts per env-step {active / n:.4g}"
+        + (f"; active sphere-sphere pair rows per forward evaluation "
+           f"{pair_rows / (n * 4 * ks.frame_skip):.4g}" if n_spair else ""))
     bad = (not errs["qpos"] <= tol["qpos"] or not errs["reward"] <= tol["reward"]
            or t_mis or term_mis or blow_mis or knife_steps > KNIFE_SHARE * n
            or not noise_ok)
@@ -2479,14 +2566,135 @@ def engine_step_check(world: str, seed: int):
     need["floor" if spec.structure.height_offset == 0 else "wall"] = B // 2
     if spec.block_runtimes:
         need.update({"block": 1, "limit": 1})
+    if n_spair:
+        need["ball"] = 1
     if spec._falling_support:
         need["platform row"] = 1
     if any(cov[k] < m for k, m in need.items()) or trunc == 0:
-        raise SystemExit(f"{world}: expected the floor, walls, blocks, limits, "
-                         "the Fall block's platform and truncations")
+        raise SystemExit(f"{world}: expected the floor, walls, the ball, blocks, "
+                         "limits, the Fall block's platform and truncations")
     return max(errs["qpos"], errs["reward"],
                errs["qvel"] if not ant else 0.0)
 
+
+
+def engine_api_run(env, seed: int, gen_seed: int, phase: str, name: str):
+    """A main path of the generic engine kernel: ``env`` (B envs) through
+    the public step API and rollout_metrics, MAIN_STEPS steps each from the
+    same seeds (``env.reset(seed)``, the policy's generator at
+    ``gen_seed``), with auto-reset, the launch counts set to 0 just before
+    and read just after: engine_step MAIN_STEPS times a path, nothing else.
+    Returns what the two runs give."""
+    from mujoco_maze_tpu_torch.ops import lane_env
+
+    policy = env.random_policy()
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    st, obs = env.reset(seed)
+    for _ in range(5):  # warm-up
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    torch.cuda.synchronize()
+
+    lane_env.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    st, obs = env.reset(seed)
+    gen.manual_seed(gen_seed)
+    st0 = st
+    eps_api = torch.zeros((), dtype=torch.int64, device="cuda")
+    ev[0].record()
+    for _ in range(MAIN_STEPS):
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+        eps_api = eps_api + (res.terminated | res.truncated).sum()
+    ev[1].record()
+    env.reset(seed)
+    gen.manual_seed(gen_seed)
+    st_m, rew_m, eps_m = env.rollout_metrics(st0, policy, MAIN_STEPS, gen)
+    ev[2].record()
+    torch.cuda.synchronize()
+    launches = dict(lane_env.LAUNCHES)
+    ms_api, ms_metrics = (ev[i].elapsed_time(ev[i + 1]) for i in range(2))
+    log(f"phase {phase}: main path {name}, {MAIN_STEPS} steps per path; "
+        f"launches {launches}")
+    expected = {k: 0 for k in launches}
+    expected["engine_step"] = 2 * MAIN_STEPS
+    if launches != expected:
+        raise SystemExit(f"{name} main path launches {launches}, expected "
+                         f"{expected}")
+    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
+    log(f"phase {phase}: {name} env-steps/s (CUDA events): step API "
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}")
+    return dict(policy=policy, gen=gen, st0=st0, st=st, obs=obs,
+                eps_api=int(eps_api), st_m=st_m, rew_m=rew_m,
+                eps_m=int(eps_m), launches=launches["engine_step"],
+                step_api=rate(ms_api), rollout_metrics=rate(ms_metrics))
+
+
+def engine_cuda_vs_cpu(cpu_env, gpu_env, state, phase: str, what: str):
+    """The port's CUDA path against its CPU path: 5 steps of ``cpu_env``
+    and ``gpu_env`` (no auto-reset) teacher-forced from ``state`` (numpy
+    q, v, t) on the same uniform actions; obs and reward within
+    ENGINE_TOL's qvel bound, terminated equal."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+
+    n = cpu_env.num_envs
+    s_cpu = EnvState(*(torch.as_tensor(x) for x in state))
+    rng = np.random.RandomState(5)
+    err = 0.0
+    for _ in range(5):
+        act = torch.as_tensor(rng.uniform(-1, 1, (n, 2)), dtype=torch.float32)
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        err = max(err, float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
+                  float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit(f"the {what} CUDA path and CPU path disagree on "
+                             "terminated")
+        s_cpu = r_cpu.state
+    log(f"phase {phase}: CUDA path vs CPU path, {n} envs x 5 steps "
+        f"teacher-forced from {what} contact states: max |err| obs and "
+        f"reward {err:.3g} (tol {ENGINE_TOL['qvel']})")
+    if not err <= ENGINE_TOL["qvel"]:
+        raise SystemExit(f"the {what} CUDA path disagrees with the CPU path")
+
+
+def engine_idle_share(env, run, phase: str, name: str):
+    """Where a step-API step's time goes: one profiled window of 50 steps
+    from the end of ``run``; returns the device idle share, the kernels a
+    step and engine_step_kernel's device ms a launch in the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    policy, gen = run["policy"], run["gen"]
+    acts = [policy(run["obs"], gen) for _ in range(50)]
+    s = run["st"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        for a in acts:
+            s = env.step(s, a).state
+        ev[1].record()
+        torch.cuda.synchronize()
+    window_us = 1e3 * ev[0].elapsed_time(ev[1])
+    on_device = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(x for x, _, _ in on_device)
+    idle = 1 - busy_us / window_us if busy_us else float("nan")
+    n_kernels = sum(n for _, n, _ in on_device) / 50
+    top = "; ".join(f"{k[:60]} {x / 50:.4g} us/step ({n / 50:.3g}/step)"
+                    for x, n, k in on_device[:4])
+    log(f"phase {phase}: profiled {name} step API, 50 steps in "
+        f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
+        f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
+    kern = [(x, n) for x, n, k in on_device if "engine_step_kernel" in k]
+    return idle, n_kernels, (sum(x for x, _ in kern)
+                             / max(sum(n for _, n in kern), 1) / 1e3)
 
 
 def engine_main_path():
@@ -2496,10 +2704,7 @@ def engine_main_path():
     after; checks of what comes out; engine_step's time per launch, on the
     device, its bound and its plain version's time on RollerUMaze and on
     the AntUMaze-v0 world, beside the Ant kernel's on the same state."""
-    import numpy as np
-
     import mujoco_maze_tpu_torch as mmt
-    from mujoco_maze_tpu_torch.envs.env import EnvState
     from mujoco_maze_tpu_torch.examples.custom_robot import make_roller_umaze
     from mujoco_maze_tpu_torch.ops import (engine_kernel, lane_env,
                                            make_fast_step)
@@ -2507,42 +2712,10 @@ def engine_main_path():
 
     env = make_roller_umaze(B)
     spec = env.spec
-    policy = env.random_policy()
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    st, obs = env.reset(3)
-    for _ in range(5):  # warm-up
-        res = env.step(st, policy(obs, gen))
-        st, obs = res.state, res.obs
-    torch.cuda.synchronize()
-
-    lane_env.reset_launch_counts()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    st, obs = env.reset(3)
-    gen.manual_seed(5)
-    st0 = st
-    eps_api = torch.zeros((), dtype=torch.int64, device="cuda")
-    ev[0].record()
-    for _ in range(MAIN_STEPS):
-        res = env.step(st, policy(obs, gen))
-        st, obs = res.state, res.obs
-        eps_api = eps_api + (res.terminated | res.truncated).sum()
-    ev[1].record()
-    env.reset(3)
-    gen.manual_seed(5)
-    st_m, rew_m, eps_m = env.rollout_metrics(st0, policy, MAIN_STEPS, gen)
-    ev[2].record()
-    torch.cuda.synchronize()
-    launches = dict(lane_env.LAUNCHES)
-    ms_api, ms_metrics = (ev[i].elapsed_time(ev[i + 1]) for i in range(2))
-    log(f"phase 21: main path make_roller_umaze({B}), {MAIN_STEPS} steps per "
-        f"path; launches {launches}")
-    expected = {k: 0 for k in launches}
-    expected["engine_step"] = 2 * MAIN_STEPS
-    if launches != expected:
-        raise SystemExit(f"engine main path launches {launches}, expected {expected}")
-    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
-    log(f"phase 21: RollerUMaze env-steps/s (CUDA events): step API "
-        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}")
+    run = engine_api_run(env, 3, 5, "21", f"make_roller_umaze({B})")
+    st, obs, policy, gen = run["st"], run["obs"], run["policy"], run["gen"]
+    eps_api, eps_m, st_m, rew_m = (run[k] for k in ("eps_api", "eps_m",
+                                                     "st_m", "rew_m"))
     r = float(spec.contact_set.sph_radius[0])
     rest_z = float(spec.dynamic_model.body_pos[0][2])
     z = st.qpos[:, 2] + rest_z
@@ -2566,13 +2739,13 @@ def engine_main_path():
             on_floor.float().mean() >= 0.9),
         "settled envs (t >= 20) >= B / 2": int(settled.sum()) >= B // 2,
         "rollout_metrics reward finite": bool(torch.isfinite(rew_m)),
-        "episode counts equal on the same seeds": int(eps_api) == int(eps_m),
+        "episode counts equal on the same seeds": eps_api == eps_m,
         "rollout_metrics ends on the step API's state": bool(
             torch.equal(st_m.qpos, st.qpos) and torch.equal(st_m.t, st.t)),
-        "episodes ended >= B (truncation at 1000)": int(eps_m) >= B,
+        "episodes ended >= B (truncation at 1000)": eps_m >= B,
     }
-    log(f"phase 21: output checks {checks} (episodes {int(eps_api)} and "
-        f"{int(eps_m)}; settled rollers' centre height min {float(zs.min()):.4g}"
+    log(f"phase 21: output checks {checks} (episodes {eps_api} and "
+        f"{eps_m}; settled rollers' centre height min {float(zs.min()):.4g}"
         f" median {float(zs.median()):.4g} max {float(zs.max()):.4g}, on the "
         f"floor {float(on_floor.float().mean()):.4g}, r = {r}, reach "
         f"{reach:.4g}; every roller's min {float(z.min()):.4g} at t = "
@@ -2580,64 +2753,20 @@ def engine_main_path():
     if not all(checks.values()):
         raise SystemExit("the engine main path's output failed a check")
 
-    # the port's CUDA path against its CPU path on a small input
     n_small = 64
     cpu_env = make_roller_umaze(n_small, device="cpu", auto_reset=False)
-    gpu_env = make_roller_umaze(n_small, auto_reset=False)
-    q, v, t = engine_kernel.sphere_robot_states(cpu_env.spec, n_small, 5)
-    s_cpu = EnvState(qpos=torch.as_tensor(q), qvel=torch.as_tensor(v),
-                     t=torch.as_tensor(t))
-    rng = np.random.RandomState(5)
-    small_err = 0.0
-    for _ in range(5):
-        act = torch.as_tensor(rng.uniform(-1, 1, (n_small, 2)),
-                              dtype=torch.float32)
-        r_cpu = cpu_env.step(s_cpu, act)
-        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
-                         t=s_cpu.t.cuda())
-        r_gpu = gpu_env.step(s_gpu, act.cuda())
-        small_err = max(small_err,
-                        float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
-                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
-        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
-            raise SystemExit("the engine CUDA path and CPU path disagree on "
-                             "terminated")
-        s_cpu = r_cpu.state
-    log(f"phase 21: CUDA path vs CPU path, {n_small} envs x 5 steps "
-        f"teacher-forced from contact states: max |err| obs and reward "
-        f"{small_err:.3g} (tol {ENGINE_TOL['qvel']})")
-    if not small_err <= ENGINE_TOL["qvel"]:
-        raise SystemExit("the engine CUDA path disagrees with the CPU path")
-
-    # where a step-API step's time goes: one profiled window of 50 steps
-    acts = [policy(obs, gen) for _ in range(50)]
-    s = st
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ev[0].record()
-        for a in acts:
-            s = env.step(s, a).state
-        ev[1].record()
-        torch.cuda.synchronize()
-    window_us = 1e3 * ev[0].elapsed_time(ev[1])
-    on_device = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if str(e.device_type).endswith("CUDA")
-                        and e.self_device_time_total > 0), reverse=True)
-    busy_us = sum(x for x, _, _ in on_device)
-    idle = 1 - busy_us / window_us if busy_us else float("nan")
-    n_kernels = sum(n for _, n, _ in on_device) / 50
-    top = "; ".join(f"{k[:60]} {x / 50:.4g} us/step ({n / 50:.3g}/step)"
-                    for x, n, k in on_device[:4])
-    log(f"phase 21: profiled RollerUMaze step API, 50 steps in "
-        f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
-        f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
+    engine_cuda_vs_cpu(
+        cpu_env, make_roller_umaze(n_small, auto_reset=False),
+        engine_kernel.sphere_robot_states(cpu_env.spec, n_small, 5), "21",
+        "RollerUMaze")
+    idle, n_kernels, _ = engine_idle_share(env, run, "21", "RollerUMaze")
 
     # engine_step's numbers on RollerUMaze (the main path's state) and on
     # the AntUMaze-v0 world, beside the Ant kernel on the same state
-    out = {"rates": {"step_api": rate(ms_api), "rollout_metrics": rate(ms_metrics),
+    out = {"rates": {"step_api": run["step_api"],
+                     "rollout_metrics": run["rollout_metrics"],
                      "idle_share": idle, "kernels_per_step": n_kernels,
-                     "episodes": int(eps_m)}}
+                     "episodes": eps_m}}
     kstep = make_fast_step(env)
     ks = kstep.ks
     act = policy(obs, gen)
@@ -2660,7 +2789,7 @@ def engine_main_path():
         f"{per_eval:.4g} active contacts per forward evaluation, on the "
         f"data sheet's {FP32_FLOP_S:.3g} FLOP/s; the measured peak's bound "
         f"follows phase 16); kernel/bound {ms / b[0]:.4g}x")
-    out["step"] = {"name": "engine_step", "launches": launches["engine_step"],
+    out["step"] = {"name": "engine_step", "launches": run["launches"],
                    "ms": ms, "device_ms": dev, "plain_ms": ms_plain,
                    "bound_ms": b[0], "bound_by": b[1],
                    "fp32_ops_per_env_step": flops,
@@ -2707,8 +2836,159 @@ def engine_main_path():
     return out
 
 
+def ball_centre(spec, qpos, qvel):
+    """The first ball's sphere centre (B, 3) and its velocity (B, 3): the
+    free joint's qpos holds the body origin and quaternion, its qvel the
+    origin's world velocity and the body-frame angular velocity, and the
+    sphere sits at its local offset from the origin."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.physics.engine import mat_vec
+
+    cs = spec.contact_set
+    ob = spec.ball_runtimes[0]
+    a = ob.qpos_idx[0]
+    model = spec.dynamic_model
+    va = int(model.jnt_dofadr[list(model.jnt_qposadr).index(a)])
+    s_b = int(np.flatnonzero(cs.sph_body == cs.sph_body.max())[0])
+    w, x, y, z = (qpos[:, a + 3 + k] for k in range(4))
+    R = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        dim=1).reshape(-1, 3, 3)
+    off = mat_vec(R, torch.as_tensor(cs.sph_local[s_b], dtype=qpos.dtype,
+                                     device=qpos.device))
+    omega = mat_vec(R, qvel[:, va + 3:va + 6])
+    return (qpos[:, a:a + 3] + off,
+            qvel[:, va:va + 3] + torch.linalg.cross(omega, off))
+
+
+def ball_main_path():
+    """Phase 23: the main path, the Roller in the SmallBilliard task
+    through the public step API and rollout_metrics at B envs (1000 steps
+    each, from the same seeds, with auto-reset), the launch counts set to 0
+    just before and read just after; checks of what comes out, the ball's
+    height and strikes from a third pass; the CUDA path against the CPU
+    path on a small input; the step API's device idle share; engine_step's
+    time per launch, on the device, its bound and its plain version's time
+    on the main path's state and on the AntSmallBilliard-v0 world."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.ops import (engine_kernel, lane_env,
+                                           make_fast_step)
+
+    spec = engine_spec(BALL_WORLD, "cuda")
+    env = BatchedMazeEnv(spec, B)
+    name = f"Roller x {BALL_WORLD}({BALL_SCALE})"
+    run = engine_api_run(env, 13, 15, "23", f"{name} at {B} envs")
+    st, obs, policy, gen = run["st"], run["obs"], run["policy"], run["gen"]
+
+    # a third pass over the same steps, read step by step: the ball's
+    # height and speed after every step (after the auto-reset fold: a reset
+    # puts the ball back at rest)
+    env.reset(13)
+    gen.manual_seed(15)
+    s, o = run["st0"], spec._observe(run["st0"])
+    r_b = float(spec.contact_set.sph_radius[-1])
+    z_lo = torch.full((B,), math.inf, device="cuda")
+    z_hi = torch.full((B,), -math.inf, device="cuda")
+    in_band = torch.ones((), device="cuda")
+    struck = torch.zeros(B, dtype=torch.bool, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    eps_3 = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(MAIN_STEPS):
+        res = env.step(s, policy(o, gen))
+        c, cv = ball_centre(spec, res.state.qpos, res.state.qvel)
+        bottom = c[:, 2] - r_b
+        z_lo = torch.minimum(z_lo, bottom)
+        z_hi = torch.maximum(z_hi, bottom)
+        in_band = torch.minimum(in_band, ((bottom > BALL_Z[0])
+                                          & (bottom < BALL_Z[1])).float().mean())
+        struck |= cv[:, :2].norm(dim=1) > BALL_STRUCK
+        finite &= torch.isfinite(res.state.qpos).all() & torch.isfinite(
+            res.state.qvel).all() & torch.isfinite(res.obs).all()
+        eps_3 = eps_3 + (res.terminated | res.truncated).sum()
+        s, o = res.state, res.obs
+    checks = {
+        "obs shape (B, 10)": tuple(obs.shape) == (B, spec.obs_dim) == (B, 10),
+        "no NaN or inf in state and obs over 1000 steps": bool(finite),
+        "obs[3:6] = the ball's body origin": bool(torch.equal(
+            obs[:, 3:6], st.qpos[:, 3:6])),
+        f"at every step >= {BALL_Z_SHARE:g} of the balls' bottoms within "
+        f"{BALL_Z} of the floor": float(in_band) >= BALL_Z_SHARE,
+        "no ball's bottom more than half its radius into the floor": bool(
+            (z_lo > -r_b / 2).all()),
+        f"some env struck the ball (its centre's horizontal speed above "
+        f"{BALL_STRUCK} m/s at some step)": int(struck.sum()) > 0,
+        "rollout_metrics reward finite": bool(torch.isfinite(run["rew_m"])),
+        "episode counts equal on the same seeds": run["eps_api"]
+        == run["eps_m"] == int(eps_3),
+        "rollout_metrics ends on the step API's state": bool(
+            torch.equal(run["st_m"].qpos, st.qpos)
+            and torch.equal(run["st_m"].t, st.t)),
+        "episodes ended >= B (truncation at 1000)": run["eps_m"] >= B,
+    }
+    log(f"phase 23: output checks {checks} (episodes {run['eps_api']}, "
+        f"{run['eps_m']}, {int(eps_3)}; the ball's bottom above the floor min "
+        f"{float(z_lo.min()):.4g} max {float(z_hi.max()):.4g}, the least "
+        f"share of a step's balls within {BALL_Z} {float(in_band):.6g}; envs "
+        f"whose ball was struck {int(struck.sum())} of {B})")
+    if not all(checks.values()):
+        raise SystemExit("the ball main path's output failed a check")
+
+    n_small = 64
+    cpu_env = BatchedMazeEnv(engine_spec(BALL_WORLD, "cpu"), n_small,
+                             auto_reset=False)
+    engine_cuda_vs_cpu(
+        cpu_env, BatchedMazeEnv(engine_spec(BALL_WORLD, "cuda"), n_small,
+                                auto_reset=False),
+        engine_kernel.ball_states(cpu_env.spec, n_small, 5), "23",
+        "ball world")
+    idle, n_kernels, window_ms = engine_idle_share(env, run, "23", name)
+    out = {"rates": {"step_api": run["step_api"],
+                     "rollout_metrics": run["rollout_metrics"],
+                     "idle_share": idle, "kernels_per_step": n_kernels,
+                     "engine_step_device_ms_in_window": window_ms,
+                     "episodes": run["eps_m"], "balls_struck": int(struck.sum())},
+           "launches": run["launches"]}
+
+    # engine_step's numbers on the main path's state and on the
+    # AntSmallBilliard-v0 world (ball states, legs on the ball)
+    ant_spec = mmt.make_spec(BALL_ANT_ID)
+    ant_ks = engine_kernel.spec_from_env(ant_spec)
+    q, v, t = engine_states(ant_spec, BALL_ANT_ID, 7)
+    ant_act = (-30 + 60 * torch.rand(B, ant_ks.nu, generator=gen,
+                                     device="cuda")).contiguous()
+    for name, ks, args in (
+            ("Roller x SmallBilliard", make_fast_step(env).ks,
+             (st.qpos, st.qvel, st.t, policy(obs, gen))),
+            (BALL_ANT_ID + " world", ant_ks, (q, v, t, ant_act))):
+        kstep = lane_env.EngineStep(ks, B)
+        n_act, tr = kstep(*args, count_active=True, trace=True)[5:]
+        per_eval = float(n_act.float().mean()) / (4 * ks.frame_skip)
+        ms = cuda_ms(lambda: kstep(*args), 20)
+        ms_plain = cuda_ms(lambda: engine_kernel.engine_step_plain(ks, *args), 1)
+        # by CUDA events: this late in the process a profiler session
+        # recorded no launch on the card (PERF.md section 7)
+        dev = device_ms_events(lambda: kstep(*args), 5)
+        flops = engine_step_flops(ks, tr)
+        b = bound(B * engine_bytes(ks) + 4 * ks.packed.numel(), B * flops)
+        log(f"phase 23: {name}: engine_step {ms:.6g} ms/launch, {dev:.6g} ms "
+            f"on the device (CUDA events around single launches), plain "
+            f"{ms_plain:.6g} ms; bound {b[0]:.3g} ms by "
+            f"{b[1]} ({flops:.6g} fp32 operations per env-step at "
+            f"{per_eval:.4g} active contacts per forward evaluation); "
+            f"kernel/bound {ms / b[0]:.4g}x")
+        out["roller" if name.startswith("Roller") else "ant_world"] = {
+            "ms": ms, "device_ms": dev, "plain_ms": ms_plain, "bound_ms": b[0],
+            "bound_by": b[1], "fp32_ops_per_env_step": flops,
+            "active_contacts_per_eval": per_eval}
+    return out
+
+
 def engine_phases() -> int:
-    """Phases 20-21, run in a process of their own (``python3 chip_smoke.py
+    """Phases 20-23, run in a process of their own (``python3 chip_smoke.py
     --engine``, started by ``main``; it also runs alone).  Prints its
     result as one ``ENGINE_RESULT {json}`` line."""
     from mujoco_maze_tpu_torch.ops import _build
@@ -2724,24 +3004,37 @@ def engine_phases() -> int:
     worlds = ENGINE_WORLDS + ENGINE_ANT_IDS + ("Arm",)
     err = max(engine_step_check(w, 101 + k) for k, w in enumerate(worlds))
     out = engine_main_path()
+    err = max([err] + [engine_step_check(w, 131 + k, phase="22")
+                       for k, w in enumerate((BALL_WORLD, BALL_ANT_ID))])
+    out["ball"] = ball_main_path()
     out["step"]["max_abs_err"] = err
     print(ENGINE_RESULT + json.dumps(out), flush=True)
     return 0
 
 
 # Faults that --engine-faults plants, one at a time, into a copy of
-# csrc/engine_lane.cuh (the falling support: its both-rows branch, which
-# most perched env-steps take, and its rarer single-row branches), with
-# the size of each; phase 20 must fail on each.
+# csrc/engine_lane.cuh, each with the world whose check must fail on it:
+# the falling support (its both-rows branch, which most perched env-steps
+# take, and its rarer single-row branches, with the size of each) on the
+# Fall world (phase 20), and the sphere-sphere pair row (its margin not
+# summed; its point at sphere i's centre instead of midway through the
+# overlap) on the ball world (phase 22).
 ENGINE_FAULTS = (
     ("both rows' net force x (1 + 1e-5)", "return both ? fc_both - fl_both",
-     "return both ? (fc_both - fl_both) * 1.00001f"),
+     "return both ? (fc_both - fl_both) * 1.00001f", "GoalRewardFall:103"),
     ("platform row alone x (1 + 1e-4)", ": (use_c ? fmaxf(fc_only, 0.f)",
-     ": (use_c ? fmaxf(fc_only, 0.f) * 1.0001f"),
+     ": (use_c ? fmaxf(fc_only, 0.f) * 1.0001f", "GoalRewardFall:103"),
     ("limit row alone x (1 + 1e-3)", ": (use_l ? -fmaxf(fl_only, 0.f) : 0.f)",
-     ": (use_l ? -fmaxf(fl_only, 0.f) * 1.001f : 0.f)"),
+     ": (use_l ? -fmaxf(fl_only, 0.f) * 1.001f : 0.f)", "GoalRewardFall:103"),
+    ("pair row's margin sphere i's alone, not summed",
+     "const float margin = pr[2];", "const float margin = si[5];",
+     f"{BALL_WORLD}:131"),
+    ("pair row's point at sphere i's centre",
+     "const float reach = rj + dist * 0.5f;", "const float reach = dn;",
+     f"{BALL_WORLD}:131"),
 )
-FAULT_WORLDS = ("GoalRewardFall:103", "GoalRewardFall:203")
+FAULT_WORLDS = ("GoalRewardFall:103", "GoalRewardFall:203",
+                f"{BALL_WORLD}:131", f"{BALL_WORLD}:231")
 
 
 def engine_check(args) -> int:
@@ -2762,7 +3055,8 @@ def engine_check(args) -> int:
         CHECK_READINGS.clear()
         passed = False
         try:
-            engine_step_check(world, int(seed))
+            engine_step_check(world, int(seed), phase="22" if world in (
+                BALL_WORLD, BALL_ANT_ID) else "20")
             passed = True
         finally:
             print(CHECK_RESULT + json.dumps(
@@ -2772,10 +3066,11 @@ def engine_check(args) -> int:
 
 
 def engine_faults() -> int:
-    """``--engine-faults``: phase 20's Fall check on this checkout at two
-    seeds (the phase's own, 103, and 203), which must pass, then on copies
-    of this script and the package in a temporary directory with one of
-    ENGINE_FAULTS planted in each, which must fail.  Prints the readings of
+    """``--engine-faults``: phase 20's Fall check and phase 22's ball-world
+    check on this checkout, each at two seeds (the phase's own and
+    another), which must pass, then on copies of this script and the
+    package in a temporary directory with one of ENGINE_FAULTS planted in
+    each, each with its world, which must fail.  Prints the readings of
     every run and, last, one JSON line of them."""
     import shutil
     import tempfile
@@ -2803,7 +3098,7 @@ def engine_faults() -> int:
     ok = rc == 0 and len(clean) == len(FAULT_WORLDS)
     log(f"faults: the checkout: passed {ok} (exit code {rc}); {clean}")
     result = {"clean": clean, "faults": []}
-    for name, old, new in ENGINE_FAULTS:
+    for name, old, new, world in ENGINE_FAULTS:
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copy(os.path.join(here, "chip_smoke.py"), tmp)
             shutil.copytree(os.path.join(here, "mujoco_maze_tpu_torch"),
@@ -2818,7 +3113,7 @@ def engine_faults() -> int:
                 raise SystemExit(f"no single site for the fault {name!r}")
             with open(src, "w") as f:
                 f.write(text.replace(old, new))
-            rc, readings = run(tmp, FAULT_WORLDS[:1])
+            rc, readings = run(tmp, (world,))
         log(f"faults: {name}: caught {rc != 0} (exit code {rc}); {readings}")
         result["faults"].append({"fault": name, "caught": rc != 0,
                                  "readings": readings})
@@ -3101,8 +3396,8 @@ def main() -> int:
     # -- 17-19. the Point object worlds, in a process of their own -----------
     objects = run_child(OBJ_FLAG, OBJ_RESULT, "17-19")
 
-    # -- 20-21. custom robots through the generic engine kernel ---------------
-    engine = run_child(ENGINE_FLAG, ENGINE_RESULT, "20-21")
+    # -- 20-23. custom robots through the generic engine kernel ---------------
+    engine = run_child(ENGINE_FLAG, ENGINE_RESULT, "20-23")
     # engine_step's operation bound against the fp32 peak phase 16 measured
     # (the child process's bound is on the data sheet's 67e12)
     eng = engine["step"]
@@ -3166,15 +3461,25 @@ def main() -> int:
             "library_ms": None, "worlds": "the 27 Point object worlds",
             "main_path": OBJ_MAIN_ID, **(
                 {"main_path_rates": objects["rates"]} if kind == "step" else {})})
+    # engine_step: its numbers on RollerUMaze; the launches of both of its
+    # main paths (phases 21 and 23) summed; the ball world's numbers beside
+    ball = engine["ball"]
     kernels.append({
         **engine["step"], "route": "cuda",
+        "launches": engine["step"]["launches"] + ball["launches"],
         "source": "mujoco_maze_tpu_torch/csrc/engine_lane.cu",
         "replaces": "mujoco_maze_tpu/ops/engine_pallas.py:190",
         "device_code": "mujoco_maze_tpu_torch/csrc/engine_lane.cuh",
         "library_ms": None,
-        "worlds": "custom USES_WORLD_ENGINE robots (examples/custom_robot.py)",
-        "main_path": "make_roller_umaze(4096)",
-        "main_path_rates": engine["rates"]})
+        "worlds": "custom USES_WORLD_ENGINE robots (examples/custom_robot.py),"
+                  " with free object balls",
+        "main_path": f"make_roller_umaze({B}); the Roller in "
+                     f"{BALL_WORLD}({BALL_SCALE}) at {B} envs",
+        "main_path_rates": engine["rates"],
+        "ball_main_path": {"launches": ball["launches"],
+                           "rates": ball["rates"],
+                           "roller_smallbilliard": ball["roller"],
+                           "ant_smallbilliard_world": ball["ant_world"]}})
     log(f"done in {time.perf_counter() - T0:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

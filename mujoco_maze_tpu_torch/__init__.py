@@ -18,7 +18,9 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``::
     state, obs = env.reset(seed=0)
     res = env.step(state, actions)        # one CUDA kernel + auto-reset
 
-The port covers, in float32, 142 of the 145 registered IDs: the 21
+The port builds and steps, in float32, every one of the 145 registered
+IDs through ``spec.step``, and batches 142 of them (``make_batched``,
+one CUDA kernel a step on the card): the 21
 object-free Point mazes, the 27 Point object worlds (PointPush,
 PointMultiPush, PointMultiPushSmall, PointPushMaze, PointFall,
 PointMultiFall-v2, PointBlockMaze, PointBlockCarry, PointBilliard,
@@ -29,13 +31,15 @@ platforms: AntPush, AntFall, AntMultiFall, AntMultiPush,
 AntMultiPushSmall, AntPushMaze, AntBlockMaze, AntBlockCarry) and the 52
 Swimmer and Reacher IDs (42 object-free, and Push, Fall and MultiFall
 with one block that the swimmer never moves).  The 3 AntSmallBilliard
-worlds raise ``NotImplementedError`` naming the ROADMAP item that ports
-them (11d).
+worlds (the Ant with a free object ball) step through ``spec.step`` on the
+plain engine; their batched env raises ``NotImplementedError`` until the
+Ant kernel takes the ball (ROADMAP queue 1 item 11d-2).
 
 Custom robots: a ``models.base.Robot`` subclass with ``USES_WORLD_ENGINE``
 and ``build_bodies``, composed with any task by ``envs.env.MazeEnvSpec``
 and batched by ``envs.batched.BatchedMazeEnv``, is stepped by the generic
-engine kernel (``examples/custom_robot.py``: ``make_roller_umaze``)::
+engine kernel (``examples/custom_robot.py``: ``make_roller_umaze``), in a
+task with an object ball too (a free ball, as for the Ant)::
 
     from mujoco_maze_tpu_torch.examples.custom_robot import make_roller_umaze
 

@@ -22,7 +22,10 @@ from .ops.swimmer_kernel import SwimmerKernelSpec
 def from_jax_state(qpos, qvel, t, goal_pos=None, *, device) -> EnvState:
     """The port's :class:`EnvState` from the arrays of a JAX ``EnvState``
     (``np.asarray(state.qpos)`` etc.; the JAX PRNG key has no counterpart:
-    the port's randomness lives in ``torch.Generator`` objects)."""
+    the port's randomness lives in ``torch.Generator`` objects).  The two
+    packages lay qpos and qvel out alike, so every coordinate carries
+    across as it is: a free object ball's position and quaternion (7 qpos)
+    and its 6 dofs among them."""
 
     def f32(a):
         return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
@@ -179,10 +182,13 @@ def _lowered_engine(ks: EngineKernelSpec) -> Dict[str, object]:
     it, clamped to 2 dt; the moving boxes' own margins, solref, solimp and
     friction, which the tables carry only mixed per pair, come from the
     contact set; the JAX prune's ``n_near_boxes`` has no counterpart); the
-    model's arrays under ``lw.model.<name>``; and the pair table's mixed
-    constants under ``pair.<name>``."""
+    model's arrays under ``lw.model.<name>``; the sphere-sphere pair
+    table's mixed constants under ``spair.<name>`` and the
+    sphere-vs-moving-box pair table's under ``pair.<name>``; and the heads'
+    anchor under ``head_qadr`` / ``head_base``."""
     body, jnt, dof, act = (ks.table(n) for n in ("body", "jnt", "dof", "act"))
     sph, box, dbox, pair = (ks.table(n) for n in ("sph", "box", "dbox", "pair"))
+    spair = ks.table("spair")
     fall, plat = ks.table("fall"), ks.table("plat")
     cs = ks.env_spec.contact_set
     inertia = np.zeros((len(body), 3, 3), np.float32)
@@ -217,8 +223,8 @@ def _lowered_engine(ks: EngineKernelSpec) -> Dict[str, object]:
         "lw.box_center": box[:, :3], "lw.box_half": box[:, 3:6],
         "lw.box_margin": box[:, 6], "lw.has_floor": bool(cs.has_floor),
         "lw.floor_margin": float(cs.floor_margin),
-        "lw.pair_i": np.asarray(cs.pair_i, np.int64),
-        "lw.pair_j": np.asarray(cs.pair_j, np.int64),
+        "lw.pair_i": spair[:, 0].astype(np.int64),
+        "lw.pair_j": spair[:, 1].astype(np.int64),
         "lw.dbox_body": dbox[:, 0].astype(np.int64),
         "lw.dbox_local": dbox[:, 1:4], "lw.dbox_half": dbox[:, 4:7],
         "lw.dbox_margin": np.asarray(cs.dbox_margin, np.float32),
@@ -230,6 +236,8 @@ def _lowered_engine(ks: EngineKernelSpec) -> Dict[str, object]:
         "lw.falling": falling,
         "pair.margin": pair[:, 2], "pair.friction": pair[:, 3],
         "pair.solimp": pair[:, 4:7], "pair.solref": pair[:, 7:9],
+        "spair.margin": spair[:, 2], "spair.friction": spair[:, 3],
+        "spair.solimp": spair[:, 4:7], "spair.solref": spair[:, 7:9],
     }
     for name in ("reward_type", "penalty", "scale", "inner_scale",
                  "frame_skip", "episode_limit", "solver_iters", "fwd_weight",

@@ -23,8 +23,9 @@
 //   * kinematics of every body in body order (FREE, BALL, SLIDE and HINGE
 //     joints, each joint's axis and anchor taken at its place in the
 //     sequence), and each dof's motion subspace cdof and its derivative
-//     about the reference point O, the origin of body 0 (where float32
-//     keeps the robot's own scale, physics/engine.py);
+//     about its kinematic tree's reference point, the origin of the
+//     tree's root body (where float32 keeps each tree at its own scale:
+//     the robot, a block, a free ball; physics/engine.py);
 //   * the mass matrix by composite rigid bodies (M[a][b] = (I^C s_a) . s_b
 //     for b on the root path of a's body), plus armature; its Cholesky
 //     factor and inverse per kinematic tree (M is block diagonal over the
@@ -35,9 +36,13 @@
 //     smooth acceleration qacc0;
 //   * contacts: every test sphere that meets the world against the floor
 //     plane and the two nearest static boxes (by dist - box margin, strict
-//     <), and every sphere-vs-moving-box pair in the box's frame; a
-//     contact is active when dist < margin, with 3 pyramid rows (normal,
-//     two tangents) over the dofs of both bodies' root paths; projected
+//     <), every sphere-sphere pair (a robot's sphere and an object ball's:
+//     the normal along the centre line, the point midway through the
+//     overlap) and every sphere-vs-moving-box pair in the box's frame, in
+//     that order; a contact is active when dist < margin, with 3 pyramid
+//     rows (normal, two tangents) over the dofs of both bodies' root paths,
+//     + on the first body's and - on the second's, each tree's columns
+//     with the moment arm about its own reference point; projected
 //     Jacobi, solver_iters sweeps, omega 0.6, on the regularised Delassus
 //     diagonal (physics/contact.py contact_qfrc);
 //   * the falling blocks' coupled platform support and z limit
@@ -45,15 +50,15 @@
 //   * qacc = M^-1 (tau + f_con - bias).
 // Then the inner reward fwd_weight |dxy| / dt - ctrl_weight |a|^2 on the
 // raw action (scaled), t + 1, and the task heads on the anchor: the
-// robot's qpos[0:3] or the first observed block's centre.
+// robot's qpos[0:3], the first object ball's centre or the first block's.
 //
 // Design.  One thread is one env.  The public (B, nq) / (B, nv) row-major
 // tensors are read in place with their row strides.  Every model datum is
 // a runtime table, staged by each block into shared memory, so one build
 // serves every model within the compile-time caps below (the wrapper
 // checks them before launch and raises past them): the bodies, joints,
-// dofs, actuators, test spheres, static boxes, moving boxes, sphere-box
-// pairs, falling blocks, platforms and goals.  Per-thread state (the body
+// dofs, actuators, test spheres, static boxes, moving boxes, sphere-sphere
+// pairs, sphere-box pairs, falling blocks, platforms and goals.  Per-thread state (the body
 // poses, cdof, M and M^-1) lives in local memory.  Only ACTIVE contacts
 // are kept, in a compacted list in wrapper-owned global scratch sized for
 // every candidate, laid out [slot][field][env] so that a warp's accesses
@@ -86,9 +91,9 @@
 struct EngineParams {
   // offsets of the tables in the packed buffer (floats) and their sizes
   int off_body, off_jnt, off_dof, off_act, off_sph, off_box, off_dbox;
-  int off_pair, off_fall, off_plat, off_goal;
+  int off_spair, off_pair, off_fall, off_plat, off_goal;
   int n_floats;
-  int nb, nj, nq, nv, nu, n_sph, n_box, n_pair, n_fall, n_goal;
+  int nb, nj, nq, nv, nu, n_sph, n_box, n_spair, n_pair, n_fall, n_goal;
   int has_floor;    // 1: a floor plane
   int n_static;     // test spheres that meet the static world
   int n_pick;       // static boxes a sphere keeps: min(n_box, 2)
@@ -132,8 +137,8 @@ constexpr int kSphCols = 14;   // body, local3, radius, margin, floor
                                // static index (-1)
 constexpr int kBoxCols = 7;    // center3, half3, margin
 constexpr int kDboxCols = 7;   // body, local3, half3
-constexpr int kPairCols = 9;   // sphere, dbox, margin, mu, d0, dmax, width,
-                               // tc, dampr
+constexpr int kPairCols = 9;   // sphere, dbox (spair: sphere i, sphere j),
+                               // margin, mu, d0, dmax, width, tc, dampr
 constexpr int kFallCols = 6;   // body, zdof, half z, plat0, nplat, rest z
 constexpr int kPlatCols = 5;   // x, y, half x + .., half y + .., top
 constexpr int kGoalCols = 9;   // pos3, dim_mask3, threshold^2, scale, valid
@@ -149,7 +154,8 @@ struct Tables {
   const float* sph;
   const float* box;
   const float* dbox;
-  const float* pair;
+  const float* spair;  // sphere-sphere pairs
+  const float* pair;   // sphere-vs-moving-box pairs
   const float* fall;
   const float* plat;
   const float* goal;
@@ -157,10 +163,10 @@ struct Tables {
 
 __device__ __forceinline__ Tables tables_at(const float* base,
                                             const EngineParams& P) {
-  return Tables{base + P.off_body, base + P.off_jnt,  base + P.off_dof,
-                base + P.off_act,  base + P.off_sph,  base + P.off_box,
-                base + P.off_dbox, base + P.off_pair, base + P.off_fall,
-                base + P.off_plat, base + P.off_goal};
+  return Tables{base + P.off_body,  base + P.off_jnt,  base + P.off_dof,
+                base + P.off_act,   base + P.off_sph,  base + P.off_box,
+                base + P.off_dbox,  base + P.off_spair, base + P.off_pair,
+                base + P.off_fall,  base + P.off_plat, base + P.off_goal};
 }
 
 // One env's contact scratch: element (slot, field) of env e.
@@ -266,18 +272,26 @@ __device__ __forceinline__ void sp_mul(const SpInertia& S, const float* s,
 
 // Per-env state of one forward evaluation.
 struct Kin {
+  int root[kMaxBodies];       // the root body of each body's tree
   float R[kMaxBodies][9];     // world rotation, row-major
   float p[kMaxBodies][3];     // world frame origin
   float c[kMaxBodies][3];     // world com
-  float cvel[kMaxBodies][6];  // spatial velocity about O
-  float cdof[kMaxNv][6];      // motion subspace of each dof about O
+  float cvel[kMaxBodies][6];  // spatial velocity about the tree's point
+  float cdof[kMaxNv][6];      // motion subspace of each dof about its
+                              // tree's point
   float cdd[kMaxNv][6];       // its time derivative
-  SpInertia I[kMaxBodies];    // each body's spatial inertia about O
+  SpInertia I[kMaxBodies];    // each body's spatial inertia about its
+                              // tree's point
 };
+
+// The reference point of body b's tree: its root body's origin.
+__device__ __forceinline__ const float* origin_of(const Kin& k, int b) {
+  return k.p[k.root[b]];
+}
 
 // Kinematics (engine.fk): joints applied in declaration order per body;
 // each dof's world axis (and, for a rotation, its anchor) taken at its
-// place in the sequence; then cdof about O, the origin of body 0.
+// place in the sequence; then cdof about the origin of its tree's root.
 __device__ void fk(const Tables& tb, const EngineParams& P, const float* q,
                    Kin& k) {
   float ax[kMaxNv][3], an[kMaxNv][3];
@@ -288,6 +302,7 @@ __device__ void fk(const Tables& tb, const EngineParams& P, const float* q,
     const int par = (int)row[0];
     float* R = k.R[b];
     float* p = k.p[b];
+    k.root[b] = par < 0 ? b : k.root[par];
     if (par < 0) {
       for (int i = 0; i < 9; ++i) R[i] = row[6 + i];
       for (int i = 0; i < 3; ++i) p[i] = row[3 + i];
@@ -364,10 +379,10 @@ __device__ void fk(const Tables& tb, const EngineParams& P, const float* q,
     mat_vec3(R, row + 16, cw);
     for (int i = 0; i < 3; ++i) k.c[b][i] = p[i] + cw[i];
   }
-  const float* O = k.p[0];
 #pragma unroll 1
   for (int d = 0; d < P.nv; ++d) {
     float* s = k.cdof[d];
+    const float* O = origin_of(k, (int)tb.dof[d * kDofCols]);
     if (rot[d]) {
       const float rel[3] = {an[d][0] - O[0], an[d][1] - O[1],
                             an[d][2] - O[2]};
@@ -381,10 +396,9 @@ __device__ void fk(const Tables& tb, const EngineParams& P, const float* q,
 }
 
 // Body velocities and cdof derivatives (engine.kin_dyn), and each body's
-// spatial inertia about O.
+// spatial inertia about its tree's point.
 __device__ void kin_dyn(const Tables& tb, const EngineParams& P,
                         const float* v, Kin& k) {
-  const float* O = k.p[0];
 #pragma unroll 1
   for (int b = 0; b < P.nb; ++b) {
     const float* row = tb.body + b * kBodyCols;
@@ -412,7 +426,8 @@ __device__ void kin_dyn(const Tables& tb, const EngineParams& P,
       }
     }
     for (int i = 0; i < 6; ++i) k.cvel[b][i] = vel[i];
-    // Io = R Ic R^T + m (|c|^2 I - c c^T) about O
+    // Io = R Ic R^T + m (|c|^2 I - c c^T) about the tree's point O
+    const float* O = origin_of(k, b);
     const float m = row[15];
     const float Ic[9] = {row[19], row[22], row[23], row[22], row[20],
                          row[24], row[23], row[24], row[21]};
@@ -481,7 +496,8 @@ __device__ void mass_matrix(const Tables& tb, const EngineParams& P,
   }
 }
 
-// qfrc_bias = C(q, v) v + gravity by RNE about O (engine.rne_bias).
+// qfrc_bias = C(q, v) v + gravity by RNE about each tree's point
+// (engine.rne_bias).
 __device__ void rne_bias(const Tables& tb, const EngineParams& P,
                          const Kin& k, const float* v, float* bias) {
   float acc[kMaxBodies][6], frc[kMaxBodies][6];
@@ -528,11 +544,11 @@ __device__ void rne_bias(const Tables& tb, const EngineParams& P,
 // MuJoCo's inertia-box fluid drag (engine.fluid_force), added into qfrc.
 __device__ void fluid_force(const Tables& tb, const EngineParams& P,
                             const Kin& k, float* qfrc) {
-  const float* O = k.p[0];
 #pragma unroll 1
   for (int b = 0; b < P.nb; ++b) {
     const float* row = tb.body + b * kBodyCols;
     if (!(row[15] > 0.f)) continue;
+    const float* O = origin_of(k, b);
     const float* R = k.R[b];
     const float com[3] = {k.c[b][0] - O[0], k.c[b][1] - O[1],
                           k.c[b][2] - O[2]};
@@ -671,14 +687,17 @@ __device__ void sphere_box(const float* c, float r, const float* bc,
 }
 
 // Append one active contact to the scratch list: its three rows over the
-// dofs of both bodies' root paths (sign + on the sphere's, - on the box's),
+// dofs of both bodies' root paths (sign + on body a's, the sphere's, - on
+// body b's, the second sphere's or the box's, body b -1 for the static
+// world; 0 on the dofs the two paths share), each path's columns with the
+// moment arm about its tree's point,
 // the impedance constants, A = J M^-1 J^T, aref - a0, R and the
 // denominator (contact.py contact_qfrc).  par = (mu, d0, dmax, width, tc,
 // dampr).
 __device__ void add_contact(const Tables& tb, const EngineParams& P,
                             const Kin& k, const float Minv[kMaxNv][kMaxNv],
                             const float* v, const float* qacc0,
-                            const float* par, int bits_a, int bits_b,
+                            const float* par, int body_a, int body_b,
                             const float* pos, const float* nrm, float dist,
                             float margin, const Scratch& S, int slot) {
   const int nv = P.nv;
@@ -692,8 +711,12 @@ __device__ void add_contact(const Tables& tb, const EngineParams& P,
   for (int i = 0; i < 3; ++i) t1[i] = t1[i] / tn;
   cross3(nrm, t1, t2);
   const float* dirs[3] = {nrm, t1, t2};
-  const float* O = k.p[0];
-  const float rel[3] = {pos[0] - O[0], pos[1] - O[1], pos[2] - O[2]};
+  const int bits_a = chain_bits(tb, body_a);
+  const int bits_b = body_b < 0 ? 0 : chain_bits(tb, body_b);
+  const float* Oa = origin_of(k, body_a);
+  const float* Ob = origin_of(k, body_b < 0 ? body_a : body_b);
+  const float rel_a[3] = {pos[0] - Oa[0], pos[1] - Oa[1], pos[2] - Oa[2]};
+  const float rel_b[3] = {pos[0] - Ob[0], pos[1] - Ob[1], pos[2] - Ob[2]};
   const int bits = bits_a | bits_b;
   const float r = dist - margin;
   const float b_imp = 2.f / (dmax * tc);
@@ -702,14 +725,15 @@ __device__ void add_contact(const Tables& tb, const EngineParams& P,
   const float rfac = (1.f - imp) / fmaxf(imp, 1e-6f);
 #pragma unroll 1
   for (int rr = 0; rr < 3; ++rr) {
-    float F[6];
-    cross3(rel, dirs[rr], F);
-    for (int i = 0; i < 3; ++i) F[3 + i] = dirs[rr][i];
+    float Fa[6], Fb[6];
+    cross3(rel_a, dirs[rr], Fa);
+    cross3(rel_b, dirs[rr], Fb);
+    for (int i = 0; i < 3; ++i) Fa[3 + i] = Fb[3 + i] = dirs[rr][i];
     float J[kMaxNv];
     for (int d = 0; d < nv; ++d) {
       const int s = (int)bit(bits_a, d) - (int)bit(bits_b, d);
-      const float x = s == 0 ? 0.f : dot6(F, k.cdof[d]);
-      J[d] = s > 0 ? x : (s < 0 ? -x : 0.f);
+      J[d] = s > 0 ? dot6(Fa, k.cdof[d])
+                   : (s < 0 ? -dot6(Fb, k.cdof[d]) : 0.f);
       S.at(slot, rr * nv + d) = J[d];
     }
     float A = 0.f, vr = 0.f, ar = 0.f;
@@ -771,7 +795,6 @@ __device__ int contact_force(const Tables& tb, const EngineParams& P,
     const int ks = (int)sp[13];
     if (ks < 0) continue;  // meets no static geom
     const int body = (int)sp[0];
-    const int bits_a = chain_bits(tb, body);
     float c[3];
     mat_vec3(k.R[body], sp + 1, c);
     for (int i = 0; i < 3; ++i) c[i] = k.p[body][i] + c[i];
@@ -782,7 +805,7 @@ __device__ int contact_force(const Tables& tb, const EngineParams& P,
         const float pos[3] = {c[0], c[1], c[2] - r};
         const float up[3] = {0.f, 0.f, 1.f};
         mark(trace, nw, ks, false, up);
-        add_contact(tb, P, k, Minv, v, qacc0, sp + 7, bits_a, 0, pos, up,
+        add_contact(tb, P, k, Minv, v, qacc0, sp + 7, body, -1, pos, up,
                     dist, sp[6], S, nc++);
       }
     }
@@ -829,9 +852,39 @@ __device__ int contact_force(const Tables& tb, const EngineParams& P,
       if (best_d[j] < margin) {
         mark(trace, nw, (P.has_floor + j) * P.n_static + ks, best_in[j],
              best_n[j]);
-        add_contact(tb, P, k, Minv, v, qacc0, sp + 7, bits_a, 0, best_p[j],
+        add_contact(tb, P, k, Minv, v, qacc0, sp + 7, body, -1, best_p[j],
                     best_n[j], best_d[j], margin, S, nc++);
       }
+    }
+  }
+  // every sphere-sphere pair: the normal from sphere j's centre to sphere
+  // i's, the point midway through the overlap (contact.py _detect)
+#pragma unroll 1
+  for (int ps = 0; ps < P.n_spair; ++ps) {
+    const float* pr = tb.spair + ps * kPairCols;
+    const float* si = tb.sph + (int)pr[0] * kSphCols;
+    const float* sj = tb.sph + (int)pr[1] * kSphCols;
+    const int bi = (int)si[0], bj = (int)sj[0];
+    float ci[3], cj[3], d[3];
+    mat_vec3(k.R[bi], si + 1, ci);
+    mat_vec3(k.R[bj], sj + 1, cj);
+    for (int i = 0; i < 3; ++i) {
+      ci[i] = k.p[bi][i] + ci[i];
+      cj[i] = k.p[bj][i] + cj[i];
+      d[i] = ci[i] - cj[i];
+    }
+    const float dn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-12f);
+    const float n[3] = {d[0] / dn, d[1] / dn, d[2] / dn};
+    const float rj = sj[4];
+    const float dist = dn - (si[4] + rj);
+    const float margin = pr[2];  // the two spheres' margins summed
+    if (dist < margin) {
+      const float reach = rj + dist * 0.5f;
+      const float pos[3] = {cj[0] + n[0] * reach, cj[1] + n[1] * reach,
+                            cj[2] + n[2] * reach};
+      mark(trace, nw, groups * P.n_static + ps, false, n);
+      add_contact(tb, P, k, Minv, v, qacc0, pr + 3, bi, bj, pos, n, dist,
+                  margin, S, nc++);
     }
   }
   // every sphere-vs-moving-box pair, in the box's frame
@@ -850,9 +903,9 @@ __device__ int contact_force(const Tables& tb, const EngineParams& P,
     bool inside;
     sphere_box(c, sp[4], bc, db + 4, k.R[bb], &dist, pos, n, &inside);
     if (dist < pr[2]) {
-      mark(trace, nw, groups * P.n_static + qp, inside, n);
-      add_contact(tb, P, k, Minv, v, qacc0, pr + 3, chain_bits(tb, sb),
-                  chain_bits(tb, bb), pos, n, dist, pr[2], S, nc++);
+      mark(trace, nw, groups * P.n_static + P.n_spair + qp, inside, n);
+      add_contact(tb, P, k, Minv, v, qacc0, pr + 3, sb, bb, pos, n, dist,
+                  pr[2], S, nc++);
     }
   }
   if (nc == 0) return 0;

@@ -5,7 +5,8 @@ Port of ``mujoco_maze_tpu.envs.env`` in float32 for the Point robot
 movable blocks, the Fall worlds' falling block on its platform, and hinge
 balls, stepped by the reduced object solve (``ops/object_lanes.py``) —
 for the Ant robot (the rigid-body engine with contacts) in object-free
-mazes and in the block worlds, and for the Swimmer and the Reacher
+mazes, in the block worlds and with a free object ball, for any custom
+robot on the engine in the same worlds, and for the Swimmer and the Reacher
 (closed-form planar dynamics, no contacts) in object-free mazes and in the
 block worlds, whose block dofs they never move.  Construction lowers the
 grid maze to wall, box, block and goal tables on one device; the step is a
@@ -78,25 +79,32 @@ class _BlockRuntime(NamedTuple):
 
 
 class _BallRuntime(NamedTuple):
-    """One hinge-type object ball (JAX env.py:88-92)."""
+    """One object ball (JAX env.py:88-92): a hinge ball of the Point's
+    object worlds, or a free ball of the engine world."""
 
     body_pos: np.ndarray            # (2,) body origin at qpos0
     size: float                     # radius
-    qpos_idx: Tuple[int, int, int]  # qpos address of the x, y, rot dofs
+    qpos_idx: Tuple[int, ...]       # hinge: the x, y, rot dofs; free: (adr,)
+    kind: str = "hinge"             # "hinge" | "free"
 
 
 class MazeEnvSpec:
     """Static description of one env ID on one device; batched reset/step.
 
     The port covers, in float32, the Point robot in object-free mazes and
-    in its object worlds (blocks, platforms, hinge balls), and the Ant,
-    the Swimmer and the Reacher in object-free mazes and in the worlds
-    with movable blocks and elevated platforms.  It is also the extension
-    API's entry point: any custom robot with ``USES_WORLD_ENGINE`` and
-    ``build_bodies`` gets the composed engine world (robot, movable
-    blocks, static maze boxes, floor), the reset of its own
-    ``reset_noise`` law and its own ``dynamics_step``
-    (``examples/custom_robot.py``).  Everything else raises
+    in its object worlds (blocks, platforms, hinge balls), the Ant in
+    object-free mazes, in the worlds with movable blocks and elevated
+    platforms and with a free object ball (AntSmallBilliard), and the
+    Swimmer and the Reacher in object-free mazes and in the block worlds.
+    It is also the extension API's entry point: any custom robot with
+    ``USES_WORLD_ENGINE`` and ``build_bodies`` gets the composed engine
+    world (robot, movable blocks, free object balls, static maze boxes,
+    floor), the reset of its own ``reset_noise`` law and its own
+    ``dynamics_step`` (``examples/custom_robot.py``).  On the card a
+    custom robot steps through the generic engine kernel in any of these
+    worlds, ball worlds included; the Ant's kernel takes no ball yet
+    (ROADMAP queue 1 item 11d-2), so an AntSmallBilliard spec steps
+    through ``step`` alone.  Everything else raises
     ``NotImplementedError`` naming the ROADMAP queue item that ports it.
     ``device=None`` means CUDA; without a card pass ``device="cpu"``.
     """
@@ -132,10 +140,6 @@ class MazeEnvSpec:
         )
         ms = with_ball_size(ms, self.task.OBJECT_BALL_SIZE)
         self.structure: MazeStructure = ms
-        if ms.object_balls and not robot.MANUAL_COLLISION:
-            raise NotImplementedError(
-                f"{robot.NAME} worlds with object balls are not ported yet "
-                "(ROADMAP queue 1 item 11d)")
         if any(b.spin for b in ms.movable_blocks):
             raise NotImplementedError(
                 "spin blocks are not ported yet (ROADMAP queue 1 item 11e)")
@@ -211,20 +215,23 @@ class MazeEnvSpec:
         self.nv = next_idx
 
     def _build_engine_world(self) -> None:
-        """Compose robot + movable blocks + static maze geoms into ONE
-        RigidModel stepped by the engine with contacts (the Ant path; JAX
-        env.py:283-541).
+        """Compose robot + movable blocks + free object balls + static maze
+        geoms into ONE RigidModel stepped by the engine with contacts (the
+        Ant path; JAX env.py:283-541).
 
         Movable blocks become slide-jointed box bodies whose travel limits
         encode block-vs-wall collision (the falling block's z slide is
         unlimited: its limit is solved coupled with the platform support,
-        ``support_qfrc``); BLOCK cells and elevated platforms become static
+        ``support_qfrc``); object balls become free-jointed spheres that
+        meet the robot's spheres in sphere-sphere pairs; BLOCK cells and
+        elevated platforms become static
         AABBs; the floor is a plane.  The robot XML's default geom class
         carries over, with the solimp hardening applied when movable
         blocks exist (maze_env.py:108-112)."""
         from ..physics import contact as contact_mod
         from ..physics import engine as engine_mod
-        from ..physics.model import SLIDE, Body, Geom, Joint, build_model
+        from ..physics.model import (FREE, SLIDE, Body, Geom, Joint,
+                                      build_model)
 
         ms = self.structure
         robot = self.robot
@@ -253,6 +260,21 @@ class MazeEnvSpec:
                 name=b.name, parent=-1, pos=b.pos, joints=joints,
                 geoms=[Geom(gtype=2, size=b.size, mass=b.mass, contype=1,
                             conaffinity=1, **geom_default)]))
+        for ob in ms.object_balls:
+            # a free object ball (JAX env.py:376-398, maze_env.py:539-560):
+            # its sphere sits ob.size above the body origin, with the
+            # reference's fixed solimp
+            bodies.append(Body(
+                name=ob.name, parent=-1, pos=(ob.pos[0], ob.pos[1], 0.0),
+                joints=[Joint(FREE, name=f"{ob.name}_root")],
+                geoms=[Geom(gtype=0, size=(ob.size,), pos=(0.0, 0.0, ob.size),
+                            contype=1, conaffinity=1,
+                            density=geom_default.get("density", 1000.0),
+                            friction=geom_default.get("friction",
+                                                      (1.0, 0.5, 0.5)),
+                            solref=geom_default.get("solref", (0.02, 1.0)),
+                            solimp=(0.9, 0.99, 0.001),
+                            margin=geom_default.get("margin", 0.0))]))
         statics = [
             Geom(gtype=3, size=(), pos=(0, 0, 0), contype=1, conaffinity=1,
                  friction=geom_default.get("friction", (1.0, 0.5, 0.5)),
@@ -288,6 +310,11 @@ class MazeEnvSpec:
                 xy_lo=lo.astype(np.float32), xy_hi=hi.astype(np.float32))
             for b in ms.movable_blocks
             for lo, hi in (self._block_xy_limits(b),))
+        self.ball_runtimes = tuple(
+            _BallRuntime(body_pos=np.asarray(ob.pos, np.float64),
+                         size=float(ob.size),
+                         qpos_idx=(qadr[f"{ob.name}_root"],), kind="free")
+            for ob in ms.object_balls)
 
         # Falling blocks (JAX env.py:430-469): the support and the z limit
         # are one coupled solve (contact.falling_support_force) against the
@@ -427,8 +454,12 @@ class MazeEnvSpec:
         return base + disp
 
     def ball_center3(self, qpos: torch.Tensor, b: _BallRuntime) -> torch.Tensor:
-        """``(B, 3)`` current ball body origin, z = 0: the reference's
-        ``get_body_com`` of a hinge ball (JAX env.py:621-628)."""
+        """``(B, 3)`` current ball body origin: the reference's
+        ``get_body_com`` (JAX env.py:621-628), a free ball's qpos[adr:adr+3],
+        a hinge ball's x, y with z = 0."""
+        if b.kind == "free":
+            adr = b.qpos_idx[0]
+            return qpos[:, adr:adr + 3]
         base = torch.as_tensor(b.body_pos, dtype=qpos.dtype, device=qpos.device)
         xy = base + qpos[:, list(b.qpos_idx[:2])]
         return torch.cat([xy, torch.zeros_like(xy[:, :1])], dim=1)

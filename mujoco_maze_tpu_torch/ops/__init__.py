@@ -10,7 +10,7 @@
   closed-form planar dynamics
 - :mod:`.engine_kernel`  — the generic engine step kernel's tables and
   plain version: any other robot with ``USES_WORLD_ENGINE`` (custom robots
-  composed through the extension API)
+  composed through the extension API), free object balls included
 - :mod:`.lane_env`       — their launch wrappers and launch counts
 - :mod:`.philox`         — the rollout kernels' random stream, in torch
 - :mod:`._build`         — one ``nvcc`` per ``csrc/*.cu``, linked into one
@@ -19,7 +19,8 @@
 The port has the Point robot on object-free mazes and in its object
 worlds, the Ant, the Swimmer and the Reacher on object-free mazes and in
 the block worlds, and custom engine-world robots through the generic
-kernel; the Ant object balls' kernel is queued in ROADMAP queue 2.
+kernel, in ball worlds too; the Ant kernel's object-ball rows are queued
+in ROADMAP queue 2.
 """
 
 from __future__ import annotations

@@ -132,7 +132,7 @@ def _check_model(model) -> None:
                     or model.dof_damping[model.jnt_dofadr[j]] != 0.0):
                 raise NotImplementedError(
                     "the Ant kernels take blocks on slide joints only (spin "
-                    "blocks and object balls: ROADMAP queue 1 items 11d-e)")
+                    "blocks: ROADMAP queue 1 item 11e)")
             continue
         if (int(model.jnt_type[j]) != HINGE or b in seen
                 or np.any(model.jnt_pos[j] != 0.0)
@@ -282,6 +282,11 @@ def spec_from_env(spec: MazeEnvSpec) -> AntKernelSpec:
     """Lower an Ant :class:`MazeEnvSpec` to kernel tables."""
     if spec.robot.NAME != "Ant":
         raise NotImplementedError("the Ant kernels take the Ant robot only")
+    if spec.ball_runtimes:
+        raise NotImplementedError(
+            "the Ant kernels' object-ball rows are not ported yet (ROADMAP "
+            "queue 1 item 11d-2); the Ant's ball worlds step on the CPU "
+            "through spec.step")
     tabs = _tables(spec)
     offsets, parts, off = {}, [], 0
     for name in TABLES:

@@ -29,9 +29,14 @@ within its compile-time caps:
 * ``box (nbox, 7)``: the static boxes, centre (3), half (3), margin;
 * ``dbox (D, 7)``: the moving boxes, body, centre in the body (3), half
   (3);
-* ``pair (Q, 9)``: the sphere-vs-moving-box pairs: sphere, moving box, and
-  the pair's mixed constants (JAX contact.py:474-477): margin, friction,
-  solimp (3), solref time constant (clamped), damping ratio;
+* ``spair (P, 9)``: the sphere-sphere pairs (the JAX ``pair_i``/``pair_j``:
+  a robot's sphere and an object ball's, or two unrelated bodies' of one
+  robot): sphere i, sphere j, and the pair's mixed constants (JAX
+  contact.py:438-441): the margins summed, the larger friction, solimp
+  (3) and the solref time constant (clamped) and damping ratio averaged;
+* ``pair (Q, 9)``: the sphere-vs-moving-box pairs (the JAX ``qpair_s``/
+  ``qpair_b``): sphere, moving box, and the pair's mixed constants (JAX
+  contact.py:474-477), in ``spair``'s columns;
 * ``fall (F, 6)``: the falling blocks: body, z dof, half height, first
   platform row, platform count, the body's rest height;
 * ``plat (P, 5)``: their platforms: x, y, half x + block half x, half y +
@@ -61,13 +66,16 @@ from ..maze.cells import MazeCell
 from ..physics import contact, engine
 from ..physics.contact import CONTACT_SOLVER_ITERS
 from ..physics.model import BALL, FREE, HINGE, SLIDE, _quat_to_mat_np
-from .ant_kernel import _box_dist, _place_blocks
+from .ant_kernel import _ant_pose, _box_dist, _place_blocks, _sphere_offsets
 from .point_kernel import Tensors5, goal_table
 
-TABLES = ("body", "jnt", "dof", "act", "sph", "box", "dbox", "pair", "fall",
-          "plat", "goal")
+# "spair" holds the sphere-sphere pairs, "pair" the sphere-vs-moving-box
+# pairs (see above)
+TABLES = ("body", "jnt", "dof", "act", "sph", "box", "dbox", "spair", "pair",
+          "fall", "plat", "goal")
 TABLE_COLS = {"body": 34, "jnt": 12, "dof": 5, "act": 4, "sph": 14, "box": 7,
-              "dbox": 7, "pair": 9, "fall": 6, "plat": 5, "goal": 9}
+              "dbox": 7, "spair": 9, "pair": 9, "fall": 6, "plat": 5,
+              "goal": 9}
 # Floats one active contact keeps in the wrapper's scratch: its three rows
 # of J over the nv dofs, aref - a0, R and the denominator per row, the
 # forces (3) and the friction (kRowFixed in csrc/engine_lane.cu).
@@ -237,21 +245,32 @@ def engine_table(spec: MazeEnvSpec, device) -> Tuple[torch.Tensor, dict]:
                          axis=1).reshape(-1, 7)
     dbox = np.concatenate([cs.dbox_body[:, None], cs.dbox_local, cs.dbox_half],
                           axis=1).reshape(-1, 7)
+    def mixed(i, j, margin, friction, solimp, solref):
+        """A pair table: i, j, then the pair's mixed constants."""
+        srf = (solref[0] + solref[1]) / 2
+        return np.concatenate([
+            i[:, None], j[:, None], (margin[0] + margin[1])[:, None],
+            np.maximum(*friction)[:, None], (solimp[0] + solimp[1]) / 2,
+            np.maximum(srf[:, 0].astype(np.float32), tc_min)[:, None],
+            srf[:, 1:2]], axis=1).reshape(-1, 9)
+
+    pi, pj = cs.pair_i, cs.pair_j
+    spair = mixed(pi, pj, (cs.sph_margin[pi], cs.sph_margin[pj]),
+                  (cs.sph_friction[pi], cs.sph_friction[pj]),
+                  (cs.sph_solimp[pi], cs.sph_solimp[pj]),
+                  (cs.sph_solref[pi], cs.sph_solref[pj]))
     qs, qb = cs.qpair_s, cs.qpair_b
-    sim = (cs.sph_solimp[qs] + cs.dbox_solimp[qb]) / 2
-    srf = (cs.sph_solref[qs] + cs.dbox_solref[qb]) / 2
-    pair = np.concatenate([
-        qs[:, None], qb[:, None], (cs.sph_margin[qs] + cs.dbox_margin[qb])[:, None],
-        np.maximum(cs.sph_friction[qs], cs.dbox_friction[qb])[:, None], sim,
-        np.maximum(srf[:, 0].astype(np.float32), tc_min)[:, None],
-        srf[:, 1:2]], axis=1).reshape(-1, TABLE_COLS["pair"])
+    pair = mixed(qs, qb, (cs.sph_margin[qs], cs.dbox_margin[qb]),
+                 (cs.sph_friction[qs], cs.dbox_friction[qb]),
+                 (cs.sph_solimp[qs], cs.dbox_solimp[qb]),
+                 (cs.sph_solref[qs], cs.dbox_solref[qb]))
     fall, plat = [], []
     for bodyidx, zdof, half_z, plats in spec._falling_support:
         fall.append([bodyidx, zdof, half_z, len(plat), len(plats),
                      model.body_pos[bodyidx][2]])
         plat.extend(plats)
     tabs = dict(body=body, jnt=jnt, dof=dof, act=act, sph=sph, box=box,
-                dbox=dbox, pair=pair,
+                dbox=dbox, spair=spair, pair=pair,
                 fall=np.asarray(fall, np.float64).reshape(-1, 6),
                 plat=np.asarray(plat, np.float64).reshape(-1, 5),
                 goal=goal_table(spec).cpu().numpy())
@@ -265,15 +284,23 @@ def engine_table(spec: MazeEnvSpec, device) -> Tuple[torch.Tensor, dict]:
 
 
 def _head_anchor(spec: MazeEnvSpec):
-    """The heads' anchor (JAX engine_pallas.py:80-98): the robot's qpos[:3],
-    or the first observed block's centre (its slides on its rest
-    position)."""
+    """The heads' anchor (JAX engine_pallas.py:78-98): the robot's qpos[:3];
+    else the first ball's centre (a free ball's qpos[adr:adr+3], a hinge
+    ball's x and y on its rest position at z = 0); else the first block's
+    centre (its slides on its rest position)."""
     if spec.task.OBS_OFFSET == 0:
         return (0, 1, 2), (0.0, 0.0, 0.0)
+    if spec.ball_runtimes:
+        ob = spec.ball_runtimes[0]
+        if ob.kind == "free":
+            a = ob.qpos_idx[0]
+            return (a, a + 1, a + 2), (0.0, 0.0, 0.0)
+        return ((ob.qpos_idx[0], ob.qpos_idx[1], -1),
+                (float(ob.body_pos[0]), float(ob.body_pos[1]), 0.0))
     if not spec.block_runtimes:
         raise NotImplementedError(
-            "the generic engine kernel's heads read the robot or the first "
-            "observed block")
+            "the generic engine kernel's heads read the robot, the first "
+            "ball or the first block")
     b = spec.block_runtimes[0]
     return tuple(b.qpos_idx[:3]), tuple(float(x) for x in b.body_pos)
 
@@ -287,10 +314,6 @@ def spec_from_env(spec: MazeEnvSpec) -> EngineKernelSpec:
             f"the generic engine kernel serves engine-world robots, not "
             f"{robot.NAME}")
     cs = spec.contact_set
-    if len(cs.pair_i):
-        raise NotImplementedError(
-            "sphere-sphere pairs (object balls) are not ported yet (ROADMAP "
-            "queue 1 item 11d)")
     if spec.task.sample_goals():
         raise NotImplementedError(
             "per-episode goal sampling (the goal operand) is not ported yet "
@@ -508,3 +531,140 @@ def sphere_robot_states(spec: MazeEnvSpec, num_envs: int, seed: int):
     t = rng.randint(0, EPISODE_LIMIT, num_envs)
     return (qpos.astype(np.float32), qvel.astype(np.float32),
             t.astype(np.int32))
+
+
+def ball_states(spec: MazeEnvSpec, num_envs: int, seed: int):
+    """``(qpos (B, nq), qvel (B, nv), t (B,))`` numpy states from a seed for
+    an engine world with a free object ball (a SmallBilliard task), for
+    checks of the sphere-sphere rows and the ball's free tree.
+
+    The robot is drawn as :func:`sphere_robot_states` draws a robot on
+    slides (the Roller); the Ant as ``ant_kernel.contact_states`` draws it
+    (its lowest test sphere within ±0.01 of the floor), near the centre of
+    a free cell, no test sphere more than 0.02 into a wall.  The first
+    ball then rests on the floor (its sphere's bottom within ±0.01 of it;
+    the sphere sits off the body origin, so the origin turns with the
+    ball's random orientation): in a quarter of the envs against the robot
+    (its sphere's centre at the sum of the radii less -0.02 to 0.15, at
+    most half the robot sphere's radius, from a robot test sphere's, and
+    no other robot sphere more than 0.02 into it), in a quarter against a wall face of
+    its cell or in a corner (its sphere between 0.02 short of each face
+    and 0.02 into it), in a quarter within half the goal threshold of the
+    first goal (terminated), and anywhere in a free cell in the rest;
+    never overlapping a static box by more than 0.02.  Its qvel: x, y
+    ~ N(0, 1), z ~ N(0, 0.1), spin ~ N(0, 3) about each axis; the robot's
+    qvel ~ N(0, 0.3); t uniform over the episode."""
+    rng = np.random.RandomState(seed)
+    ms = spec.structure
+    model, cs = spec.dynamic_model, spec.contact_set
+    ob = spec.ball_runtimes[0]
+    a = ob.qpos_idx[0]
+    ball_body = int(model.jnt_body[[int(x) for x in model.jnt_qposadr].index(a)])
+    (s_b,) = [k for k in range(len(cs.sph_body)) if cs.sph_body[k] == ball_body]
+    r_b = float(cs.sph_radius[s_b])
+    local_b = np.asarray(cs.sph_local[s_b], np.float64)  # off the origin
+    # the world's bodies (one a block, one a ball) follow the robot's
+    n_robot = (model.nbody - len(spec.block_runtimes)
+               - len(spec.ball_runtimes))
+    robot_sph = [k for k in range(len(cs.sph_body))
+                 if cs.sph_body[k] < n_robot and cs.sph_radius[k] > 0]
+    s, half = ms.size_scaling, ms.size_scaling / 2
+    grid = ms.grid
+
+    def walkable(i, j):
+        return (0 <= i < grid.shape[0] and 0 <= j < grid.shape[1]
+                and not MazeCell(grid[i, j]).is_block()
+                and not MazeCell(grid[i, j]).is_chasm())
+
+    free = [(i, j) for i in range(grid.shape[0]) for j in range(grid.shape[1])
+            if walkable(i, j)]
+    if spec.robot.NAME == "Ant":
+        qpos = _ant_pose(model, num_envs, rng)
+        c = _sphere_offsets(spec, qpos)[:, robot_sph]
+        r = cs.sph_radius[robot_sph]
+        qpos[:, 2] = (-(c[..., 2] - r).min(axis=1)
+                      + rng.uniform(-0.01, 0.01, num_envs))
+        for e in range(num_envs):
+            for _ in range(100):
+                i, j = free[rng.randint(len(free))]
+                qpos[e, :2] = [j * s - ms.torso_x + rng.uniform(-0.2, 0.2),
+                               i * s - ms.torso_y + rng.uniform(-0.2, 0.2)]
+                ce = c[e] + qpos[e, :3]
+                if not len(cs.box_center) or _box_dist(
+                        ce, r, cs.box_center, cs.box_half).min() >= -0.02:
+                    break
+            else:
+                raise RuntimeError(f"no Ant placement for env {e}")
+        qvel = rng.normal(0.0, 0.3, (num_envs, model.nv))
+        t = rng.randint(0, EPISODE_LIMIT, num_envs)
+    else:
+        qpos, qvel, t = sphere_robot_states(spec, num_envs, seed)
+        qpos, qvel = qpos.astype(np.float64), qvel.astype(np.float64)
+    fkr = engine.fk(model, torch.as_tensor(qpos))
+    R = torch.stack(fkr.body_rot, 1).numpy()
+    P = torch.stack(fkr.body_pos, 1).numpy()
+    sb = cs.sph_body[robot_sph]
+    centres = P[:, sb] + np.einsum("bsij,sj->bsi", R[:, sb],
+                                   cs.sph_local[robot_sph])
+    goal = spec.task.goals[0]
+    radius = np.array([r_b])
+    for e in range(num_envs):
+        for attempt in range(200):
+            mode = e % 4 if attempt < 100 else 3
+            cz = r_b + rng.uniform(-0.01, 0.01)
+            if mode == 0:
+                k = rng.randint(len(robot_sph))
+                r_k = cs.sph_radius[robot_sph[k]]
+                reach = r_k + r_b - rng.uniform(-0.02, min(0.15, r_k / 2))
+                dz = centres[e, k, 2] - cz
+                if reach <= abs(dz):
+                    continue
+                ang = rng.uniform(0.0, 2 * np.pi)
+                xy = centres[e, k, :2] + np.sqrt(reach ** 2 - dz ** 2) * np.array(
+                    [np.cos(ang), np.sin(ang)])
+            elif mode == 2:
+                ang = rng.uniform(0.0, 2 * np.pi)
+                xy = np.asarray(goal.pos[:2]) + rng.uniform(
+                    0.0, 0.5 * goal.threshold) * np.array([np.cos(ang), np.sin(ang)])
+            else:
+                i, j = free[rng.randint(len(free))]
+                cx, cy = j * s - ms.torso_x, i * s - ms.torso_y
+                xy = np.array([cx + rng.uniform(-half + r_b, half - r_b),
+                               cy + rng.uniform(-half + r_b, half - r_b)])
+                if mode == 1:
+                    walls = [(di, dj) for di, dj in ((0, 1), (0, -1), (1, 0),
+                                                     (-1, 0))
+                             if not walkable(i + di, j + dj)]
+                    if not walls:
+                        continue
+                    rng.shuffle(walls)
+                    for di, dj in walls[:1 + rng.randint(2)]:
+                        kk, sign = (0, dj) if dj else (1, di)
+                        xy[kk] = ((cx, cy)[kk] + sign
+                                  * (half - r_b + rng.uniform(-0.02, 0.02)))
+            if not walkable(int(np.floor((xy[1] + ms.torso_y) / s + 0.5)),
+                            int(np.floor((xy[0] + ms.torso_x) / s + 0.5))):
+                continue
+            c = np.array([[xy[0], xy[1], cz]])
+            if len(cs.box_center) and _box_dist(
+                    c, radius, cs.box_center, cs.box_half).min() < -0.02:
+                continue
+            gap = (np.linalg.norm(centres[e] - c, axis=1)
+                   - cs.sph_radius[robot_sph] - r_b)
+            if mode == 0:
+                gap[k] = 0.0
+            if gap.min() < -0.02:
+                continue
+            quat = rng.normal(size=4)
+            quat /= np.linalg.norm(quat)
+            qpos[e, a:a + 3] = c[0] - _quat_to_mat_np(quat) @ local_b
+            qpos[e, a + 3:a + 7] = quat
+            break
+        else:
+            raise RuntimeError(f"no ball placement for env {e} of {num_envs}")
+    va = int(model.jnt_dofadr[[int(x) for x in model.jnt_qposadr].index(a)])
+    qvel[:, va:va + 2] = rng.normal(0.0, 1.0, (num_envs, 2))
+    qvel[:, va + 2] = rng.normal(0.0, 0.1, num_envs)
+    qvel[:, va + 3:va + 6] = rng.normal(0.0, 3.0, (num_envs, 3))
+    return (qpos.astype(np.float32), qvel.astype(np.float32),
+            np.asarray(t).astype(np.int32))

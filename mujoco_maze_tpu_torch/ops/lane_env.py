@@ -256,10 +256,10 @@ class EngineParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "off_body", "off_jnt", "off_dof", "off_act", "off_sph", "off_box",
-        "off_dbox", "off_pair", "off_fall", "off_plat", "off_goal",
-        "n_floats", "nb", "nj", "nq", "nv", "nu", "n_sph", "n_box", "n_pair",
-        "n_fall", "n_goal", "has_floor", "n_static", "n_pick", "n_cand",
-        "row_floats", "trace_words", "frame_skip", "solver_iters",
+        "off_dbox", "off_spair", "off_pair", "off_fall", "off_plat",
+        "off_goal", "n_floats", "nb", "nj", "nq", "nv", "nu", "n_sph",
+        "n_box", "n_spair", "n_pair", "n_fall", "n_goal", "has_floor",
+        "n_static", "n_pick", "n_cand", "row_floats", "trace_words", "frame_skip", "solver_iters",
         "reward_type", "head_q0", "head_q1", "head_q2",
         "visc_on", "rho_on",
     )] + [(name, ctypes.c_float) for name in (
@@ -284,7 +284,8 @@ def engine_params(ks: EngineKernelSpec) -> EngineParams:
         **{f"off_{name}": o[name][0] for name in o},
         n_floats=ks.packed.numel(),
         nb=o["body"][1], nj=o["jnt"][1], nq=ks.nq, nv=ks.nv, nu=ks.nu,
-        n_sph=o["sph"][1], n_box=o["box"][1], n_pair=o["pair"][1],
+        n_sph=o["sph"][1], n_box=o["box"][1], n_spair=o["spair"][1],
+        n_pair=o["pair"][1],
         n_fall=o["fall"][1], n_goal=o["goal"][1],
         has_floor=int(cs.has_floor), n_static=ks.n_static,
         n_pick=min(o["box"][1], 2), n_cand=ks.n_cand,

@@ -1,23 +1,23 @@
 """Collision detection + contact forces on batched torch tensors.
 
 Port of ``mujoco_maze_tpu.physics.contact`` for robots in worlds of
-static boxes and movable (slide-jointed) boxes:
+static boxes, movable (slide-jointed) boxes and free object balls:
 
 * the static enumeration of candidate contacts (:class:`ContactSet`,
   :func:`build_contact_set`) is a numpy copy of the JAX package's: every
   dynamic geom lowers to a fixed set of **test spheres** (sphere → itself;
   capsule → 3 samples along its axis; box → its corners with radius 0);
-  every static world geom is an axis-aligned box or the floor plane; a
-  movable box meets the robot's spheres in sphere-vs-moving-box pairs;
+  every static world geom is an axis-aligned box or the floor plane; two
+  test spheres of unrelated bodies (a robot's and an object ball's) meet
+  in a sphere-sphere pair, and a movable box meets the robot's spheres in
+  sphere-vs-moving-box pairs;
 * :func:`contact_qfrc` detects spheres vs the floor plane, vs the static
-  boxes (the two nearest boxes per sphere) and vs every movable box, and
-  solves MuJoCo's impedance dynamics per contact with projected Jacobi on
-  the regularised Delassus matrix, batch-first;
+  boxes (the two nearest boxes per sphere), vs each other in the pairs and
+  vs every movable box, and solves MuJoCo's impedance dynamics per
+  contact with projected Jacobi on the regularised Delassus matrix,
+  batch-first;
 * :func:`falling_support_force` is the closed-form coupled platform
   support and z limit of a falling block (the Fall worlds).
-
-Sphere-sphere pairs and object balls (AntSmallBilliard) wait for ROADMAP
-queue 1 item 11d; a contact set that has them is refused.
 """
 
 from __future__ import annotations
@@ -282,18 +282,14 @@ def _min_exit_normal(local: torch.Tensor, bh: torch.Tensor):
 
 def candidate_count(cs: ContactSet) -> int:
     """Candidate contacts of a contact set: floor and the two nearest
-    static boxes per sphere that meets the world, and every
-    sphere-vs-moving-box pair."""
+    static boxes per sphere that meets the world, every sphere-sphere
+    pair and every sphere-vs-moving-box pair."""
     return (int(np.sum(cs.sph_vs_static))
             * (int(cs.has_floor) + min(len(cs.box_center), 2))
-            + len(cs.qpair_s))
+            + len(cs.pair_i) + len(cs.qpair_s))
 
 
 def _check_supported(cs: ContactSet) -> None:
-    if len(cs.pair_i):
-        raise NotImplementedError(
-            "sphere-sphere pairs (object balls) are not ported yet (ROADMAP "
-            "queue 1 item 11d)")
     n = candidate_count(cs)
     if n > MAX_ACTIVE_CONTACTS:
         raise NotImplementedError(
@@ -303,9 +299,9 @@ def _check_supported(cs: ContactSet) -> None:
 
 class _Consts(NamedTuple):
     """A contact set's arrays as tensors on one device, over the test
-    spheres that meet the world, and per candidate contact in the order
-    [floor; nearest box; second box; sphere-vs-moving-box pairs] (see
-    ``_consts``)."""
+    spheres that meet the world, and per candidate contact in the JAX
+    package's order [floor; nearest box; second box; sphere-sphere pairs;
+    sphere-vs-moving-box pairs] (see ``_consts``)."""
 
     sph_body_all: torch.Tensor  # (S,) long, every test sphere
     local_all: torch.Tensor    # (S, 3)
@@ -318,6 +314,11 @@ class _Consts(NamedTuple):
     box_center: torch.Tensor   # (nbox, 3)
     box_half: torch.Tensor     # (nbox, 3)
     box_margin: torch.Tensor   # (nbox,)
+    p_i: torch.Tensor          # (P,) long: the pairs' first spheres
+    p_j: torch.Tensor          # (P,) long: their second spheres
+    p_rj: torch.Tensor         # (P,) the second sphere's radius
+    p_rsum: torch.Tensor       # (P,) the two radii's sum
+    p_margin: torch.Tensor     # (P,) the two spheres' margins summed
     q_sph: torch.Tensor        # (Q,) long: the sphere of each moving-box pair
     q_radius: torch.Tensor     # (Q,)
     q_body: torch.Tensor       # (Q,) long: the box's body
@@ -325,7 +326,8 @@ class _Consts(NamedTuple):
     q_half: torch.Tensor       # (Q, 3)
     q_margin: torch.Tensor     # (Q,) sphere + box margin
     sign_mask: torch.Tensor    # (C, nv) 1 on the dofs that move the sphere,
-                               # -1 on those that move a pair's box
+                               # -1 on those that move a pair's second
+                               # sphere or box
     mu: torch.Tensor           # (C,)
     d0: torch.Tensor           # (C,) solimp
     dmax: torch.Tensor
@@ -333,6 +335,10 @@ class _Consts(NamedTuple):
     tc: torch.Tensor           # (C,) solref time constant, >= 2 dt
     dampr: torch.Tensor        # (C,) solref damping ratio
     axes: torch.Tensor         # (3, 3) the unit vectors x, y, z
+    trees: tuple               # per kinematic tree with dofs: its root body
+                               # and its dofs, (long), in dof order
+    tree_order: torch.Tensor   # (nv,) long: the dofs' places in the trees'
+                               # concatenation
 
 
 _CONSTS: dict = {}
@@ -358,17 +364,29 @@ def _consts(model: RigidModel, cs: ContactSet, chain_mask: np.ndarray,
         if not np.any(cs.sph_vs_static):
             groups = 0
         sph = np.tile(idx, groups)
+        pi, pj = cs.pair_i, cs.pair_j
         qs, qb = cs.qpair_s, cs.qpair_b
         cm = np.asarray(chain_mask, np.float64).T     # (nb, nv)
-        # pair mixing of the moving-box rows (JAX contact.py:474-477)
+        roots = _engine.tree_roots(model)
+        dof_root = [roots[b] for b in _engine.get_masks(model)[0]]
+        trees = [(r, [d for d in range(model.nv) if dof_root[d] == r])
+                 for r in sorted(set(dof_root))]
+        order = np.argsort(np.concatenate([d for _, d in trees]))
+        # pair mixing of the sphere-sphere and moving-box rows (JAX
+        # contact.py:438-441, 474-477)
         sim = np.concatenate([cs.sph_solimp[sph],
+                              (cs.sph_solimp[pi] + cs.sph_solimp[pj]) / 2,
                               (cs.sph_solimp[qs] + cs.dbox_solimp[qb]) / 2])
         srf = np.concatenate([cs.sph_solref[sph],
+                              (cs.sph_solref[pi] + cs.sph_solref[pj]) / 2,
                               (cs.sph_solref[qs] + cs.dbox_solref[qb]) / 2])
         mu = np.concatenate([cs.sph_friction[sph],
+                             np.maximum(cs.sph_friction[pi],
+                                        cs.sph_friction[pj]),
                              np.maximum(cs.sph_friction[qs],
                                         cs.dbox_friction[qb])])
         sign = np.concatenate([cm[cs.sph_body[sph]],
+                               cm[cs.sph_body[pi]] - cm[cs.sph_body[pj]],
                                cm[cs.sph_body[qs]] - cm[cs.dbox_body[qb]]])
         _CONSTS[key] = (cs, _Consts(
             sph_body_all=index(cs.sph_body), local_all=c(cs.sph_local),
@@ -378,6 +396,9 @@ def _consts(model: RigidModel, cs: ContactSet, chain_mask: np.ndarray,
             floor_margin=c(cs.sph_margin[idx] + cs.floor_margin),
             box_center=c(cs.box_center), box_half=c(cs.box_half),
             box_margin=c(cs.box_margin),
+            p_i=index(pi), p_j=index(pj), p_rj=c(cs.sph_radius[pj]),
+            p_rsum=c(cs.sph_radius[pi]) + c(cs.sph_radius[pj]),
+            p_margin=c(cs.sph_margin[pi] + cs.sph_margin[pj]),
             q_sph=index(qs), q_radius=c(cs.sph_radius[qs]),
             q_body=index(cs.dbox_body[qb]), q_local=c(cs.dbox_local[qb]),
             q_half=c(cs.dbox_half[qb]),
@@ -386,21 +407,24 @@ def _consts(model: RigidModel, cs: ContactSet, chain_mask: np.ndarray,
             d0=c(sim[:, 0]), dmax=c(sim[:, 1]), width=c(sim[:, 2]),
             tc=torch.clamp(c(srf[:, 0]), min=2.0 * model.timestep),
             dampr=c(srf[:, 1]), axes=c(np.eye(3)),
+            trees=tuple((r, index(d)) for r, d in trees),
+            tree_order=index(order),
         ))
     return _CONSTS[key][1]
 
 
 def _has_candidates(cs: ContactSet) -> bool:
     statics = np.any(cs.sph_vs_static) and (cs.has_floor or len(cs.box_center))
-    return bool(statics or len(cs.qpair_s))
+    return bool(statics or len(cs.pair_i) or len(cs.qpair_s))
 
 
 def _detect(cs: ContactSet, K: _Consts, kd):
     """Every candidate contact's ``(dist (B, C), pos (B, C, 3), normal
     (B, C, 3), margin (B, C), inside (B, C))``, in the order [floor;
     nearest box; second box] over the spheres that meet the world, then
-    the sphere-vs-moving-box pairs in the contact set's order; ``inside``:
-    the sphere's centre lies in its box."""
+    the sphere-sphere pairs and the sphere-vs-moving-box pairs in the
+    contact set's order; ``inside``: the sphere's centre lies in its box
+    (never, for a sphere-sphere pair)."""
     statics = np.any(cs.sph_vs_static) and (cs.has_floor or len(cs.box_center))
     B = kd.origin.shape[0]
     R_all = torch.stack(kd.fkr.body_rot, dim=1)                 # (B, nb, 3, 3)
@@ -452,6 +476,20 @@ def _detect(cs: ContactSet, K: _Consts, kd):
             poss.append(torch.gather(pos, 2, k3)[:, :, 0])
             normals.append(torch.gather(n, 2, k3)[:, :, 0])
             margins.append(K.margin + K.box_margin[k[..., 0]])
+    # -- sphere-sphere pairs: the normal along the centre line, from the
+    # second sphere to the first, the point midway through the overlap
+    # (JAX contact.py:423-443) ----------------------------------------------
+    if len(cs.pair_i):
+        ci, cj = c_all[:, K.p_i], c_all[:, K.p_j]                # (B, P, 3)
+        d = ci - cj
+        dn = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
+        n = d / dn[..., None]
+        dist = dn - K.p_rsum
+        insides.append(torch.zeros_like(dist, dtype=torch.bool))
+        dists.append(dist)
+        poss.append(cj + n * (K.p_rj + dist * 0.5)[..., None])
+        normals.append(n)
+        margins.append(K.p_margin.expand(B, -1))
     # -- spheres vs moving boxes, every pair, in the box frame -------------
     if len(cs.qpair_s):
         cq = c_all[:, K.q_sph]                                  # (B, Q, 3)
@@ -519,12 +557,14 @@ def contact_qfrc(model: RigidModel, cs: ContactSet, kd, qvel: torch.Tensor,
     t2 = cross(normal, t1)
 
     cdof_T = kd.cdof.transpose(-1, -2)                          # (B, 6, nv)
-
-    rel = pos - kd.origin[:, None]     # about the engine's reference point
+    # the moment arm about each tree's reference point, for its columns
+    rels = [(pos - kd.body_origin[:, root, None], dofs)
+            for root, dofs in K.trees]
 
     def jrows(direction):
-        F = torch.cat([cross(rel, direction), direction], dim=-1)  # (B, C, 6)
-        return (F @ cdof_T) * sign_mask                         # (B, C, nv)
+        J = torch.cat([torch.cat([cross(rel, direction), direction], dim=-1)
+                       @ cdof_T[:, :, dofs] for rel, dofs in rels], dim=-1)
+        return J[..., K.tree_order] * sign_mask                 # (B, C, nv)
 
     Jn, Jt1, Jt2 = jrows(normal), jrows(t1), jrows(t2)
 

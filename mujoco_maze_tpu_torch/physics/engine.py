@@ -12,14 +12,19 @@ Conventions: spatial motion vectors ``[ω; v]`` in world axes; qvel of
 free joints is (linear world, angular body-frame) matching MuJoCo's
 convention; quaternions (w, x, y, z).
 
-The spatial reference point.  The JAX engine takes spatial vectors about
-the world origin; this one takes them about each env's root-body origin
-(``KinDyn.origin``, the torso of a free-root robot).  M, the bias and
-every generalized force are the same for any reference point, but about
-the world origin the float32 products cancel terms of order m r² (r the
-robot's distance from the origin, up to ~35 in the Ant mazes) down to
-entries of order 1, so the rounding grows with r²; about the root it
-stays at the robot's own size.  The CUDA kernel works about the root too.
+The spatial reference points.  The JAX engine takes spatial vectors about
+the world origin; this one takes each kinematic tree's about the origin of
+its root body (``KinDyn.body_origin``: the robot's torso, a block's or a
+free ball's own origin), per env.  M, the bias and every generalized force
+are the same for any reference point, but about a far point the float32
+products cancel terms of order m r² (r the tree's distance from it: up to
+~35 from the world origin in the Ant mazes, or the roller and the ball of
+a SmallBilliard world ~10^3 apart after the roller has left the maze)
+down to entries of order 1, so the rounding grows with r²; about its own
+root each tree stays at its own size.  M is block diagonal over the
+trees, so no product mixes two trees' points; a contact's Jacobian takes
+the moment arm about each tree's point for that tree's columns.  The
+CUDA kernels work about the roots too.
 
 Float32 products must run in full float32: the CRB/RNE products cancel
 large anchor terms down to small mass-matrix entries.  PyTorch's float32
@@ -198,8 +203,11 @@ def fk(model: RigidModel, qpos: torch.Tensor) -> FkResult:
 
 class KinDyn(NamedTuple):
     fkr: FkResult
-    origin: torch.Tensor           # (B, 3) the spatial reference point
-    cdof: torch.Tensor             # (B, nv, 6) dof motion subspace about origin
+    origin: torch.Tensor           # (B, 3) body 0's tree's reference point
+    body_origin: torch.Tensor      # (B, nb, 3) each body's tree's reference
+                                   # point, its root body's origin
+    cdof: torch.Tensor             # (B, nv, 6) dof motion subspace about its
+                                   # tree's point
     cdof_dot: torch.Tensor         # (B, nv, 6) time derivative of cdof
     cvel: List[torch.Tensor]       # per body (B, 6) spatial velocity
     cinr: torch.Tensor             # (B, nb, 6, 6) spatial inertia per body
@@ -215,7 +223,7 @@ def kin_dyn(model: RigidModel, qpos: torch.Tensor, qvel: torch.Tensor) -> KinDyn
     zeros6 = torch.zeros(B, 6, dtype=qpos.dtype, device=qpos.device)
     cross = torch.linalg.cross
     jnt_by_body = _joints_by_body(model)
-    origin = fkr.body_pos[0]
+    origins = [fkr.body_pos[r] for r in tree_roots(model)]
 
     for i in range(model.nbody):
         p = int(model.body_parent[i])
@@ -224,7 +232,7 @@ def kin_dyn(model: RigidModel, qpos: torch.Tensor, qvel: torch.Tensor) -> KinDyn
             jt = int(model.jnt_type[j])
             vadr = int(model.jnt_dofadr[j])
             basis = fkr.jnt_axis_w[j]
-            anchor = fkr.jnt_anchor_w[j] - origin
+            anchor = fkr.jnt_anchor_w[j] - origins[i]
             if jt == FREE:
                 # linear dofs: world axes; angular dofs: body-frame axes
                 # rotating with the body (MuJoCo free-joint qvel convention)
@@ -264,10 +272,20 @@ def kin_dyn(model: RigidModel, qpos: torch.Tensor, qvel: torch.Tensor) -> KinDyn
     C = _consts(model, qpos)
     R = torch.stack(fkr.body_rot, dim=1)                         # (B, nb, 3, 3)
     Ic = R @ C.body_inertia @ R.transpose(-1, -2)
+    body_origin = torch.stack(origins, dim=1)
     cinr = make_spatial_inertia(
         C.body_mass.expand(B, model.nbody),
-        torch.stack(fkr.body_com, dim=1) - origin[:, None], Ic)
-    return KinDyn(fkr, origin, cdof, cdof_dot, cvel, cinr)
+        torch.stack(fkr.body_com, dim=1) - body_origin, Ic)
+    return KinDyn(fkr, origins[0], body_origin, cdof, cdof_dot, cvel, cinr)
+
+
+def tree_roots(model: RigidModel) -> List[int]:
+    """Per body, the root body of its kinematic tree."""
+    roots: List[int] = []
+    for i in range(model.nbody):
+        p = int(model.body_parent[i])
+        roots.append(i if p < 0 else roots[p])
+    return roots
 
 
 def _subtree_lists(model: RigidModel):
@@ -387,8 +405,8 @@ def fluid_force(model: RigidModel, kd: KinDyn, qvel: torch.Tensor) -> torch.Tens
 
     Per body: its velocities in the body frame at the CoM, the drag on the
     equivalent box of its diagonal inertia, rotated back to world axes and
-    mapped to the dofs on its root path as a spatial force about the
-    reference point ``kd.origin``."""
+    mapped to the dofs on its root path as a spatial force about its
+    tree's reference point (``kd.body_origin``)."""
     if model.viscosity == 0.0 and model.fluid_density == 0.0:
         return torch.zeros_like(qvel)
     cross = torch.linalg.cross
@@ -402,7 +420,7 @@ def fluid_force(model: RigidModel, kd: KinDyn, qvel: torch.Tensor) -> torch.Tens
             continue
         R = kd.fkr.body_rot[i]
         Rt = R.transpose(-1, -2)
-        com = kd.fkr.body_com[i] - kd.origin
+        com = kd.fkr.body_com[i] - kd.body_origin[:, i]
         w_w = kd.cvel[i][:, :3]
         v_w = kd.cvel[i][:, 3:] + cross(w_w, com)   # linear velocity at the CoM
         w_b, v_b = mat_vec(Rt, w_w), mat_vec(Rt, v_w)

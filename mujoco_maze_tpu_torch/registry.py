@@ -93,18 +93,23 @@ def make_spec(
     *,
     maze_height: float = 0.5,
     restitution_coef: float = 0.8,
+    inner_reward_scaling: Optional[float] = None,
     task_kwargs: Optional[Dict[str, Any]] = None,
     dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
 ):
     """Build the :class:`MazeEnvSpec` of a registered env ID on ``device``
-    (``None`` means CUDA; pass ``device="cpu"`` to run without a card)."""
+    (``None`` means CUDA; pass ``device="cpu"`` to run without a card).
+    ``inner_reward_scaling`` overrides the task's own scale of the robot's
+    inner reward (JAX registry.py:112-131)."""
     e = entry(env_id)
     return MazeEnvSpec(
         robot=_ROBOTS[e.robot_name](),
         maze_task=e.task_cls,
         maze_size_scaling=e.maze_size_scaling,
-        inner_reward_scaling=e.inner_reward_scaling,
+        inner_reward_scaling=(e.inner_reward_scaling
+                              if inner_reward_scaling is None
+                              else inner_reward_scaling),
         maze_height=maze_height,
         restitution_coef=restitution_coef,
         task_kwargs=task_kwargs,

@@ -1,12 +1,18 @@
 """Shared set-up of the generic engine kernel's tests: the custom robots on
 both sides (the JAX package's ``examples/custom_robot.py`` and the port's
 ``mujoco_maze_tpu_torch.examples.custom_robot``), composed with the stock
-tasks, and the ball-jointed test robot with fluid drag.
+tasks, the ball-jointed test robot with fluid drag, and the twin roller.
 
 No robot of either package has a BALL joint or runs the engine world with
 fluid drag, so the tests define one twice over, once per package: the
 Roller with a ball-jointed capsule arm hanging off its centre, in a model
-whose viscosity and fluid density are set after the env composes it.
+whose viscosity and fluid density are set after the env composes it.  Nor
+has any a sphere-sphere pair between two of its own bodies: the twin
+roller, defined the same way, is two rollers on slides of their own.
+
+The Roller's free-ball world is the SmallBilliard task at the task's own
+scaling for engine-world robots (``MAZE_SIZE_SCALING.ant``, 2.0), as a
+user composes it through the extension API.
 """
 
 import os
@@ -29,7 +35,9 @@ from mujoco_maze_tpu_torch.tasks import library as torch_library  # noqa: E402
 # the arm's fluid: a viscous, light medium (drag on the roller and the arm
 # of the order of their weight at 1 m/s)
 VISCOSITY, FLUID_DENSITY = 0.1, 10.0
-SCALE = 4.0   # maze_size_scaling of every Roller world, as the example's
+SCALE = 4.0   # maze_size_scaling of the Roller worlds, as the example's
+BALL_TASK = "GoalRewardSmallBilliard"
+BALL_SCALE = 2.0   # the SmallBilliard task's scaling for engine-world robots
 
 
 def _arm_bodies(model_mod, bodies):
@@ -66,17 +74,51 @@ class TorchArmRoller(torch_custom.RollerRobot):
         return _arm_bodies(torch_model, bodies), actuators
 
 
+def _twin_body(model_mod, torso_z, defaults):
+    """A second roller 1 m along x from the first, on slides of its own."""
+    return model_mod.Body(
+        name="twin", parent=-1, pos=(1.0, 0.0, torso_z),
+        joints=[model_mod.Joint(model_mod.SLIDE, axis=ax, name=f"twin_{n}")
+                for n, ax in (("x", (1, 0, 0)), ("y", (0, 1, 0)),
+                              ("z", (0, 0, 1)))],
+        geoms=[model_mod.Geom(gtype=0, size=(0.4,), **defaults)])
+
+
+class JaxTwinRoller(jax_custom.RollerRobot):
+    NAME = "TwinRoller"
+    nq = nv = 6
+
+    def build_bodies(self, torso_z: float = 0.75):
+        bodies, actuators = super().build_bodies(torso_z)
+        return bodies + [_twin_body(jax_model, torso_z,
+                                    self.WORLD_GEOM_DEFAULTS)], actuators
+
+
+class TorchTwinRoller(torch_custom.RollerRobot):
+    NAME = "TwinRoller"
+    nq = nv = 6
+
+    def build_bodies(self, torso_z: float = 0.75):
+        bodies, actuators = super().build_bodies(torso_z)
+        return bodies + [_twin_body(torch_model, torso_z,
+                                    self.WORLD_GEOM_DEFAULTS)], actuators
+
+
 def specs(world: str):
     """``(jax_spec, torch_spec)`` of a Roller world: ``world`` names a
-    stock task class (``"GoalRewardPush"``), or ``"Arm"`` for the
-    ball-jointed robot with fluid drag in the UMaze."""
-    task = "GoalRewardUMaze" if world == "Arm" else world
-    robots = ((JaxArmRoller(), TorchArmRoller()) if world == "Arm" else
-              (jax_custom.RollerRobot(), torch_custom.RollerRobot()))
+    stock task class (``"GoalRewardPush"``; the SmallBilliard task at
+    BALL_SCALE, the others at SCALE), ``"Arm"`` for the ball-jointed robot
+    with fluid drag in the UMaze, or ``"Twin"`` for the twin roller in the
+    UMaze."""
+    task = "GoalRewardUMaze" if world in ("Arm", "Twin") else world
+    robots = {"Arm": (JaxArmRoller, TorchArmRoller),
+              "Twin": (JaxTwinRoller, TorchTwinRoller)}.get(
+        world, (jax_custom.RollerRobot, torch_custom.RollerRobot))
+    scale = BALL_SCALE if world == BALL_TASK else SCALE
     jtask, ttask = getattr(jax_library, task), getattr(torch_library, task)
-    js = JaxSpec(robot=robots[0], maze_task=jtask, maze_size_scaling=SCALE,
+    js = JaxSpec(robot=robots[0](), maze_task=jtask, maze_size_scaling=scale,
                  inner_reward_scaling=jtask.INNER_REWARD_SCALING)
-    ts = TorchSpec(robot=robots[1], maze_task=ttask, maze_size_scaling=SCALE,
+    ts = TorchSpec(robot=robots[1](), maze_task=ttask, maze_size_scaling=scale,
                    inner_reward_scaling=ttask.INNER_REWARD_SCALING,
                    device="cpu")
     if world == "Arm":

@@ -137,8 +137,9 @@ def tspec_id(tspec):
 @pytest.mark.parametrize("env_id", ANT_IDS)
 def test_object_free_ant_ids_build_and_the_rest_are_queued(env_id):
     """The object-free and the block-world Ant IDs build (the block worlds'
-    static data: tests/test_torch_ant_blocks_static.py); the three with
-    object balls raise naming ROADMAP item 11d."""
+    static data: tests/test_torch_ant_blocks_static.py); so do the three
+    with a free object ball (their static data:
+    tests/test_torch_ball_world_static.py)."""
     if env_id in OBJECT_FREE:
         spec = tmmt.make_spec(env_id, device="cpu")
         assert (spec.nq, spec.nv, spec.obs_dim) == (15, 14, 30)
@@ -149,5 +150,6 @@ def test_object_free_ant_ids_build_and_the_rest_are_queued(env_id):
         assert spec.nq > 15 and spec.nv == spec.nq - 1
         assert spec.block_runtimes
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11d"):
-            tmmt.make_spec(env_id, device="cpu")
+        spec = tmmt.make_spec(env_id, device="cpu")
+        assert (spec.nq, spec.nv, spec.obs_dim) == (22, 20, 33)
+        assert len(spec.contact_set.pair_i) == 37

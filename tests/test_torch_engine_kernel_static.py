@@ -31,7 +31,6 @@ from mujoco_maze_tpu_torch.models.swimmer import SwimmerRobot  # noqa: E402
 from mujoco_maze_tpu_torch.ops import (engine_kernel, lane_env,  # noqa: E402
                                        make_fast_rollout, make_fast_step)
 from mujoco_maze_tpu_torch.physics.contact import candidate_count  # noqa: E402
-from mujoco_maze_tpu_torch.physics.model import Body, Geom, Joint, SLIDE  # noqa: E402
 from mujoco_maze_tpu_torch.tasks.library import GoalRewardUMaze  # noqa: E402
 
 # world -> (nq, nv, static boxes, moving boxes, falling blocks, obs offset)
@@ -206,25 +205,6 @@ def test_dispatch():
                           kind)
 
 
-class _TwinRoller(RollerRobot):
-    """Two rollers on their own slides: unrelated bodies with spheres, so
-    the contact set has a sphere-sphere pair."""
-
-    NAME = "TwinRoller"
-    nq = nv = 6
-    action_dim = 2
-
-    def build_bodies(self, torso_z: float = 0.75):
-        bodies, actuators = super().build_bodies(torso_z)
-        bodies.append(Body(
-            name="twin", parent=-1, pos=(1.0, 0.0, torso_z),
-            joints=[Joint(SLIDE, axis=ax, name=f"twin_{n}")
-                    for n, ax in (("x", (1, 0, 0)), ("y", (0, 1, 0)),
-                                  ("z", (0, 0, 1)))],
-            geoms=[Geom(gtype=0, size=(0.4,), **self.WORLD_GEOM_DEFAULTS)]))
-        return bodies, actuators
-
-
 class _Eel(SwimmerRobot):
     """Neither a known robot nor an engine-world robot."""
 
@@ -232,10 +212,26 @@ class _Eel(SwimmerRobot):
 
 
 def test_refusals(monkeypatch):
-    twin = MazeEnvSpec(_TwinRoller(), GoalRewardUMaze, 4.0, device="cpu")
+    """The twin roller (two rollers on slides of their own: unrelated
+    bodies with spheres) lowers its one sphere-sphere pair as the JAX
+    package does; the generic kernel refuses what it does not serve."""
+    jtwin, twin = specs("Twin")
     assert len(twin.contact_set.pair_i) == 1
-    with pytest.raises(NotImplementedError, match="11d"):
-        engine_kernel.spec_from_env(twin)
+    es, ks = ep.spec_from_env(jtwin), engine_kernel.spec_from_env(twin)
+    low = convert.lowered_spec(ks)
+    assert ks.offsets["spair"][1] == 1 and ks.n_cand == 7
+    lw = es.lw
+    for name in ("pair_i", "pair_j", "sph_body"):
+        np.testing.assert_array_equal(low[f"lw.{name}"],
+                                      np.asarray(getattr(lw, name), np.int64))
+    i, j = np.asarray(lw.pair_i), np.asarray(lw.pair_j)
+    np.testing.assert_array_equal(low["spair.margin"],
+                                  f32(lw.sph_margin[i] + lw.sph_margin[j]))
+    np.testing.assert_array_equal(low["spair.solimp"],
+                                  f32((lw.sph_solimp[i] + lw.sph_solimp[j]) / 2))
+    for name in ("head_qadr", "head_base", "nq", "nv", "nu"):
+        assert tuple(np.atleast_1d(low[name])) == tuple(
+            np.atleast_1d(getattr(es, name))), name
     eel = MazeEnvSpec(_Eel(), GoalRewardUMaze, 4.0, device="cpu")
     with pytest.raises(NotImplementedError, match="neither a known robot"):
         BatchedMazeEnv(eel, 2)

@@ -102,7 +102,8 @@ print("LOADED", loaded, shapes)
 def test_custom_robot_runs_without_jax_or_gymnasium():
     """The extension API's example, the generic engine kernel's module and
     its lowering step, reset and lower with JAX, gymnasium and the JAX
-    package blocked; the example runs as a module on the CPU."""
+    package blocked, in a free-ball world too; the example runs as a
+    module on the CPU."""
     proc = _run(_BLOCKED_IMPORTS + """
 import torch
 from mujoco_maze_tpu_torch import convert
@@ -115,13 +116,23 @@ state = env.step(state, env.random_policy()(obs, gen)).state
 ks = make_fast_step(env).ks
 convert.lowered_spec(ks)
 engine_kernel.sphere_robot_states(env.spec, 4, 0)
+from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+from mujoco_maze_tpu_torch.tasks.library import GoalRewardSmallBilliard
+balls = BatchedMazeEnv(MazeEnvSpec(custom_robot.RollerRobot(),
+                                   GoalRewardSmallBilliard, 2.0,
+                                   device="cpu"), 4)
+state, ball_obs = balls.reset(0)
+balls.step(state, balls.random_policy()(ball_obs, gen))
+engine_kernel.ball_states(balls.spec, 4, 0)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "gymnasium",
                                          "mujoco_maze_tpu"))
-print("LOADED", loaded, type(ks).__name__, tuple(obs.shape))
+print("LOADED", loaded, type(ks).__name__, tuple(obs.shape),
+      tuple(ball_obs.shape))
 """)
     assert proc.returncode == 0, proc.stderr
-    assert "LOADED [] EngineKernelSpec (4, 7)" in proc.stdout
+    assert "LOADED [] EngineKernelSpec (4, 7) (4, 10)" in proc.stdout
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORTS + """
 import runpy, sys

@@ -2,9 +2,9 @@
 
 For every one of the 145 registered env IDs: the registry entry, the maze
 structure, the wall soups and the lowered goal arrays are equal on both
-sides, and the port's ``make_spec`` either builds the spec (every Point
-maze; Ant, Swimmer and Reacher mazes without object balls) or raises
-``NotImplementedError`` naming the ROADMAP item.
+sides, and the port's ``make_spec`` builds the spec of every one.  The
+override of the inner reward's scale reaches the reward as in the JAX
+package.
 """
 
 import dataclasses
@@ -74,8 +74,10 @@ def test_static_world_matches(env_id):
 
 @pytest.mark.parametrize("env_id", IDS)
 def test_make_spec_covers_the_object_free_point_mazes(env_id):
-    """The Point mazes (the object worlds too), and the Ant, Swimmer and
-    Reacher mazes without object balls build; every other ID raises."""
+    """Every ID builds: the Point mazes (the object worlds too), the Ant
+    mazes (with blocks, or with a free object ball), and the Swimmer and
+    Reacher mazes (no stock one has an object ball); nothing else is
+    registered."""
     je, _, _, _, js, _ = _structures(env_id)
     if je.robot_name == "Point":
         spec = mmt.make_spec(env_id, device="cpu")
@@ -91,13 +93,16 @@ def test_make_spec_covers_the_object_free_point_mazes(env_id):
                          for b in js.movable_blocks))
         assert (spec.nq, spec.nv) == (3 + n_world,) * 2
         assert spec.obs_dim == 7 + 3 * n_obs
-    elif je.robot_name == "Ant" and not js.object_balls:
+    elif je.robot_name == "Ant":
         spec = mmt.make_spec(env_id, device="cpu")
         np.testing.assert_array_equal(
             spec.contact_set.box_center,
             np.concatenate([js.block_pos, js.platform_pos]).reshape(-1, 3))
-        n_obs = len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0
+        n_obs = ((len(js.object_balls) if je.task_cls.OBSERVE_BALLS else 0)
+                 + (len(js.movable_blocks) if je.task_cls.OBSERVE_BLOCKS else 0))
         assert spec.obs_dim == 30 + 3 * n_obs
+        assert spec.nq == 15 + 7 * len(js.object_balls) + sum(
+            b.move_x + b.move_y + b.move_z for b in js.movable_blocks)
     elif je.robot_name in ("Swimmer", "Reacher") and not js.object_balls:
         spec = mmt.make_spec(env_id, device="cpu")
         n_robot = 5 if je.robot_name == "Swimmer" else 4
@@ -106,5 +111,42 @@ def test_make_spec_covers_the_object_free_point_mazes(env_id):
         assert (spec.nq, spec.nv) == (n_robot + n_world,) * 2
         assert spec.obs_dim == 2 * n_robot + 1 + 3 * n_obs
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-            mmt.make_spec(env_id, device="cpu")
+        pytest.fail(f"{env_id}: no stock Swimmer or Reacher maze has an "
+                    "object ball")
+
+
+def test_inner_reward_scaling_override():
+    """``make_spec(..., inner_reward_scaling=...)`` takes the override and
+    the reward carries it, as JAX registry.py:112-131 does: AntUMaze-v0
+    at 1.0 (the task's own is 0.01), the port's ``spec.step`` against the
+    JAX ``spec.step`` on one state and one set of actions, at the Ant
+    step's bounds (tests/test_torch_ant_step.py: reward 1e-4)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import mujoco_maze_tpu as jmmt
+    from mujoco_maze_tpu_torch import convert
+
+    B = 4
+    jspec = jmmt.make_spec("AntUMaze-v0", inner_reward_scaling=1.0)
+    tspec = mmt.make_spec("AntUMaze-v0", inner_reward_scaling=1.0,
+                          device="cpu")
+    plain = mmt.make_spec("AntUMaze-v0", device="cpu")
+    assert (tspec.inner_reward_scaling, plain.inner_reward_scaling) == (1.0, 0.01)
+    jst, _ = jax.vmap(jspec.reset)(jax.random.split(jax.random.PRNGKey(1), B))
+    act = np.random.RandomState(1).uniform(-30, 30, (B, 8)).astype(np.float32)
+    jres = jax.jit(jax.vmap(jspec.step))(jst, jnp.asarray(act))
+    tst = convert.from_jax_state(jst.qpos, jst.qvel, jst.t, device="cpu")
+    tres = tspec.step(tst, torch.as_tensor(act))
+    np.testing.assert_allclose(tres.reward.numpy(), np.asarray(jres.reward),
+                               rtol=0, atol=1e-4)
+    # the override scales the inner reward alone
+    base = plain.step(tst, torch.as_tensor(act))
+    inner = (tres.info["reward_forward"] + tres.info["reward_ctrl"]).numpy()
+    np.testing.assert_allclose(tres.reward.numpy() - base.reward.numpy(),
+                               0.99 * inner, rtol=0, atol=1e-4)
+    assert np.abs(inner).max() > 1e-2
+    batched = mmt.make_batched("AntUMaze-v0", 2, device="cpu",
+                               inner_reward_scaling=1.0)
+    assert batched.spec.inner_reward_scaling == 1.0
