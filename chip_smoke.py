@@ -6,9 +6,10 @@ Builds the CUDA kernels from ``mujoco_maze_tpu_torch/csrc`` (one ``nvcc``
 per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
 ``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
-AntFall-v0, SwimmerUMaze-v0 and PointPush-v0, the custom robot of
-``make_roller_umaze(4096)``, and the same robot in the SmallBilliard task
-with its free object ball, each stepped through the public API,
+AntFall-v0, SwimmerUMaze-v0, PointPush-v0 and AntSmallBilliard-v0, the
+custom robot of ``make_roller_umaze(4096)``, and the same robot in the
+SmallBilliard task with its free object ball, each stepped through the
+public API,
 ``rollout_metrics``, and the fused random-policy rollout — counts the
 kernel launches of each path, and times them with CUDA events; and
 measures the card's fp32 peak with its own kernel.
@@ -135,8 +136,41 @@ Phases (each fails the run on its own; nothing is caught):
     ``python3 chip_smoke.py --engine-faults`` instead plants faults into a
     copy of the kernel's source and checks that phase 20 or 22 fails on
     each);
-24. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+24. the Ant kernel's ball instantiation (``ant_balls_step``) against its
+    plain version (the batched engine) on AntSmallBilliard-v0, -v1 and
+    -v2 (three reward heads) at 4096 envs, teacher-forced for 16 steps
+    from ``ant_kernel.ball_states`` (legs pressed into the ball, several
+    spheres of one capsule at once; the ball against walls and in
+    corners, spinning fast, on the goal or at its threshold; the ant
+    50-80 m from the ball; t spread over the episode), at phase 9's
+    bounds and rule, with the count of bit-exact env-steps and the mean
+    active sphere-ball pairs per forward evaluation;
+25. the ball rollout kernel (``ant_balls_rollout``) against its plain
+    version on AntSmallBilliard-v0 and -v1, as phase 10: the ball of every
+    env reset on the last step back at qpos0, at rest;
+26. the ball-world main path, AntSmallBilliard-v0 at 4096 envs through the
+    step API and ``rollout_metrics`` (1000 steps each from the same seeds)
+    and the fused 1000-step rollout, counted; checked over a third pass
+    (no NaN; at every step at least 99 % of the balls' bottoms within
+    (-0.05, 0.5) of the floor and none through it; some ball struck;
+    equal episode counts on the same seeds) and against the CPU path on a
+    small input; the step API's device idle share; ``ant_balls_step``'s
+    time per launch by threads per block, on the device, its bound (the
+    generic kernel's need-based count) and its plain version's time,
+    beside the generic engine kernel's on the same states;
+    ``ant_balls_rollout``'s.  Phases 24-26 run in a process of their own
+    (``python3 chip_smoke.py --ant-balls``, which also runs alone);
+27. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
+
+Outside the default run: ``python3 chip_smoke.py --sweep [--out PATH]``
+builds every one of the 145 registered IDs at 256 envs on the card,
+launches its step kernel once from its family's contact-rich states and
+holds it against its plain version at its family's phase rule, one JSON
+line an ID, and writes ``artifacts/PORT_REGISTRY_SWEEP.json`` (or PATH);
+``python3 chip_smoke.py --ant-parent-probe DIR`` runs the Ant kernels'
+object-free and block-world instantiations of the checkout at DIR and of
+this one on the same inputs and requires every output equal to the bit.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 torch, numpy and the port only: no JAX, no gymnasium, nothing of the JAX
@@ -208,6 +242,19 @@ BLOWN_TRAVEL = 1.0
 # reward bound there passes only where the two versions' traces show such
 # a switch in one version only, in at most KNIFE_SHARE of the env-steps.
 KNIFE_SHARE = 1e-3
+# In the ball worlds an Ant leg pressed a few cm into the 1.34 kg ball (its
+# segments weigh ~0.03 kg) blows up under the engine's explicit RK4 in
+# some envs, the JAX package's XLA step as the port's (ant_kernel
+# ball_states, ROADMAP queue 3); such envs are held to blowing up in both
+# versions, as in the block worlds, in at most BALL_BLOWN_SHARE of them.
+BALL_BLOWN_SHARE = 1e-2
+# A ball squeezed between a leg and the floor or a wall can make the step
+# ill-conditioned: the plain version's own result moves by up to ~7e-2 in
+# qpos when its start moves by one float32 ulp.  In the ball worlds an
+# env-step beyond the qpos or reward bound whose traces agree passes when
+# the plain version's own spread covers it, as phase 20 holds the generic
+# kernel (ant_rounding_ratio), counted with the knife edges in
+# KNIFE_SHARE.
 # the Swimmer and the Reacher: teacher-forced step checks (the dist and the
 # goal heads, two links, a world dof with the z head), the rollout check
 # with and without world dofs, one main path
@@ -356,7 +403,8 @@ def block_coverage(spec, qpos: torch.Tensor):
 def blown(spec, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Envs whose state has blown up: non-finite, |qvel| > BLOWN_QVEL, or
     a block slide more than BLOWN_TRAVEL beyond its travel range (the
-    block has left the maze)."""
+    block has left the maze).  A free ball has no travel range: a struck
+    ball that flies out of the maze has not blown up."""
     out = (~torch.isfinite(q).all(dim=1) | ~torch.isfinite(v).all(dim=1)
            | (v.abs().max(dim=1).values > BLOWN_QVEL))
     model = spec.dynamic_model
@@ -389,6 +437,14 @@ def dump_divergence(env_id: str, phase: str, ks, kstep, saved,
     kinds = ["floor", "box pick 1", "box pick 2"] + [
         f"block {b}" for b in range(ks.n_blk)]
     rows = {0: "none", 1: "platform", 2: "limit", 3: "both"}
+    ball_bit = (3 + ks.n_blk) * S
+
+    def named(bit):
+        if bit < ball_bit:
+            return f"sphere {bit % S} vs {kinds[bit // S]}"
+        j = bit - ball_bit
+        return (f"the ball vs {kinds[j]}" if j < 3
+                else f"sphere {j - 3} vs the ball")
     for e in [int(x) for x in torch.argsort(worst, descending=True)[:2]]:
         if float(worst[e]) <= 1e-4:
             continue
@@ -443,15 +499,13 @@ def dump_divergence(env_id: str, phase: str, ks, kstep, saved,
                                      ("tangent frame off x", xk, xp)):
             for bit in sorted((flag_k ^ flag_p) & both):
                 who = "kernel" if bit in flag_k else "plain"
-                parts.append(f"{name} in the {who} only: sphere {bit % S} vs "
-                             f"{kinds[bit // S]}")
+                parts.append(f"{name} in the {who} only: {named(bit)}")
         for name, only in (("kernel only", ck - cp), ("plain only", cp - ck)):
             for bit in sorted(only):
                 c = bits.index(bit) if bit in bits else None
                 gap = (f"{float(info['gap'][0, ev, c]):.3g}" if c is not None
                        else "n/a")
-                parts.append(f"{name}: sphere {bit % S} vs {kinds[bit // S]} "
-                             f"(plain dist - margin {gap})")
+                parts.append(f"{name}: {named(bit)} (plain dist - margin {gap})")
         for name, only in (("kernel only", lk - lp), ("plain only", lp - lk)):
             for d in sorted(only):
                 g = float(info["lim_gap"][0, ev, lim_dof.index(d)])
@@ -465,17 +519,26 @@ def dump_divergence(env_id: str, phase: str, ks, kstep, saved,
 
 
 def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
-                   min_steps: int, max_steps: int):
-    """Phases 5 and 9 for one ID: the step kernel vs its plain version,
+                   min_steps: int, max_steps: int, sweep: bool = False):
+    """Phases 5, 9 and 24 for one ID: the step kernel vs its plain version,
     teacher-forced from the public step API's trajectory, from states
     that touch the world (``contact_states``; in the block worlds
     ``block_states``: legs on block faces, blocks at and beyond their
-    travel limits, the Fall block perched or over the chasm)."""
+    travel limits, the Fall block perched or over the chasm; in the ball
+    worlds ``ball_states``: legs pressed into the ball, the ball against
+    walls and in corners, spinning, at the goal threshold, the ant 50-80 m
+    from it).  With ``sweep`` (the registry sweep) the states are compared
+    as drawn and the envs need not cover anything.  Returns the worst
+    qpos, qvel and reward errors (a knife edge's left out), the knife
+    edges and the largest of the three."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EnvState
     from mujoco_maze_tpu_torch.ops import make_fast_step
-    from mujoco_maze_tpu_torch.ops.ant_kernel import (active_trace,
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (MAX_SPHERES,
+                                                      active_trace,
                                                       ant_step_plain,
+                                                      ball_census,
+                                                      ball_states,
                                                       block_census,
                                                       block_states,
                                                       contact_census,
@@ -484,9 +547,12 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
     env = mmt.make_batched(env_id, B)
     spec = env.spec
     blocks = bool(spec.block_runtimes)
+    balls = bool(spec.ball_runtimes)
+    objects = blocks or balls
     kstep = make_fast_step(env)
     ks = kstep.ks
-    make_states = block_states if blocks else contact_states
+    make_states = (ball_states if balls else block_states if blocks
+                   else contact_states)
     q, v, t = (torch.as_tensor(x, device="cuda")
                for x in make_states(spec, B, seed))
     st = EnvState(qpos=q, qvel=v, t=t)
@@ -494,8 +560,9 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     policy = env.random_policy()
     # the object-free states settle through the public API first; the
-    # block worlds' start as drawn, at and beyond the travel limits
-    for _ in range(0 if blocks else ANT_SETTLE):
+    # block and ball worlds' start as drawn (blocks at and beyond their
+    # travel limits, legs pressed into the ball)
+    for _ in range(0 if objects or sweep else ANT_SETTLE):
         res = env.step(st, policy(obs, gen))
         st, obs = res.state, res.obs
     torch.cuda.synchronize()
@@ -507,10 +574,21 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
     errs = {"qpos": [], "qvel": [], "reward": []}
     t_diff = term_mis = knife_mis = knife_envs = resets = blow_mis = 0
     knife_steps, knife_max, knife_rew = 0, 0.0, 0.0
-    most_active = 0
+    cond_steps, cond_max, cond_ratio = 0, 0.0, 0.0
+    most_active = exact = 0
+    pair_rows = 0.0
     blown_envs = torch.zeros(B, dtype=torch.bool, device="cuda")
     seen = {name: torch.zeros(B, dtype=torch.bool, device="cuda")
-            for name in ("floor", "wall", "block", "limit", "perched", "chasm")}
+            for name in ("floor", "wall", "block", "limit", "perched", "chasm")
+            + (("ball on the floor", "ball on a wall", "legs on the ball",
+                "several spheres on the ball", "ant >= 50 m from the ball")
+               if balls else ())}
+    S = ks.offsets["sph"][1]
+    pair0 = (3 + ks.n_blk) * S + 3      # the first sphere-ball pair's bit
+    candidates = S * (3 + ks.n_blk) + ks.n_ball * (3 + S)
+    # the kernel's compacted list: kMaxCon of its instantiation
+    room = (MAX_SPHERES * (6 if ks.n_w else 3)
+            + ks.n_ball * (3 + MAX_SPHERES))
     active = 0
     saved, raw_q = [], []
     for _ in range(steps):
@@ -522,7 +600,14 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
         words = out[6][..., :8].to(torch.int64) & 0xFFFFFFFF
         per_eval = sum((words >> i) & 1 for i in range(32)).sum(dim=-1)
         most_active = max(most_active, int(per_eval.max()))
+        if balls:
+            bits = ((words[..., None] >> torch.arange(32, device="cuda")) & 1
+                    ).flatten(-2)
+            pair_rows += float(bits[..., pair0:pair0 + S].sum()) / (
+                bits.shape[1] * B)
         qp, vp, tp, rp, mp = ant_step_plain(ks, st.qpos, st.qvel, st.t, act)
+        exact += int(((qk == qp).all(dim=1) & (vk == vp).all(dim=1)
+                      & (rk == rp) & (mk == mp)).sum())
         # an env whose state blows up (the engine's explicit RK4 with a
         # 0.2 g block driven past its travel limit) is compared by that
         # alone: both versions must blow up in the same env-steps
@@ -534,15 +619,17 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
         eq = torch.where(ok, (qk - qp).abs().max(dim=1).values, zero)
         er = torch.where(ok, (rk - rp).abs(), zero)
         raw_q.append(eq.clone())
-        if blocks:
-            # in the block worlds an env-step beyond the qpos or reward
-            # bound is held to be a knife edge: one version alone switches
-            # a contact, a limit, the support's rows, a sphere's side of a
-            # box face or a tangent frame at some forward evaluation
+        if objects:
+            # in the block and ball worlds an env-step beyond the qpos or
+            # reward bound is held to be a knife edge: one version alone
+            # switches a contact, a limit, the support's rows, a sphere's
+            # side of a box face or a tangent frame at some forward
+            # evaluation, as the two versions' traces name it
             over = torch.nonzero((eq > ANT_QPOS_TOL) | (er > ANT_REWARD_TOL))[:, 0]
             if len(over):
                 tr_p = active_trace(ks, st.qpos[over], st.qvel[over], act[over])
-                knife = over[(out[6][over] != tr_p).flatten(1).any(dim=1)]
+                switch = (out[6][over] != tr_p).flatten(1).any(dim=1)
+                knife = over[switch]
                 knife_steps += len(knife)
                 knife_max = max(knife_max, float(eq[knife].max())
                                 if len(knife) else 0.0)
@@ -550,6 +637,17 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
                                 if len(knife) else 0.0)
                 eq[knife] = 0.0
                 er[knife] = 0.0
+                rest = over[~switch]
+                if balls and len(rest):
+                    ratio = ant_rounding_ratio(ks, (qk, rk), (qp, rp), st.qpos,
+                                               st.qvel, st.t, act, rest)
+                    cond = rest[ratio <= ROUNDING_FACTOR]
+                    cond_steps += len(cond)
+                    cond_max = max([cond_max] + [float(x) for x in eq[cond]])
+                    cond_ratio = max([cond_ratio]
+                                     + [float(x) for x in ratio])
+                    eq[cond] = 0.0
+                    er[cond] = 0.0
         errs["qpos"].append(eq)
         errs["qvel"].append(torch.where(ok, (vk - vp).abs().max(dim=1).values, zero))
         errs["reward"].append(er)
@@ -567,6 +665,14 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
             seen["limit"] |= lim
             seen["perched"] |= perched
             seen["chasm"] |= chasm
+        if balls:
+            b_floor, b_walls, b_pairs = ball_census(ks, st.qpos)
+            seen["ball on the floor"] |= b_floor > 0
+            seen["ball on a wall"] |= b_walls > 0
+            seen["legs on the ball"] |= b_pairs > 0
+            seen["several spheres on the ball"] |= b_pairs > 1
+            seen["ant >= 50 m from the ball"] |= (
+                st.qpos[:, :2] - st.qpos[:, 15:17]).norm(dim=1) >= 50.0
         active += int(ak.sum())
         res = env.step(st, act)
         resets += int((res.terminated | res.truncated).sum())
@@ -590,41 +696,93 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
         f"(tol 0) and {knife_mis} at the {knife_envs} knife-edge env-steps; "
         f"envs seen {cover}; episodes ended {resets}; active contacts per "
         f"env-step {active / (steps * B):.4g}, at most {most_active} in one "
-        f"forward evaluation (of {ks.offsets['sph'][1] * (3 + ks.n_blk)} "
-        f"candidates; the kernel's list holds {40 * (6 if ks.n_w else 3)}); "
-        f"envs whose plain state blew up "
+        f"forward evaluation (of {candidates} candidates; the kernel's list "
+        f"holds {room}); envs whose plain state blew up "
         f"(non-finite, |qvel| > {BLOWN_QVEL:g} or a block {BLOWN_TRAVEL:g} past "
-        f"its travel) {int(blown_envs.sum())}, "
-        f"env-steps where only one version did {blow_mis} (tol 0)"
+        f"its travel) {int(blown_envs.sum())}"
+        + (f" (tol {int(BALL_BLOWN_SHARE * B)})" if balls else "")
+        + f", env-steps where only one version did {blow_mis} (tol 0)"
         + (f"; env-steps beyond the qpos or reward bound at a knife edge (a "
            f"switch in one version only) {knife_steps} (tol "
            f"{int(KNIFE_SHARE * steps * B)}), their max qpos {knife_max:.3g}, "
-           f"reward {knife_rew:.3g}" if blocks else ""))
+           f"reward {knife_rew:.3g}" if objects else "")
+        + (f"; env-steps beyond it where the traces agree but the plain "
+           f"version's own float32 spread covers the difference "
+           f"{cond_steps} (with the knife edges, tol "
+           f"{int(KNIFE_SHARE * steps * B)}), their max qpos {cond_max:.3g}, "
+           f"the largest (|kernel - plain| - bound) / spread of those "
+           f"checked {cond_ratio:.3g} (tol {ROUNDING_FACTOR:g}); env-steps "
+           f"bit-exact (qpos, qvel, reward, terminated) {exact} of "
+           f"{steps * B}; active sphere-ball pairs per forward evaluation "
+           f"{pair_rows / steps:.4g}" if balls else ""))
     dump_divergence(env_id, phase, ks, kstep, saved, torch.stack(raw_q))
     tols = {"qpos": ANT_QPOS_TOL, "reward": ANT_REWARD_TOL}
     if (any(not stats[k][1] <= tol for k, tol in tols.items())  # NaN fails
             or not qv_quant <= ANT_QVEL_TOL or not stats["qvel"][1] < 1e3
             or t_diff or term_mis or blow_mis
-            or knife_steps > KNIFE_SHARE * steps * B
-            or (not blocks and int(blown_envs.sum()))):
+            or knife_steps + cond_steps > KNIFE_SHARE * steps * B
+            or (not objects and int(blown_envs.sum()))
+            or (balls and int(blown_envs.sum()) > BALL_BLOWN_SHARE * B)):
         raise SystemExit(f"ant step kernel disagrees with its plain version on {env_id}")
-    if resets == 0 or (not blocks and (
-            cover["wall"] == 0 or cover["floor"] < B // 2)):
+    if not sweep and (resets == 0 or (not objects and (
+            cover["wall"] == 0 or cover["floor"] < B // 2))):
         raise SystemExit(f"{env_id}: expected feet on the floor, walls and resets")
-    if blocks and (cover["block"] < B // 10 or cover["limit"] < B // 10 or (
-            spec._falling_support
-            and (cover["perched"] < B // 4 or cover["chasm"] < B // 10))):
+    if not sweep and blocks and (
+            cover["block"] < B // 10 or cover["limit"] < B // 10 or (
+                spec._falling_support
+                and (cover["perched"] < B // 4 or cover["chasm"] < B // 10))):
         raise SystemExit(f"{env_id}: expected legs on blocks, blocks at their "
                          "limits, and perched and fallen Fall blocks")
-    return max(stats[k][1] for k in stats)
+    if not sweep and balls and (
+            cover["ball on the floor"] < B // 2
+            or cover["ball on a wall"] < B // 10
+            or cover["legs on the ball"] < B // 10
+            or cover["several spheres on the ball"] < B // 20
+            or cover["ant >= 50 m from the ball"] < B // 10):
+        raise SystemExit(f"{env_id}: expected the ball on the floor and on "
+                         "walls, legs pressed into it, and ants far from it")
+    return {"qpos": stats["qpos"][1], "qvel": stats["qvel"][1],
+            "qvel_quantile": qv_quant, "reward": stats["reward"][1],
+            "knife_edges": knife_steps, "conditioned": cond_steps,
+            "bit_exact": exact,
+            "env_steps": steps * B,
+            "max": max(stats[k][1] for k in stats)}
+
+
+def ant_rounding_ratio(ks, kern, plain, q, v, t, a, envs) -> torch.Tensor:
+    """Per env-step of ``envs``: the largest (|kernel - plain| - bound) /
+    spread over its qpos and reward coordinates, each coordinate's spread
+    its largest move in the plain version over ROUNDING_SAMPLES starts with
+    every coordinate of qpos and qvel moved by a relative 2^-23 (phase 20's
+    rule, about the float32 plain version).  ``kern`` and ``plain``: the
+    two versions' (qpos, reward) of the step."""
+    from mujoco_maze_tpu_torch.ops.ant_kernel import ant_step_plain
+
+    n, m = len(envs), ROUNDING_SAMPLES
+    q, v, t, a = q[envs], v[envs], t[envs], a[envs]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nudge = lambda x: x * (1 + 2.0 ** -23 * torch.randint(
+        -1, 2, x.shape, generator=gen, device="cuda"))
+    out = ant_step_plain(ks, torch.cat([nudge(q) for _ in range(m)]),
+                         torch.cat([nudge(v) for _ in range(m)]),
+                         t.repeat(m), a.repeat(m, 1))
+    ratio = torch.zeros(n, device="cuda")
+    for k, i, tol in ((0, 0, ANT_QPOS_TOL), (1, 3, ANT_REWARD_TOL)):
+        x = plain[k][envs].reshape(n, -1)
+        spread = (out[i].reshape(m, n, -1) - x).abs().max(dim=0).values
+        over = (kern[k][envs].reshape(n, -1) - x).abs() - tol
+        ratio = torch.maximum(ratio, (over / spread.clamp_min(1e-30)).max(dim=1)
+                              .values)
+    return ratio
 
 
 def ant_rollout_check(env_id: str, seed: int, phase: str):
-    """Phases 6 and 10 for one ID: the rollout kernel vs its plain version
-    over ANT_ROLL_STEPS steps from t spread over the window's end, from
-    the env's own reset states: every env resets; the reset draws of the
-    envs reset on the last step are the plain version's to the bit, and
-    their world dofs are back at qpos0, at rest."""
+    """Phases 6, 10 and 25 for one ID: the rollout kernel vs its plain
+    version over ANT_ROLL_STEPS steps from t spread over the window's end,
+    from the env's own reset states: every env resets; the reset draws of
+    the envs reset on the last step are the plain version's to the bit,
+    and their world dofs (a ball's position and quaternion among them)
+    are back at qpos0, at rest."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
     from mujoco_maze_tpu_torch.ops import make_fast_rollout
@@ -634,7 +792,7 @@ def ant_rollout_check(env_id: str, seed: int, phase: str):
 
     env = mmt.make_batched(env_id, B)
     roll = make_fast_rollout(env, ANT_ROLL_STEPS)
-    if env.spec.block_runtimes:
+    if env.spec.block_runtimes or env.spec.ball_runtimes:
         st, _ = env.reset(seed)
         q, v = st.qpos, st.qvel
     else:
@@ -648,7 +806,7 @@ def ant_rollout_check(env_id: str, seed: int, phase: str):
     # envs that truncate on the last step end on that step's reset draw
     last = (t0 == EPISODE_LIMIT - ANT_ROLL_STEPS) & (plain[2] == 0) & (kern[2] == 0)
     q_r, v_r = rollout_reset(idx.to(torch.int64), ANT_ROLL_STEPS - 1, seed,
-                             env.spec.init_qpos)
+                             env.spec.init_qpos, env.spec.nv)
     draw_err = max(float((kern[0][last] - q_r[last]).abs().max()),
                    float((kern[1][last] - v_r[last]).abs().max()),
                    float((plain[0][last] - q_r[last]).abs().max()),
@@ -744,7 +902,7 @@ def ant_bytes(ks, per_launch: str) -> int:
     """Bytes per env of one launch: the step reads qpos, qvel, t and the
     actions and writes qpos, qvel, t, reward and terminated; a rollout
     reads qpos, qvel, t and writes them with reward sums and counts."""
-    nq, nv = 15 + ks.n_w, 14 + ks.n_w
+    nq, nv = 15 + ks.n_w + 7 * ks.n_ball, 14 + ks.n_w + 6 * ks.n_ball
     io = 4 * (nq + nv + 1)
     return 2 * io + 32 + 4 + 1 if per_launch == "step" else 2 * io + 8
 
@@ -1511,13 +1669,16 @@ def obj_knife_tail(env_id, ks, qpos, qvel, act, kbits, over):
     return over[differ], notes
 
 
-def obj_step_check(env_id: str, seed: int):
+def obj_step_check(env_id: str, seed: int, phase: str = "17",
+                   steps: int = OBJ_CHECK_STEPS, sweep: bool = False):
     """Phase 17 for one ID: the object-world step kernel vs its plain
     version at B envs, teacher-forced along the public step API's
     trajectory from ``point_kernel.object_states`` (the robot within reach
     of a ball or a block, moving at it; blocks at and inside their travel
     limits; the Fall block perched, at the floor or in between; t spread
-    over the episode)."""
+    over the episode).  With ``sweep`` (the registry sweep) the envs need
+    not cover anything.  Returns the worst object qpos and qvel errors (a
+    knife edge's left out), the knife edges and the larger error."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EnvState
     from mujoco_maze_tpu_torch.ops import make_fast_step
@@ -1542,7 +1703,7 @@ def obj_step_check(env_id: str, seed: int):
     touching = torch.zeros(B, dtype=torch.bool, device="cuda")
     floor_rows = 4 * len(ks.object_spec.balls)
     resets = 0
-    for _ in range(OBJ_CHECK_STEPS):
+    for _ in range(steps):
         act = policy(obs, gen)
         qk, vk, tk, rk, mk, tr = kstep(st.qpos, st.qvel, st.t, act, trace=True)
         qp, vp, tp, rp, mp = point_step_plain(ks, st.qpos, st.qvel, st.t, act)
@@ -1575,12 +1736,12 @@ def obj_step_check(env_id: str, seed: int):
         resets += int((res.terminated | res.truncated).sum())
         st, obs = res.state, res.obs
     eq_all, ev_all = torch.stack(eq_all), torch.stack(ev_all)
-    n = OBJ_CHECK_STEPS * B
+    n = steps * B
     cover = {"touching an object": int(touching.sum()),
              "a block at a travel limit": int(lim.sum()),
              "Fall block perched": int(perched.sum()),
              "Fall block at the floor": int(floor.sum())}
-    log(f"phase 17: {env_id} object step kernel vs plain, {OBJ_CHECK_STEPS} "
+    log(f"phase {phase}: {env_id} object step kernel vs plain, {steps} "
         f"teacher-forced steps x {B} envs (R = {ks.max_rows} candidate rows): "
         f"env-steps bit-exact (qpos, qvel, reward, terminated) {exact} of {n}; "
         f"robot dofs off {robot_off} (tol 0), t off {t_off} (tol 0); object "
@@ -1598,13 +1759,15 @@ def obj_step_check(env_id: str, seed: int):
                          f"on {env_id}")
     blocky = bool(ks.object_spec.blocks)
     falling = any(b.dof_z >= 0 for b in ks.object_spec.blocks)
-    if (cover["touching an object"] < B // 4
+    if not sweep and (cover["touching an object"] < B // 4
             or (blocky and cover["a block at a travel limit"] < B // 10)
             or (falling and (cover["Fall block perched"] < B // 10
                              or cover["Fall block at the floor"] < B // 10))):
         raise SystemExit(f"{env_id}: expected the robot on the objects, blocks "
                          "at their limits, and perched and fallen Fall blocks")
-    return max(float(eq_all.max()), float(ev_all.max()))
+    return {"qpos": float(eq_all.max()), "qvel": float(ev_all.max()),
+            "knife_edges": knife_steps, "bit_exact": exact, "env_steps": n,
+            "max": max(float(eq_all.max()), float(ev_all.max()))}
 
 
 def obj_rollout_check(env_id: str, seed: int):
@@ -1909,7 +2072,7 @@ def point_objects_phases() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load()
-    step_err = max(obj_step_check(env_id, 91 + k)
+    step_err = max(obj_step_check(env_id, 91 + k)["max"]
                    for k, env_id in enumerate(OBJ_IDS))
     roll_err = max(obj_rollout_check(env_id, 97 + k)
                    for k, env_id in enumerate(OBJ_ROLL_IDS))
@@ -2578,14 +2741,17 @@ def engine_step_check(world: str, seed: int, phase: str = "20"):
 
 
 
-def engine_api_run(env, seed: int, gen_seed: int, phase: str, name: str):
-    """A main path of the generic engine kernel: ``env`` (B envs) through
-    the public step API and rollout_metrics, MAIN_STEPS steps each from the
-    same seeds (``env.reset(seed)``, the policy's generator at
-    ``gen_seed``), with auto-reset, the launch counts set to 0 just before
-    and read just after: engine_step MAIN_STEPS times a path, nothing else.
-    Returns what the two runs give."""
-    from mujoco_maze_tpu_torch.ops import lane_env
+def engine_api_run(env, seed: int, gen_seed: int, phase: str, name: str,
+                   kernel: str = "engine_step", fused=None):
+    """A main path of the generic engine kernel (or of ``kernel``): ``env``
+    (B envs) through the public step API and rollout_metrics, MAIN_STEPS
+    steps each from the same seeds (``env.reset(seed)``, the policy's
+    generator at ``gen_seed``), with auto-reset, and then, given ``fused``
+    (a ``make_fast_rollout(env, MAIN_STEPS)``), one fused rollout from the
+    step API's last state; the launch counts set to 0 just before and read
+    just after: ``kernel`` MAIN_STEPS times a path and the fused rollout's
+    kernel once, nothing else.  Returns what the runs give."""
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_rollout
 
     policy = env.random_policy()
     gen = torch.Generator(device="cuda").manual_seed(gen_seed)
@@ -2593,10 +2759,12 @@ def engine_api_run(env, seed: int, gen_seed: int, phase: str, name: str):
     for _ in range(5):  # warm-up
         res = env.step(st, policy(obs, gen))
         st, obs = res.state, res.obs
+    if fused is not None:
+        make_fast_rollout(env, 1)(st.qpos, st.qvel, st.t, 1)
     torch.cuda.synchronize()
 
     lane_env.reset_launch_counts()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     st, obs = env.reset(seed)
     gen.manual_seed(gen_seed)
     st0 = st
@@ -2611,23 +2779,32 @@ def engine_api_run(env, seed: int, gen_seed: int, phase: str, name: str):
     gen.manual_seed(gen_seed)
     st_m, rew_m, eps_m = env.rollout_metrics(st0, policy, MAIN_STEPS, gen)
     ev[2].record()
+    out = fused(st.qpos, st.qvel, st.t, 17) if fused is not None else None
+    ev[3].record()
     torch.cuda.synchronize()
     launches = dict(lane_env.LAUNCHES)
-    ms_api, ms_metrics = (ev[i].elapsed_time(ev[i + 1]) for i in range(2))
+    ms_api, ms_metrics, ms_fused = (ev[i].elapsed_time(ev[i + 1])
+                                    for i in range(3))
     log(f"phase {phase}: main path {name}, {MAIN_STEPS} steps per path; "
         f"launches {launches}")
     expected = {k: 0 for k in launches}
-    expected["engine_step"] = 2 * MAIN_STEPS
+    expected[kernel] = 2 * MAIN_STEPS
+    if fused is not None:
+        expected[kernel.replace("_step", "_rollout")] = 1
     if launches != expected:
         raise SystemExit(f"{name} main path launches {launches}, expected "
                          f"{expected}")
     rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
     log(f"phase {phase}: {name} env-steps/s (CUDA events): step API "
-        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}")
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}"
+        + (f", fused rollout {rate(ms_fused):.6g} ({ms_fused:.6g} ms per "
+           f"{MAIN_STEPS}-step launch)" if fused is not None else ""))
     return dict(policy=policy, gen=gen, st0=st0, st=st, obs=obs,
                 eps_api=int(eps_api), st_m=st_m, rew_m=rew_m,
-                eps_m=int(eps_m), launches=launches["engine_step"],
-                step_api=rate(ms_api), rollout_metrics=rate(ms_metrics))
+                eps_m=int(eps_m), launches=launches[kernel],
+                step_api=rate(ms_api), rollout_metrics=rate(ms_metrics),
+                fused=out, fused_rate=rate(ms_fused),
+                fused_launches=launches.get(kernel.replace("_step", "_rollout")))
 
 
 def engine_cuda_vs_cpu(cpu_env, gpu_env, state, phase: str, what: str):
@@ -2662,10 +2839,11 @@ def engine_cuda_vs_cpu(cpu_env, gpu_env, state, phase: str, what: str):
         raise SystemExit(f"the {what} CUDA path disagrees with the CPU path")
 
 
-def engine_idle_share(env, run, phase: str, name: str):
+def engine_idle_share(env, run, phase: str, name: str,
+                      kernel: str = "engine_step_kernel"):
     """Where a step-API step's time goes: one profiled window of 50 steps
     from the end of ``run``; returns the device idle share, the kernels a
-    step and engine_step_kernel's device ms a launch in the window."""
+    step and ``kernel``'s device ms a launch in the window."""
     from torch.profiler import ProfilerActivity, profile
 
     policy, gen = run["policy"], run["gen"]
@@ -2692,7 +2870,7 @@ def engine_idle_share(env, run, phase: str, name: str):
     log(f"phase {phase}: profiled {name} step API, 50 steps in "
         f"{window_us:.6g} us: device busy {busy_us:.6g} us (idle share "
         f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
-    kern = [(x, n) for x, n, k in on_device if "engine_step_kernel" in k]
+    kern = [(x, n) for x, n, k in on_device if kernel in k]
     return idle, n_kernels, (sum(x for x, _ in kern)
                              / max(sum(n for _, n in kern), 1) / 1e3)
 
@@ -2864,6 +3042,57 @@ def ball_centre(spec, qpos, qvel):
             qvel[:, va:va + 3] + torch.linalg.cross(omega, off))
 
 
+def ball_band_pass(env, run, seed: int, gen_seed: int):
+    """A third pass over a ball main path's step-API steps (``run`` from
+    ``engine_api_run`` with ``seed`` and ``gen_seed``), read step by step:
+    the first ball's sphere's bottom above the floor after every step
+    (after the auto-reset fold: a reset puts the ball back at rest).
+    Returns the lowest and highest bottom per env, the least share of a
+    step's balls within BALL_Z, the envs whose ball was struck (its
+    centre's horizontal speed above BALL_STRUCK at some step), whether
+    state and obs stayed finite, the episodes ended, the radius, and the
+    envs that blew up (``blown``): per env whether it did, and the state,
+    t and action of the step it first did so from, and its reward summed
+    over the pass."""
+    spec = env.spec
+    policy, gen = run["policy"], run["gen"]
+    env.reset(seed)
+    gen.manual_seed(gen_seed)
+    s, o = run["st0"], spec._observe(run["st0"])
+    r_b = float(spec.contact_set.sph_radius[-1])
+    z_lo = torch.full((B,), math.inf, device="cuda")
+    z_hi = torch.full((B,), -math.inf, device="cuda")
+    in_band = torch.ones((), device="cuda")
+    struck = torch.zeros(B, dtype=torch.bool, device="cuda")
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    eps_3 = torch.zeros((), dtype=torch.int64, device="cuda")
+    ever = torch.zeros(B, dtype=torch.bool, device="cuda")
+    pre = [torch.zeros_like(x) for x in (s.qpos, s.qvel, s.t)]
+    pre.append(torch.zeros(B, spec.robot.action_dim, device="cuda"))
+    rew_env = torch.zeros(B, device="cuda")
+    for _ in range(MAIN_STEPS):
+        act = policy(o, gen)
+        res = env.step(s, act)
+        new = blown(spec, res.state.qpos, res.state.qvel) & ~ever
+        ever |= new
+        pre = [torch.where(new.view(-1, *([1] * (x.dim() - 1))), x, p)
+               for x, p in zip((s.qpos, s.qvel, s.t, act), pre)]
+        rew_env = rew_env + res.reward
+        c, cv = ball_centre(spec, res.state.qpos, res.state.qvel)
+        bottom = c[:, 2] - r_b
+        z_lo = torch.minimum(z_lo, bottom)
+        z_hi = torch.maximum(z_hi, bottom)
+        in_band = torch.minimum(in_band, ((bottom > BALL_Z[0])
+                                          & (bottom < BALL_Z[1])).float().mean())
+        struck |= cv[:, :2].norm(dim=1) > BALL_STRUCK
+        finite &= torch.isfinite(res.state.qpos).all() & torch.isfinite(
+            res.state.qvel).all() & torch.isfinite(res.obs).all()
+        eps_3 = eps_3 + (res.terminated | res.truncated).sum()
+        s, o = res.state, res.obs
+    return (z_lo, z_hi, in_band, struck, finite, eps_3, r_b,
+            dict(ever=ever, pre=pre, reward=rew_env))
+
+
 def ball_main_path():
     """Phase 23: the main path, the Roller in the SmallBilliard task
     through the public step API and rollout_metrics at B envs (1000 steps
@@ -2884,32 +3113,8 @@ def ball_main_path():
     run = engine_api_run(env, 13, 15, "23", f"{name} at {B} envs")
     st, obs, policy, gen = run["st"], run["obs"], run["policy"], run["gen"]
 
-    # a third pass over the same steps, read step by step: the ball's
-    # height and speed after every step (after the auto-reset fold: a reset
-    # puts the ball back at rest)
-    env.reset(13)
-    gen.manual_seed(15)
-    s, o = run["st0"], spec._observe(run["st0"])
-    r_b = float(spec.contact_set.sph_radius[-1])
-    z_lo = torch.full((B,), math.inf, device="cuda")
-    z_hi = torch.full((B,), -math.inf, device="cuda")
-    in_band = torch.ones((), device="cuda")
-    struck = torch.zeros(B, dtype=torch.bool, device="cuda")
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    eps_3 = torch.zeros((), dtype=torch.int64, device="cuda")
-    for _ in range(MAIN_STEPS):
-        res = env.step(s, policy(o, gen))
-        c, cv = ball_centre(spec, res.state.qpos, res.state.qvel)
-        bottom = c[:, 2] - r_b
-        z_lo = torch.minimum(z_lo, bottom)
-        z_hi = torch.maximum(z_hi, bottom)
-        in_band = torch.minimum(in_band, ((bottom > BALL_Z[0])
-                                          & (bottom < BALL_Z[1])).float().mean())
-        struck |= cv[:, :2].norm(dim=1) > BALL_STRUCK
-        finite &= torch.isfinite(res.state.qpos).all() & torch.isfinite(
-            res.state.qvel).all() & torch.isfinite(res.obs).all()
-        eps_3 = eps_3 + (res.terminated | res.truncated).sum()
-        s, o = res.state, res.obs
+    z_lo, z_hi, in_band, struck, finite, eps_3, r_b, _ = ball_band_pass(
+        env, run, 13, 15)
     checks = {
         "obs shape (B, 10)": tuple(obs.shape) == (B, spec.obs_dim) == (B, 10),
         "no NaN or inf in state and obs over 1000 steps": bool(finite),
@@ -2985,6 +3190,304 @@ def ball_main_path():
             "bound_by": b[1], "fp32_ops_per_env_step": flops,
             "active_contacts_per_eval": per_eval}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 24-26: the Ant with a free object ball (AntSmallBilliard) through
+# the Ant kernel's ball instantiation, in a process of its own
+# ---------------------------------------------------------------------------
+ANT_BALL_IDS = ("AntSmallBilliard-v0", "AntSmallBilliard-v1",
+                "AntSmallBilliard-v2")      # the three reward heads
+ANT_BALL_ROLL_IDS = ("AntSmallBilliard-v0", "AntSmallBilliard-v1")
+ANT_BALL_MAIN_ID = "AntSmallBilliard-v0"
+ANT_BALL_CHECK_STEPS = 16
+BALLS_FLAG = "--ant-balls"              # runs phases 24-26 alone
+BALLS_RESULT = "ANT_BALLS_RESULT "
+
+
+def ant_trace_as_engine(aks, eks, trace: torch.Tensor) -> torch.Tensor:
+    """The Ant kernel's trace ``(B, E, 25)`` of a ball world in the generic
+    engine kernel's layout ``(B, E, 3 nw + 1)`` for ``eks`` (the same
+    world's ``engine_kernel.spec_from_env``), for engine_step_flops: each
+    active contact's bit (kind k of the ant's sphere s at k * n_static +
+    its static index, the ball's at k * n_static + its own, the pair of
+    sphere s with the ball at 3 n_static + its pair index) and each
+    violated hinge limit (bit d of the Ant's word, bit k of the k-th
+    limited joint in the generic one's)."""
+    import numpy as np
+
+    cs = aks.env_spec.contact_set
+    model = aks.env_spec.dynamic_model
+    statics = list(np.nonzero(cs.sph_vs_static)[0])
+    ant = [x for x in statics if cs.sph_body[x] < 13]
+    S, n = len(ant), eks.n_static
+    groups = int(cs.has_floor) + min(len(cs.box_center), 2)
+    ball_bit = (3 + aks.n_blk) * S
+    src, dst = [], []
+    for k in range(groups):
+        for i, x in enumerate(ant):
+            src.append(k * S + i)
+            dst.append(k * n + statics.index(x))
+        for x in statics:
+            if cs.sph_body[x] >= 13:
+                src.append(ball_bit + k)
+                dst.append(k * n + statics.index(x))
+    for i, x in enumerate(ant):
+        (p,) = np.nonzero(cs.pair_i == x)[0]
+        src.append(ball_bit + 3 + i)
+        dst.append(groups * n + int(p))
+    nw = (eks.n_cand + 31) // 32
+    words = trace.to(torch.int64) & 0xFFFFFFFF
+    ar = torch.arange(32, device=trace.device)
+    bits = ((words[..., :8, None] >> ar) & 1).flatten(-2)
+    out = torch.zeros(*bits.shape[:2], 32 * nw, dtype=torch.int64,
+                      device=trace.device)
+    out[..., dst] = bits[..., src]
+    packed = (out.view(*bits.shape[:2], nw, 32) << ar).sum(dim=-1)
+    lim_dofs = [int(model.jnt_dofadr[j]) for j in range(model.njnt)
+                if model.jnt_limited[j] and int(model.jnt_type[j]) in (2, 3)]
+    lim = sum(((words[..., 24] >> d) & 1) << k for k, d in enumerate(lim_dofs))
+    result = torch.cat([packed, torch.zeros_like(packed), torch.zeros_like(
+        packed), lim[..., None]], dim=-1)
+    return torch.where(result >= 2 ** 31, result - 2 ** 32, result).to(torch.int32)
+
+
+def ant_ball_main_path():
+    """Phase 26: the main path, AntSmallBilliard-v0 at B envs through the
+    public step API and rollout_metrics (MAIN_STEPS each from the same
+    seeds, with auto-reset) and one fused MAIN_STEPS-step rollout, the
+    launch counts set to 0 just before and read just after; checks of
+    what comes out, the ball's height and strikes from a third pass; the
+    CUDA path against the CPU path on a small input; the step API's device
+    idle share; ant_balls_step's time per launch by threads per block, on
+    the device, its bound and its plain version's time on the main path's
+    state and, beside the generic engine kernel's (phase 23's), on the
+    ball states with legs on the ball; ant_balls_rollout's numbers."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import (engine_kernel, lane_env,
+                                           make_fast_rollout, make_fast_step)
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (ant_rollout_plain,
+                                                      ant_step_plain,
+                                                      ball_states)
+
+    env = mmt.make_batched(ANT_BALL_MAIN_ID, B)
+    spec = env.spec
+    name = f"{ANT_BALL_MAIN_ID} at {B} envs"
+    run = engine_api_run(env, 13, 15, "26", name, kernel="ant_balls_step",
+                         fused=make_fast_rollout(env, MAIN_STEPS))
+    st, obs, policy, gen = run["st"], run["obs"], run["policy"], run["gen"]
+    qf, vf, tf, rew_f, eps_f = run["fused"]
+    z_lo, z_hi, in_band, struck, finite, eps_3, r_b, blow = ball_band_pass(
+        env, run, 13, 15)
+    quat_err = max(float((qf[:, a:a + 4].norm(dim=1) - 1).abs().max())
+                   for a in (3, 18))
+    # an env that blew up (an Ant leg driven into the ball: the engine's
+    # explicit RK4, the JAX package's as the port's; ROADMAP queue 3) is
+    # held to blowing up in the plain version too, from the same state and
+    # action, in at most BALL_BLOWN_SHARE of the envs
+    bad = torch.nonzero(blow["ever"]).flatten()
+    plain_blows = True
+    if len(bad):
+        pq, pv, pt, pa = (x[bad] for x in blow["pre"])
+        out = ant_step_plain(make_fast_step(env).ks, pq, pv, pt, pa)
+        plain_blows = bool(blown(spec, out[0], out[1]).all())
+        e0 = int(bad[0])
+        log(f"phase 26: {len(bad)} envs blew up; the first, env {e0}, from "
+            f"qpos {pq[0].tolist()}, qvel {pv[0].tolist()}, t {int(pt[0])}, "
+            f"action {pa[0].tolist()}; the plain version from the same "
+            f"states and actions blows up in every one: {plain_blows}")
+    kept = ~blow["ever"]
+    rew_kept = float(blow["reward"][kept].sum())
+    checks = {
+        f"obs shape (B, {spec.obs_dim})": tuple(obs.shape) == (B, spec.obs_dim)
+        == (B, 33),
+        f"envs that blew up at most {BALL_BLOWN_SHARE:g} of B, each blowing "
+        "up in the plain version from the same state and action": len(bad)
+        <= BALL_BLOWN_SHARE * B and plain_blows,
+        "state and obs finite in every env that did not blow up": bool(finite)
+        or bool(len(bad)),
+        "obs[3:6] = the ball's body origin": bool(torch.equal(
+            obs[:, 3:6], st.qpos[:, 15:18])),
+        f"at every step >= {BALL_Z_SHARE:g} of the balls' bottoms within "
+        f"{BALL_Z} of the floor": float(in_band) >= BALL_Z_SHARE,
+        "no ball's bottom more than half its radius into the floor": bool(
+            (z_lo > -r_b / 2).all()),
+        f"some env struck the ball (its centre's horizontal speed above "
+        f"{BALL_STRUCK} m/s at some step)": int(struck.sum()) > 0,
+        "the step API's reward summed over the envs that did not blow up "
+        "finite and < 0 (dist reward)": math.isfinite(rew_kept)
+        and rew_kept < 0,
+        "rollout_metrics reward finite, or an env blew up": bool(
+            torch.isfinite(run["rew_m"])) or bool(len(bad)),
+        "episode counts equal on the same seeds": run["eps_api"]
+        == run["eps_m"] == int(eps_3),
+        "rollout_metrics ends on the step API's state": bool(
+            torch.equal(run["st_m"].qpos, st.qpos)
+            and torch.equal(run["st_m"].t, st.t)),
+        "episodes ended >= B (truncation at 1000)": run["eps_m"] >= B,
+        "fused state finite": bool(torch.isfinite(qf).all()
+                                   and torch.isfinite(vf).all()),
+        "fused torso height in (0, 2)": bool(
+            ((qf[:, 2] > 0) & (qf[:, 2] < 2)).all()),
+        "fused quaternions (torso, ball) unit (1e-5)": quat_err < 1e-5,
+        "fused t < 1000 (auto-reset at the episode limit)": int(tf.max()) < 1000,
+        "fused reward < 0 (dist reward)": float(rew_f) < 0,
+        "fused episodes >= B (truncation at 1000)": int(eps_f) >= B,
+    }
+    log(f"phase 26: output checks {checks} (episodes {run['eps_api']}, "
+        f"{run['eps_m']}, {int(eps_3)}; the ball's bottom above the floor min "
+        f"{float(z_lo.min()):.4g} max {float(z_hi.max()):.4g}, the least "
+        f"share of a step's balls within {BALL_Z} {float(in_band):.6g}; envs "
+        f"whose ball was struck {int(struck.sum())} of {B}; envs that blew "
+        f"up {len(bad)} (tol {int(BALL_BLOWN_SHARE * B)}))")
+    if not all(checks.values()):
+        raise SystemExit("the Ant ball main path's output failed a check")
+
+    # the port's CUDA path against its CPU path on a small input
+    n_small = 16
+    cpu_env = mmt.make_batched(ANT_BALL_MAIN_ID, n_small, auto_reset=False,
+                               device="cpu")
+    gpu_env = mmt.make_batched(ANT_BALL_MAIN_ID, n_small, auto_reset=False)
+    q, v, t = (torch.as_tensor(x) for x in ball_states(cpu_env.spec, n_small, 9))
+    s_cpu = EnvState(qpos=q, qvel=v, t=t)
+    rng = np.random.RandomState(9)
+    small_err = 0.0
+    for _ in range(3):
+        act = torch.as_tensor(rng.uniform(-30, 30, (n_small, 8)),
+                              dtype=torch.float32)
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        small_err = max(small_err,
+                        float((r_gpu.state.qpos.cpu() - r_cpu.state.qpos).abs().max()),
+                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit("the Ant ball CUDA path and CPU path disagree on "
+                             "terminated")
+        s_cpu = r_cpu.state
+    log(f"phase 26: {ANT_BALL_MAIN_ID} CUDA path vs CPU path, {n_small} envs x "
+        f"3 steps teacher-forced from ball states: max |err| qpos and reward "
+        f"{small_err:.3g} (tol {ANT_QPOS_TOL})")
+    if not small_err <= ANT_QPOS_TOL:
+        raise SystemExit("the Ant ball CUDA path disagrees with the CPU path")
+    idle, n_kernels, window_ms = engine_idle_share(env, run, "26", name,
+                                                   kernel="ant_step_kernel")
+
+    # ant_balls_step's numbers: on the main path's state, and on the ball
+    # states with legs on the ball that phase 23 times the generic kernel
+    # on, beside the generic kernel's on the same states
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    eks = engine_kernel.spec_from_env(spec)
+    gstep = lane_env.EngineStep(eks, B)
+    q23, v23, t23 = engine_states(spec, ANT_BALL_MAIN_ID, 7)
+    act23 = (-30 + 60 * torch.rand(B, 8, generator=gen, device="cuda")).contiguous()
+    act = policy(obs, gen)
+    tables = 4 * ks.packed.numel()
+    nums = {}
+    for where, args in (("main path state", (st.qpos, st.qvel, st.t, act)),
+                        ("ball states", (q23, v23, t23, act23))):
+        block_ms = {}
+        for blk in (128, 64, lane_env.ANT_BLOCK):
+            kstep.block = blk
+            block_ms[blk] = cuda_ms(lambda: kstep(*args), 20)
+        ms = block_ms[lane_env.ANT_BLOCK]
+        dev = device_ms_events(lambda: kstep(*args), 5)
+        ms_plain = cuda_ms(lambda: ant_step_plain(ks, *args), 2)
+        n_act, tr = kstep(*args, count_active=True, trace=True)[5:]
+        per_eval = float(n_act.float().mean()) / (4 * ks.frame_skip)
+        flops = engine_step_flops(eks, ant_trace_as_engine(ks, eks, tr))
+        b = bound(B * ant_bytes(ks, "step") + tables, B * flops)
+        line = (f"phase 26: {ANT_BALL_MAIN_ID} on the {where}: ant_balls_step "
+                f"ms per launch by threads per block {block_ms}; "
+                f"{dev:.6g} ms on the device (CUDA events around single "
+                f"launches), plain {ms_plain:.6g} ms; bound {b[0]:.3g} ms by "
+                f"{b[1]} ({flops:.6g} fp32 operations per env-step at "
+                f"{per_eval:.4g} active contacts per forward evaluation, the "
+                f"generic kernel's need-based count); kernel/bound "
+                f"{ms / b[0]:.4g}x")
+        if where == "ball states":
+            ms_g = cuda_ms(lambda: gstep(*args), 10)
+            line += (f"; the generic engine kernel on the same states "
+                     f"{ms_g:.6g} ms ({ms_g / ms:.3g}x)")
+        log(line)
+        nums[where] = {"ms": ms, "block_ms": block_ms, "device_ms": dev,
+                       "plain_ms": ms_plain, "bound_ms": b[0],
+                       "bound_by": b[1], "fp32_ops_per_env_step": flops,
+                       "active_contacts_per_eval": per_eval}
+        if where == "ball states":
+            nums[where]["engine_step_ms"] = ms_g
+    kstep.block = lane_env.ANT_BLOCK
+    roll8 = make_fast_rollout(env, ANT_ROLL_STEPS)
+    ms_roll = cuda_ms(lambda: roll8(st.qpos, st.qvel, st.t, 19), 5)
+    dev_roll = device_ms_events(lambda: roll8(st.qpos, st.qvel, st.t, 19), 3)
+    ms_roll_plain = cuda_ms(lambda: ant_rollout_plain(
+        ks, st.qpos, st.qvel, st.t, 19, ANT_ROLL_STEPS), 1)
+    active_roll = int(roll8.per_env(st.qpos, st.qvel, st.t, 19,
+                                    count_active=True)[5].sum())
+    # the rollout's need: the step's at no contact, ANT_ROLL_STEPS times,
+    # and each active contact at the main-path step's mean need a contact
+    main = nums["main path state"]
+    n_act_main = main["active_contacts_per_eval"] * 4 * ks.frame_skip
+    empty = engine_step_flops(eks, torch.zeros(1, 4 * ks.frame_skip, (
+        (eks.n_cand + 31) // 32) * 3 + 1, dtype=torch.int32, device="cuda"))
+    per_contact = (main["fp32_ops_per_env_step"] - empty) / max(n_act_main, 1e-9)
+    roll_bound = bound(B * ant_bytes(ks, "rollout") + tables,
+                       B * ANT_ROLL_STEPS * empty + per_contact * active_roll)
+    log(f"phase 26: {ANT_BALL_MAIN_ID} ant_balls_rollout {ms_roll:.6g} ms per "
+        f"{ANT_ROLL_STEPS}-step launch, {dev_roll:.6g} ms on the device (plain "
+        f"{ms_roll_plain:.6g} ms, bound {roll_bound[0]:.3g} ms by "
+        f"{roll_bound[1]}; {active_roll} active contacts)")
+    return {
+        "step": {"name": "ant_balls_step", "launches": run["launches"],
+                 "ms": main["ms"], "device_ms": main["device_ms"],
+                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                 "bound_by": main["bound_by"],
+                 "fp32_ops_per_env_step": main["fp32_ops_per_env_step"],
+                 "ball_states": nums["ball states"]},
+        "rollout": {"name": "ant_balls_rollout",
+                    "launches": run["fused_launches"], "ms": ms_roll,
+                    "device_ms": dev_roll, "plain_ms": ms_roll_plain,
+                    "bound_ms": roll_bound[0], "bound_by": roll_bound[1]},
+        "rates": {"step_api": run["step_api"],
+                  "rollout_metrics": run["rollout_metrics"],
+                  "fused_rollout": run["fused_rate"], "idle_share": idle,
+                  "kernels_per_step": n_kernels,
+                  "ant_step_kernel_device_ms_in_window": window_ms,
+                  "episodes": run["eps_m"],
+                  "balls_struck": int(struck.sum())},
+    }
+
+
+def ant_balls_phases() -> int:
+    """Phases 24-26, run in a process of their own (``python3 chip_smoke.py
+    --ant-balls``, started by ``main``; it also runs alone).  Prints its
+    result as one ``ANT_BALLS_RESULT {json}`` line."""
+    from mujoco_maze_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _build.load()
+    step = [ant_step_check(env_id, 141 + k, "24", 0.0, ANT_BALL_CHECK_STEPS,
+                           ANT_BALL_CHECK_STEPS)
+            for k, env_id in enumerate(ANT_BALL_IDS)]
+    roll_err = max(ant_rollout_check(env_id, 151 + k, "25")
+                   for k, env_id in enumerate(ANT_BALL_ROLL_IDS))
+    out = ant_ball_main_path()
+    out["step"]["max_abs_err"] = max(x["max"] for x in step)
+    out["step"]["checks"] = dict(zip(ANT_BALL_IDS, step))
+    out["rollout"]["max_abs_err"] = roll_err
+    print(BALLS_RESULT + json.dumps(out), flush=True)
+    return 0
 
 
 def engine_phases() -> int:
@@ -3120,6 +3623,262 @@ def engine_faults() -> int:
         ok = ok and rc != 0
     print(json.dumps(result), flush=True)
     return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# the registry sweep (``python3 chip_smoke.py --sweep``), outside the
+# default run: every registered ID's kernel against its plain version
+# ---------------------------------------------------------------------------
+SWEEP_FLAG = "--sweep"
+SWEEP_B = 256
+SWEEP_OUT = "artifacts/PORT_REGISTRY_SWEEP.json"
+
+
+def point_step_once(env_id: str, seed: int) -> dict:
+    """The sweep's check of an object-free Point maze: one step launch
+    against the plain version, at phase 2's rule (qpos, qvel, t and reward
+    within STEP_TOL, terminated exact), from states spread over the
+    maze's free cells (the point anywhere in its cell, so that many press
+    on a wall; its heading uniform, its velocities U(+-2)), every 16th env
+    on the first goal where there is one, t uniform over the episode."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import make_fast_step
+    from mujoco_maze_tpu_torch.ops.point_kernel import point_step_plain
+
+    env = mmt.make_batched(env_id, B)
+    ms = env.spec.structure
+    kstep = make_fast_step(env)
+    rng = np.random.RandomState(seed)
+    free = [(i, j) for i in range(ms.grid.shape[0])
+            for j in range(ms.grid.shape[1]) if ms.grid[i, j] != 1]
+    s, half = ms.size_scaling, ms.size_scaling / 2
+    cell = rng.randint(len(free), size=B)
+    q = np.zeros((B, 3), np.float32)
+    for e in range(B):
+        i, j = free[cell[e]]
+        q[e, :2] = (j * s - ms.torso_x, i * s - ms.torso_y)
+    q[:, :2] += rng.uniform(-half + 0.05, half - 0.05, (B, 2))
+    q[:, 2] = rng.uniform(-math.pi, math.pi, B)
+    if env.spec.task.goals:                    # none in the no-reward mazes
+        q[::16, :2] = np.asarray(env.spec.task.goals[0].pos[:2])
+    v = rng.uniform(-2.0, 2.0, (B, 3)).astype(np.float32)
+    t = rng.randint(0, 1000, B).astype(np.int32)
+    a = rng.uniform(-1.0, 1.0, (B, 2)).astype(np.float32) * [1.0, 0.25]
+    args = [torch.as_tensor(x, device="cuda") for x in (q, v, t, a)]
+    args[3] = args[3].float()
+    qk, vk, tk, rk, mk = kstep(*args)
+    qp, vp, tp, rp, mp = point_step_plain(kstep.ks, *args)
+    e = [float(ori_diff(qk, qp).max()), float((vk - vp).abs().max()),
+         float((tk - tp).abs().max()), float((rk - rp).abs().max())]
+    n_term = int((mk != mp).sum())
+    log(f"sweep: {env_id} point step kernel vs plain, {B} envs: max |err| "
+        f"qpos {e[0]:.3g} qvel {e[1]:.3g} t {e[2]:.3g} reward {e[3]:.3g} (tol "
+        f"{STEP_TOL}); terminated mismatches {n_term} (tol 0); terminated "
+        f"{int(mk.sum())}")
+    if not max(e) <= STEP_TOL or n_term:
+        raise SystemExit(f"point step kernel disagrees with its plain version "
+                         f"on {env_id}")
+    return {"qpos": e[0], "qvel": e[1], "reward": e[3], "knife_edges": 0,
+            "max": max(e)}
+
+
+def swimmer_step_once(env_id: str, seed: int) -> dict:
+    """The sweep's check of a Swimmer or Reacher ID: one step launch
+    against the plain version from phase 13's states (the env's reset,
+    every 64th env on the goal, t over the episode, random actions) at
+    phase 13's rule (every output within STEP_TOL, terminated exact)."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import make_fast_step
+    from mujoco_maze_tpu_torch.ops.swimmer_kernel import swimmer_step_plain
+
+    env = mmt.make_batched(env_id, B)
+    spec = env.spec
+    kstep = make_fast_step(env)
+    st, obs = env.reset(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = spec.heads.goals
+    on_goal = torch.arange(B, device="cuda") % 64 == 0
+    q = torch.where(on_goal[:, None] & (g.dim_mask[0] > 0), g.pos[0],
+                    st.qpos[:, :3])
+    q = torch.cat([q, st.qpos[:, 3:]], dim=1)
+    t = torch.randint(0, 1000, (B,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    act = env.random_policy()(obs, gen)
+    kern = kstep(q, st.qvel, t, act)
+    plain = swimmer_step_plain(kstep.ks, q, st.qvel, t, act)
+    e = [float((kern[i].float() - plain[i].float()).abs().max())
+         for i in range(4)]
+    n_term = int((kern[4] != plain[4]).sum())
+    log(f"sweep: {env_id} swimmer step kernel vs plain, {B} envs: max |err| "
+        f"qpos {e[0]:.3g} qvel {e[1]:.3g} t {e[2]:.3g} reward {e[3]:.3g} (tol "
+        f"{STEP_TOL}); terminated mismatches {n_term} (tol 0)")
+    if not max(e) <= STEP_TOL or n_term:
+        raise SystemExit(f"swimmer step kernel disagrees with its plain "
+                         f"version on {env_id}")
+    return {"qpos": e[0], "qvel": e[1], "reward": e[3], "knife_edges": 0,
+            "max": max(e)}
+
+
+def registry_sweep(args) -> int:
+    """``python3 chip_smoke.py --sweep [--out PATH]``: every registered ID
+    built at SWEEP_B envs on the card (``make_batched``), its step kernel
+    launched once from its family's contact-rich states and held against
+    its plain version at the family's phase rule: the object-free Point
+    mazes at phase 2's, the Point object worlds at phase 17's
+    (``object_states``), the Ant's at phase 5's (``contact_states``), 9's
+    (``block_states``) and 24's (``ball_states``), the Swimmer and the
+    Reacher at phase 13's.  One JSON line per ID, then the whole as
+    ``PATH`` (default SWEEP_OUT, beside the JAX package's
+    REGISTRY_SWEEP.json); exits 1 if any ID fails."""
+    global B
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import _build, lane_env
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    out_path = args[args.index("--out") + 1] if "--out" in args else SWEEP_OUT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    B = SWEEP_B
+    device_name, smi = torch.cuda.get_device_name(0), nvidia_smi()
+    log(f"sweep: device {device_name}; nvidia-smi: {smi}")
+    _build.load()
+    rows = []
+    for k, env_id in enumerate(mmt.env_ids()):
+        robot = mmt.entry(env_id).robot_name
+        t0 = time.perf_counter()
+        lane_env.reset_launch_counts()
+        row = {"id": env_id}
+        try:
+            if robot == "Ant":
+                spec = mmt.make_spec(env_id)
+                row["family"] = ("ant balls" if spec.ball_runtimes else
+                                 "ant blocks" if spec.block_runtimes else "ant")
+                res = ant_step_check(env_id, 1000 + k, "sweep", 0.0, 1, 1,
+                                     sweep=True)
+            elif robot == "Point":
+                spec = mmt.make_spec(env_id)
+                if spec.object_spec is not None:
+                    row["family"] = "point objects"
+                    res = obj_step_check(env_id, 1000 + k, "sweep", 1,
+                                         sweep=True)
+                else:
+                    row["family"] = "point"
+                    res = point_step_once(env_id, 1000 + k)
+            else:
+                row["family"] = "swimmer"
+                res = swimmer_step_once(env_id, 1000 + k)
+            row.update(ok=True, **{key: res[key] for key in (
+                "qpos", "qvel", "reward", "knife_edges") if key in res})
+        except (SystemExit, Exception) as err:  # recorded, the sweep goes on
+            row.update(ok=False, error=f"{type(err).__name__}: {err}")
+        row["kernel"] = [n for n, c in lane_env.LAUNCHES.items() if c]
+        row["seconds"] = time.perf_counter() - t0
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    failed = [r["id"] for r in rows if not r["ok"]]
+    summary = {"script": "python3 chip_smoke.py --sweep", "device": device_name,
+               "nvidia_smi": smi, "torch": torch.__version__,
+               "num_envs": SWEEP_B, "ids": len(rows),
+               "passed": len(rows) - len(failed), "failed": failed,
+               "families": {f: sum(r.get("family") == f for r in rows)
+                            for f in sorted({r.get("family") for r in rows
+                                             if r.get("family")})},
+               "seconds": time.perf_counter() - T0, "rows": rows}
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(summary, f, indent=1)
+    log(f"sweep: {summary['passed']} of {len(rows)} IDs passed "
+        f"{summary['families']}; failed {failed}; wrote {out_path}")
+    return 1 if failed else 0
+
+
+# ---------------------------------------------------------------------------
+# a one-off probe: the Ant kernels' object-free and block-world
+# instantiations of this tree against another tree's on the same inputs
+# ---------------------------------------------------------------------------
+PROBE_FLAG = "--ant-parent-probe"       # PARENT_DIR
+PROBE_OUT_FLAG = "--ant-probe-out"      # PATH (.npz), in the probed tree
+PROBE_WORLDS = ("AntUMaze-v0", "AntPush-v0", "AntFall-v0")
+
+
+def probe_outputs(path: str) -> int:
+    """Every output of one Ant step launch (with its active counts and
+    traces) and of one ANT_ROLL_STEPS-step rollout launch on PROBE_WORLDS
+    at B envs, from ``contact_states`` / ``block_states`` and seeded
+    actions, saved to ``path``: run from the tree whose kernels are
+    probed."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (block_states,
+                                                      contact_states)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for env_id in PROBE_WORLDS:
+        env = mmt.make_batched(env_id, B)
+        draw = block_states if env.spec.block_runtimes else contact_states
+        q, v, t = (torch.as_tensor(x, device="cuda")
+                   for x in draw(env.spec, B, 5))
+        act = torch.as_tensor(np.random.RandomState(5).uniform(
+            -30, 30, (B, 8)), dtype=torch.float32, device="cuda")
+        res = make_fast_step(env)(q, v, t, act, count_active=True, trace=True)
+        t_end = (EPISODE_LIMIT - ANT_ROLL_STEPS
+                 + torch.arange(B, device="cuda") % ANT_ROLL_STEPS).int()
+        roll = make_fast_rollout(env, ANT_ROLL_STEPS).per_env(
+            q, v, t_end, 7, count_active=True)
+        for kind, outs in (("step", res), ("rollout", roll)):
+            for i, x in enumerate(outs):
+                out[f"{env_id}/{kind}/{i}"] = x.cpu().numpy()
+    np.savez(path, **out)
+    return 0
+
+
+def ant_parent_probe(args) -> int:
+    """``python3 chip_smoke.py --ant-parent-probe PARENT_DIR``: the Ant
+    kernels' <0,0> (AntUMaze-v0) and <6,3> (AntPush-v0, AntFall-v0)
+    instantiations of the tree at PARENT_DIR (a checkout with its own
+    ``mujoco_maze_tpu_torch``) and of this one, each built from its own
+    sources in a process of its own, on the same states and actions; every
+    output must be equal to the bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    parent = os.path.abspath(args[0])
+    work = tempfile.mkdtemp()
+    copy = os.path.join(parent, "_probe_chip_smoke.py")
+    shutil.copy(__file__, copy)
+    got = {}
+    for tree, script in (("parent", copy), ("this", __file__)):
+        path = os.path.join(work, f"{tree}.npz")
+        subprocess.run([sys.executable, script, PROBE_OUT_FLAG, path],
+                       check=True, cwd=os.path.dirname(script))
+        got[tree] = np.load(path)
+    keys = sorted(got["parent"].files)
+    same = {k: bool(np.array_equal(got["parent"][k], got["this"][k],
+                                   equal_nan=True)) for k in keys}
+    log(f"probe: the parent's and this tree's Ant kernels on {PROBE_WORLDS} "
+        f"at {B} envs, one step (qpos, qvel, t, reward, terminated, active "
+        f"counts, traces) and one {ANT_ROLL_STEPS}-step rollout: "
+        f"{sum(same.values())} of {len(same)} outputs equal to the bit; "
+        f"differing: {[k for k, x in same.items() if not x]}")
+    os.remove(copy)
+    shutil.rmtree(work, ignore_errors=True)
+    return 0 if all(same.values()) and keys == sorted(got["this"].files) else 1
 
 
 def main() -> int:
@@ -3366,7 +4125,7 @@ def main() -> int:
     # -- 5-8. the Ant in the object-free mazes --------------------------------
     ant_step_err = max(
         ant_step_check(env_id, 31 + k, "5", ANT_CHECK_BUDGET_S / len(ANT_IDS),
-                       ANT_MIN_CHECK_STEPS, ANT_MAX_CHECK_STEPS)
+                       ANT_MIN_CHECK_STEPS, ANT_MAX_CHECK_STEPS)["max"]
         for k, env_id in enumerate(ANT_IDS))
     ant_roll_err = max(ant_rollout_check(env_id, 41 + k, "6")
                        for k, env_id in enumerate(ANT_IDS))
@@ -3375,7 +4134,7 @@ def main() -> int:
     # -- 9-12. the Ant block worlds -------------------------------------------
     block_step_err = max(
         ant_step_check(env_id, 51 + k, "9", 0.0, BLOCK_CHECK_STEPS,
-                       BLOCK_CHECK_STEPS)
+                       BLOCK_CHECK_STEPS)["max"]
         for k, env_id in enumerate(BLOCK_IDS))
     block_roll_err = max(ant_rollout_check(env_id, 61 + k, "10")
                          for k, env_id in enumerate(BLOCK_MAIN_IDS))
@@ -3398,6 +4157,8 @@ def main() -> int:
 
     # -- 20-23. custom robots through the generic engine kernel ---------------
     engine = run_child(ENGINE_FLAG, ENGINE_RESULT, "20-23")
+    # -- 24-26. the Ant with a free object ball --------------------------------
+    balls = run_child(BALLS_FLAG, BALLS_RESULT, "24-26")
     # engine_step's operation bound against the fp32 peak phase 16 measured
     # (the child process's bound is on the data sheet's 67e12)
     eng = engine["step"]
@@ -3439,6 +4200,16 @@ def main() -> int:
                 "source": f"mujoco_maze_tpu_torch/csrc/{src}",
                 "replaces": f"mujoco_maze_tpu/ops/ant_pallas.py:{line}",
                 "max_abs_err": err, "library_ms": None, "worlds": worlds})
+    for kind, line in (("step", "228"), ("rollout", "222")):
+        kernels.append({
+            **balls[kind], "route": "cuda",
+            "source": "mujoco_maze_tpu_torch/csrc/ant_balls.cu",
+            "device_code": "mujoco_maze_tpu_torch/csrc/ant_lane.cuh",
+            "replaces": f"mujoco_maze_tpu/ops/ant_pallas.py:{line}",
+            "library_ms": None,
+            "worlds": "the 3 AntSmallBilliard worlds (one free object ball)",
+            "main_path": ANT_BALL_MAIN_ID, **(
+                {"main_path_rates": balls["rates"]} if kind == "step" else {})})
     for (kind, line), err in zip((("step", "151"), ("rollout", "143")),
                                  (swim_step_err, swim_roll_err)):
         kernels.append({
@@ -3493,6 +4264,10 @@ if __name__ == "__main__":
     ARGS = sys.argv[1:]
     sys.exit(point_objects_phases() if OBJ_FLAG in ARGS
              else engine_phases() if ENGINE_FLAG in ARGS
+             else ant_balls_phases() if BALLS_FLAG in ARGS
+             else registry_sweep(ARGS) if ARGS[:1] == [SWEEP_FLAG]
+             else ant_parent_probe(ARGS[1:]) if ARGS[:1] == [PROBE_FLAG]
+             else probe_outputs(ARGS[1]) if ARGS[:1] == [PROBE_OUT_FLAG]
              else engine_faults() if FAULTS_FLAG in ARGS
              else engine_check(ARGS[1:]) if ARGS[:1] == [CHECK_FLAG]
              else main())

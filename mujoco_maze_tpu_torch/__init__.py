@@ -19,8 +19,8 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``::
     res = env.step(state, actions)        # one CUDA kernel + auto-reset
 
 The port builds and steps, in float32, every one of the 145 registered
-IDs through ``spec.step``, and batches 142 of them (``make_batched``,
-one CUDA kernel a step on the card): the 21
+IDs through ``spec.step``, and batches all 145 (``make_batched``, one
+CUDA kernel a step on the card): the 21
 object-free Point mazes, the 27 Point object worlds (PointPush,
 PointMultiPush, PointMultiPushSmall, PointPushMaze, PointFall,
 PointMultiFall-v2, PointBlockMaze, PointBlockCarry, PointBilliard,
@@ -28,12 +28,10 @@ PointSmallBilliard: movable blocks, the falling block on its platform and
 hinge balls, stepped by the reduced object solve), the 21 object-free Ant
 mazes, the 21 Ant block worlds (movable blocks and the Fall worlds'
 platforms: AntPush, AntFall, AntMultiFall, AntMultiPush,
-AntMultiPushSmall, AntPushMaze, AntBlockMaze, AntBlockCarry) and the 52
+AntMultiPushSmall, AntPushMaze, AntBlockMaze, AntBlockCarry), the 3
+AntSmallBilliard worlds (the Ant with a free object ball) and the 52
 Swimmer and Reacher IDs (42 object-free, and Push, Fall and MultiFall
-with one block that the swimmer never moves).  The 3 AntSmallBilliard
-worlds (the Ant with a free object ball) step through ``spec.step`` on the
-plain engine; their batched env raises ``NotImplementedError`` until the
-Ant kernel takes the ball (ROADMAP queue 1 item 11d-2).
+with one block that the swimmer never moves).
 
 Custom robots: a ``models.base.Robot`` subclass with ``USES_WORLD_ENGINE``
 and ``build_bodies``, composed with any task by ``envs.env.MazeEnvSpec``

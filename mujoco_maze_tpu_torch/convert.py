@@ -139,7 +139,7 @@ def _lowered_ant(ks: AntKernelSpec) -> Dict[str, object]:
         "sph_solimp": sph[:, 8:11], "friction": sph[0, 7],
         "solimp": sph[0, 8:11], "solref_tc": sph[0, 11],
         # ant_pallas.AntEnvKernelSpec
-        "nq": len(ks.table("qpos0")[0]), "nv": len(dof) + ks.n_w,
+        "nq": len(ks.table("qpos0")[0]), "nv": len(dof) + ks.n_w + 6 * ks.n_ball,
         "qpos0": ks.table("qpos0")[0],
         **_goal_fields(ks.env_spec.heads),
         "reward_type": ks.reward_type, "penalty": ks.penalty,
@@ -170,6 +170,33 @@ def lowered_blocks(ks: AntKernelSpec) -> List[Dict[str, object]]:
             "ranges": w[:, 4:6], "falling_zdof": int(row[8]),
             "margin": qpair[b * n_sph, 0] - sph[0, 5],
             "plats": plat[p0:p0 + int(row[10])],
+        })
+    return out
+
+
+def lowered_balls(ks: AntKernelSpec) -> List[Dict[str, object]]:
+    """The free object balls of an :class:`AntKernelSpec` under the field
+    names of the JAX package's ``ant_math.AntBall`` (float32 as the
+    kernels read them): qadr, vadr, radius, mass, com, inertia, margin,
+    solimp, solref_tc, friction; and, per test sphere, the constants of its
+    pair with the ball that ``ant_math._ball_rows`` (:862-866) mixes:
+    ``pair_margin``, ``pair_solimp (S, 3)``, ``pair_solref_tc``,
+    ``pair_friction``, and the solref damping ratio ``pair_dampr``, which
+    the JAX kernel takes as 1."""
+    out = []
+    bpair = ks.table("bpair")
+    n_sph = ks.offsets["sph"][1]
+    for b, row in enumerate(ks.table("ball")):
+        pr = bpair[b * n_sph:(b + 1) * n_sph]
+        out.append({
+            "qadr": int(row[0]), "vadr": int(row[1]), "radius": row[2],
+            "mass": row[3], "com": row[4:7], "inertia": row[7],
+            "margin": row[8], "solimp": row[11:14], "solref_tc": row[14],
+            "friction": row[10], "floor_margin": row[9] - row[8],
+            "dampr": row[15],
+            "pair_margin": pr[:, 0], "pair_friction": pr[:, 1],
+            "pair_solimp": pr[:, 2:5], "pair_solref_tc": pr[:, 5],
+            "pair_dampr": pr[:, 6],
         })
     return out
 

@@ -1,33 +1,42 @@
 // Ant robot in a maze: the step and rollout kernels, as templates over the
 // world's compile-time bounds.  ant_lane.cu instantiates the object-free
 // mazes (no world dofs), ant_blocks.cu the block worlds (up to 3 movable
-// blocks and 6 slide dofs); each .cu file compiles on its own, so the two
-// builds run side by side.
+// blocks and 6 slide dofs), ant_balls.cu the ball worlds (one free object
+// ball); each .cu file compiles on its own, so the builds run side by side.
 //
 // Replaces the TPU kernel of the JAX package
 //   mujoco_maze_tpu/ops/ant_pallas.py build_step_kernel (:228) and
 //   build_rollout_kernel (:222) -> _make_kernel.env_step (:139, with the
-//   BlockCarry heads :158-171), _rk4_scan (:105), with ops/ant_math.py
-//   forward_ant (:1113, the block dofs :1117-1136, travel limits
-//   :1199-1233, falling support :1235-1268), fk_ant (:198), mass_matrix
-//   (:309), rne_bias (:347), _contact_rows (:890, moving boxes :918-968),
-//   integrate_ant (:1524), and sample_ctrl / sample_reset (:186, :192),
-// for worlds without object balls or spin blocks.
+//   BlockCarry heads :158-171 and the Billiard heads :157-160), _rk4_scan
+//   (:105), with ops/ant_math.py forward_ant (:1113, the block dofs
+//   :1117-1136, the ball blocks :1137-1170, travel limits :1199-1233,
+//   falling support :1235-1268), fk_ant (:198), mass_matrix (:309),
+//   rne_bias (:347), _contact_rows (:890, moving boxes :918-968, the ball
+//   rows _ball_rows :814), _ball_kin (:653), _ball_mass_block (:681),
+//   _ball_bias (:708), _sphere_aabb_nearest2 (:751), integrate_ant (:1524,
+//   with extra_free), and sample_ctrl / sample_reset (:186, :192),
+// for worlds without spin blocks.
 //
 // What it computes.  One env step is frame_skip (5) RK4 steps of dt 0.02
-// of the free-root ant and the world's slide dofs; each RK4 step runs
-// four forward-dynamics evaluations.  A forward evaluation does, per env:
+// of the free-root ant, the world's slide dofs and the free object ball;
+// each RK4 step runs four forward-dynamics evaluations.  A forward
+// evaluation does, per env:
 //   * the kinematics of the 13 ant bodies (torso from the quaternion, each
 //     leg joint a Rodrigues rotation about its world axis); a block's
-//     center is its base plus its slide offsets;
+//     center is its base plus its slide offsets; the ball's pose from its
+//     own free joint (position and quaternion);
 //   * the 14x14 ant mass matrix in Jacobian form (sum over bodies of
 //     m Jc^T Jc + W^T Iw W, plus armature), its Cholesky factor (pivots
 //     clamped at 1e-12) and its inverse; the world dofs are decoupled in
 //     M, so their block is the diagonal of the block masses and is never
-//     factored;
+//     factored; the ball's 6x6 block (composite rigid body form about the
+//     ball's own origin), factored and inverted alike;
 //   * the RNE bias of the ant (gravity and velocity products, in world
 //     axes about the torso origin, where float32 keeps the robot's own
-//     scale); gravity m g on the z slides;
+//     scale), and of the ball about its own origin (physics/engine.py
+//     takes each kinematic tree about its root's origin: about the torso,
+//     a ball far from the ant would lose every digit of its 6x6 block);
+//     gravity m g on the z slides;
 //   * impedance joint limits on the 8 hinges and on every limited slide
 //     (physics/engine.py limit_force), from the smooth acceleration qacc0;
 //   * the falling blocks' coupled platform support and z limit
@@ -35,14 +44,19 @@
 //     platform top the block's center overlaps;
 //   * contacts: every test sphere (37) against the floor plane, against
 //     the two nearest static boxes (walls and platforms) of those within
-//     the ant's reach of the torso, and against every movable block; a
-//     contact is active when dist < margin; 3 pyramid rows each (normal,
-//     two tangents), a row's entry on a block dof -dir[axis]; projected
-//     Jacobi, 4 sweeps, omega 0.6, on the regularised Delassus matrix
-//     (physics/contact.py contact_qfrc);
+//     the ant's reach of the torso, against every movable block, and
+//     against the ball; the ball against the floor and the two nearest of
+//     ALL static boxes (it roams the maze: the torso's reach says nothing
+//     of it); a contact is active when dist < margin; 3 pyramid rows each
+//     (normal, two tangents), a row's entry on a block dof -dir[axis], on
+//     the ball's dofs +-(dir[k], (x - o) x dir . R e_k) (the ball is the
+//     first body against the static world, the second against a sphere);
+//     projected Jacobi, 4 sweeps, omega 0.6, on the regularised Delassus
+//     matrix (physics/contact.py contact_qfrc);
 //   * qacc = M^-1 (tau + f_con - bias).
-// Then the task heads on (x, y, z) of the torso, or of the first block's
-// center where the task observes it first (BlockCarry): the inner reward
+// Then the task heads on (x, y, z) of the torso, or of the first observed
+// object where the task observes it first: the first block's center
+// (BlockCarry) or the ball's body origin (Billiard): the inner reward
 // (planar torso speed minus 1e-4 |ctrl|^2, scaled) plus the goal/dist
 // head, first hit wins.
 //
@@ -50,23 +64,26 @@
 // tensors are read in place with their row strides.  The per-spec data
 // are runtime tables, packed into one float32 buffer that each block
 // stages into shared memory: the bodies, the dofs, the actuators, the test
-// spheres, the static boxes, the goals, the reset pose, and for the block
+// spheres, the static boxes, the goals, the reset pose, for the block
 // worlds the world dofs, the blocks, the platforms under falling blocks
-// and the pair-mixed constants of every sphere-vs-block pair.  So one
-// build of each instantiation serves every Ant maze of its kind: the
-// counts (blocks, world dofs, spheres, boxes) arrive at run time and only
-// their maxima are compile-time.  The scalars come by value in AntParams.
-// Per-thread state that does not fit in registers (the 13 body poses, the
-// 14x14 factor and inverse, the contact rows) lives in local memory.
-// Only ACTIVE contacts are kept, in a compacted list sized for every
-// candidate (kMaxSph x (3 + blocks)): an inactive contact's force is
-// exactly 0 after the projection (contact.py project), so it adds nothing
-// to any sum.  The static boxes a sphere is tested against are those whose
-// box lies within the ant's reach of the torso (P.reach2, a sound bound
-// from the model: a box farther away can neither touch a sphere nor rank
-// above a box that does), so the picks equal the nearest two of ALL boxes,
-// as the plain version takes them.  The row and sweep loops stay rolled
-// (#pragma unroll 1) to keep the compile short.
+// and the pair-mixed constants of every sphere-vs-block pair, and for the
+// ball worlds the ball and the pair-mixed constants of every sphere-vs-ball
+// pair.  So one build of each instantiation serves every Ant maze of its
+// kind: the counts (blocks, world dofs, spheres, boxes) arrive at run time
+// and only their maxima are compile-time.  The scalars come by value in
+// AntParams.  Per-thread state that does not fit in registers (the 13 body
+// poses, the 14x14 factor and inverse, the contact rows) lives in local
+// memory.  Only ACTIVE contacts are kept, in a compacted list sized for
+// every candidate (kMaxSph x (3 + blocks), and 3 + kMaxSph more with a
+// ball): an inactive contact's force is exactly 0 after the projection
+// (contact.py project), so it adds nothing to any sum.  The static boxes a
+// sphere is tested against are those whose box lies within the ant's reach
+// of the torso (P.reach2, a sound bound from the model: a box farther away
+// can neither touch a sphere nor rank above a box that does), so the picks
+// equal the nearest two of ALL boxes, as the plain version takes them.
+// The row and sweep loops stay rolled (#pragma unroll 1) to keep the
+// compile short.  All of the ball's code sits behind `if constexpr (NBALL
+// > 0)`: the two other instantiations compile to the arithmetic they had.
 //
 // What bounds it on an H100.  About 270 bytes per env and step move
 // (1.1 MB at B = 4096), against some 7 x 10^5 fp32 operations per
@@ -105,9 +122,9 @@
 struct AntParams {
   // offsets of the tables in the packed buffer (floats) and their sizes
   int off_body, off_dof, off_act, off_sph, off_box, off_goal, off_qpos0;
-  int off_wdof, off_blk, off_plat, off_qpair;
+  int off_wdof, off_blk, off_plat, off_qpair, off_ball, off_bpair;
   int n_floats;
-  int n_sph, n_box, n_goal, n_w, n_blk;
+  int n_sph, n_box, n_goal, n_w, n_blk, n_ball;
   int frame_skip, solver_iters, reward_type, episode_limit, obs_offset;
   float h, h_half;            // RK4 step and float32(h / 2)
   float dt_outer;             // h * frame_skip: the reward's velocity step
@@ -148,14 +165,30 @@ constexpr int kBlkCols = 11;   // base3, half3, first dof, dof count,
                                // falling z dof (-1), platform row, count
 constexpr int kPlatCols = 5;   // x, y, half x + block half x, half y + ..., top
 constexpr int kPairCols = 7;   // margin, mu, d0, dmax, width, tc, dampr
+                               // (the sphere-vs-ball pairs alike)
+constexpr int kBallCols = 16;  // qadr, vadr, radius, mass, com3, inertia,
+                               // margin, floor margin, mu, d0, dmax, width,
+                               // tc (clamped), dampr
+constexpr int kBallPar = 10;   // the ball's (mu, d0, .., dampr) in its row
 
-// The compile-time maxima of one instantiation: W world dofs, NBLK blocks.
-template <int W, int NBLK>
+// A contact's row entries: the sphere body's root-path dofs, then a
+// block's slide dofs (with blocks), then the ball's 6 dofs (with a ball).
+template <int NBLK, int NBALL>
+struct Rows {
+  static constexpr int kBall = kBodyDofs + (NBLK > 0 ? 3 : 0);
+  static constexpr int kR = kBall + 6 * NBALL;
+};
+
+// The compile-time maxima of one instantiation: W slide dofs, NBLK
+// blocks, NBALL free balls (0 or 1; its 6 dofs follow the slides').
+template <int W, int NBLK, int NBALL = 0>
 struct Dims {
-  static constexpr int kNv = kNa + W;
-  static constexpr int kNq = kNv + 1;
-  static constexpr int kRowDofs = kBodyDofs + (NBLK > 0 ? 3 : 0);
-  static constexpr int kMaxCon = kMaxSph * (3 + NBLK);
+  static_assert(NBALL == 0 || (W == 0 && NBLK == 0 && NBALL == 1),
+                "one ball, in a world without blocks");
+  static constexpr int kNv = kNa + W + 6 * NBALL;
+  static constexpr int kNq = kNv + 1 + NBALL;   // a quaternion per free joint
+  static constexpr int kRowDofs = Rows<NBLK, NBALL>::kR;
+  static constexpr int kMaxCon = kMaxSph * (3 + NBLK) + NBALL * (3 + kMaxSph);
   static_assert(kMaxCon <= 32 * 8, "trace bits");
   static_assert(kNv <= 24 && NBLK <= 4, "limit and support bits");
 };
@@ -168,13 +201,30 @@ struct Kin {
   float anc[kNa][3];     // world anchor of each rotational dof
 };
 
+// The free ball's tree, about its own origin o (its free joint's
+// position): the motion subspace of its 6 dofs (linear world axes, then
+// the body axes), its spatial inertia, its world sphere centre, and the
+// inverse of its 6x6 mass block.
+struct Ball {
+  int va;                // its first dof (q index va + 1)
+  float o[3];            // the tree's reference point, the body origin
+  float c[3];            // the sphere centre (the com), world
+  float cdof[6][6];      // [w; v] of each dof about o
+  float m, h[3], I[6];   // mass, m (c - o), inertia about o (xx yy zz xy
+                         // xz yz)
+  float Minv[6][6];
+};
+
 template <int R>
 struct Contact {         // one active contact: 3 rows (n, t1, t2)
-  int body;              // the ant body of the sphere
+  int body;              // the ant body of the sphere, or -1 (the ball
+                         // against the static world)
   int blk;               // the moving block of the pair, or -1
+  int ball;              // +1: the ball is the first body, -1: the second,
+                         // 0: not in the contact
   float mu;
   float J[3][R];         // row entries on the body's dof list, then the
-                         // block's dofs
+                         // block's dofs, then the ball's
   float rhs[3];          // aref - a0
   float rreg[3];
   float denom[3];
@@ -193,6 +243,8 @@ struct Tables {
   const float* blk;
   const float* plat;
   const float* qpair;
+  const float* ball;
+  const float* bpair;
 };
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
@@ -476,29 +528,30 @@ __device__ void rne_bias(const Tables& tb, const AntParams& P, const Kin& k,
 }
 
 // Minv = M^-1 by the Cholesky factor (linalg.spd_inverse): M is
-// overwritten with L.
-__device__ void spd_inverse(float M[kNa][kNa], float Minv[kNa][kNa]) {
+// overwritten with L.  N = 14 for the ant, 6 for the ball.
+template <int N>
+__device__ void spd_inverse(float M[N][N], float Minv[N][N]) {
 #pragma unroll 1
-  for (int j = 0; j < kNa; ++j) {
-    for (int i = j; i < kNa; ++i) {
+  for (int j = 0; j < N; ++j) {
+    for (int i = j; i < N; ++i) {
       float s = M[i][j];
       for (int kk = 0; kk < j; ++kk) s = s - M[i][kk] * M[j][kk];
       M[i][j] = s;  // provisional: divided by the pivot below
     }
     const float d = sqrtf(fmaxf(M[j][j], 1e-12f));
-    for (int i = j; i < kNa; ++i) M[i][j] = M[i][j] / d;
+    for (int i = j; i < N; ++i) M[i][j] = M[i][j] / d;
   }
   // forward substitution L Y = I, then back substitution L^T X = Y
 #pragma unroll 1
-  for (int c = 0; c < kNa; ++c) {
-    for (int i = 0; i < kNa; ++i) {
+  for (int c = 0; c < N; ++c) {
+    for (int i = 0; i < N; ++i) {
       float acc = i == c ? 1.f : 0.f;
       for (int kk = 0; kk < i; ++kk) acc = acc - M[i][kk] * Minv[kk][c];
       Minv[i][c] = acc / M[i][i];
     }
-    for (int i = kNa - 1; i >= 0; --i) {
+    for (int i = N - 1; i >= 0; --i) {
       float acc = Minv[i][c];
-      for (int kk = i + 1; kk < kNa; ++kk) acc = acc - M[kk][i] * Minv[kk][c];
+      for (int kk = i + 1; kk < N; ++kk) acc = acc - M[kk][i] * Minv[kk][c];
       Minv[i][c] = acc / M[i][i];
     }
   }
@@ -511,6 +564,115 @@ __device__ __forceinline__ void minv_mul(const float Minv[kNa][kNa],
     for (int j = 0; j < kNa; ++j) s = s + Minv[i][j] * x[j];
     y[i] = s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// the free ball's tree (engine.kin_dyn, crb_mass_matrix, rne_bias on its
+// six dofs), about its own origin
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float dot6(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2] + a[3] * b[3] +
+         a[4] * b[4] + a[5] * b[5];
+}
+
+__device__ __forceinline__ void quat_to_mat(const float* q, float* R) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  R[0] = 1 - 2 * (y * y + z * z);
+  R[1] = 2 * (x * y - w * z);
+  R[2] = 2 * (x * z + w * y);
+  R[3] = 2 * (x * y + w * z);
+  R[4] = 1 - 2 * (x * x + z * z);
+  R[5] = 2 * (y * z - w * x);
+  R[6] = 2 * (x * z - w * y);
+  R[7] = 2 * (y * z + w * x);
+  R[8] = 1 - 2 * (x * x + y * y);
+}
+
+// The ball's spatial inertia times a motion s = [w; v] about its origin:
+// [Io w + h x v; m v - h x w].
+__device__ __forceinline__ void ball_inertia_mul(const Ball& bl,
+                                                 const float* s, float* out) {
+  const float* w = s;
+  const float* v = s + 3;
+  float hv[3], hw[3];
+  cross3(bl.h, v, hv);
+  cross3(bl.h, w, hw);
+  out[0] = bl.I[0] * w[0] + bl.I[3] * w[1] + bl.I[4] * w[2] + hv[0];
+  out[1] = bl.I[3] * w[0] + bl.I[1] * w[1] + bl.I[5] * w[2] + hv[1];
+  out[2] = bl.I[4] * w[0] + bl.I[5] * w[1] + bl.I[2] * w[2] + hv[2];
+  for (int i = 0; i < 3; ++i) out[3 + i] = bl.m * v[i] - hw[i];
+}
+
+// The ball's pose, motion subspace and spatial inertia about its origin
+// o, its bias (gravity and velocity products, into bias[va..va + 5]) and
+// the inverse of its 6x6 mass block.  Its free joint's linear dofs move
+// along the world axes, its angular dofs turn about the body axes through
+// o; the sphere sits at the body-frame com.
+__device__ void ball_dynamics(const Tables& tb, const AntParams& P,
+                              const float* q, const float* v, Ball& bl,
+                              float* bias) {
+  const float* row = tb.ball;
+  const int qa = (int)row[0];
+  const int va = (int)row[1];
+  bl.va = va;
+  for (int i = 0; i < 3; ++i) bl.o[i] = q[qa + i];
+  float R[9], off[3];
+  quat_to_mat(q + qa + 3, R);
+  mat_vec3(R, row + 4, off);
+  for (int i = 0; i < 3; ++i) bl.c[i] = bl.o[i] + off[i];
+  for (int kk = 0; kk < 3; ++kk) {
+    for (int i = 0; i < 6; ++i) {
+      bl.cdof[kk][i] = 0.f;
+      bl.cdof[3 + kk][i] = 0.f;
+    }
+    bl.cdof[kk][3 + kk] = 1.f;
+    for (int i = 0; i < 3; ++i) bl.cdof[3 + kk][i] = R[i * 3 + kk];
+  }
+  // the isotropic inertia about the com, moved to o: Ic + m (|c|^2 1 - c c^T)
+  const float m = row[3], Ic = row[7];
+  const float c[3] = {bl.c[0] - bl.o[0], bl.c[1] - bl.o[1],
+                      bl.c[2] - bl.o[2]};
+  bl.m = m;
+  for (int i = 0; i < 3; ++i) bl.h[i] = m * c[i];
+  bl.I[0] = Ic + m * (c[1] * c[1] + c[2] * c[2]);
+  bl.I[1] = Ic + m * (c[0] * c[0] + c[2] * c[2]);
+  bl.I[2] = Ic + m * (c[0] * c[0] + c[1] * c[1]);
+  bl.I[3] = -(m * (c[0] * c[1]));
+  bl.I[4] = -(m * (c[0] * c[2]));
+  bl.I[5] = -(m * (c[1] * c[2]));
+  // its velocity; the body axes turn with the full velocity (cdof_dot)
+  float vel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int d = 0; d < 6; ++d)
+    for (int i = 0; i < 6; ++i) vel[i] = vel[i] + bl.cdof[d][i] * v[va + d];
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, P.gravity};
+  for (int d = 3; d < 6; ++d) {
+    float sd[6];
+    motion_cross(vel, bl.cdof[d], sd);
+    for (int i = 0; i < 6; ++i) acc[i] = acc[i] + sd[i] * v[va + d];
+  }
+  // f = I a + v x* (I v); bias = cdof . f
+  float Ia[6], Iv[6], fx[6], t[3], f[6];
+  ball_inertia_mul(bl, acc, Ia);
+  ball_inertia_mul(bl, vel, Iv);
+  cross3(vel, Iv, fx);
+  cross3(vel + 3, Iv + 3, t);
+  for (int i = 0; i < 3; ++i) fx[i] = fx[i] + t[i];
+  cross3(vel, Iv + 3, fx + 3);
+  for (int i = 0; i < 6; ++i) f[i] = Ia[i] + fx[i];
+  for (int d = 0; d < 6; ++d) bias[va + d] = dot6(bl.cdof[d], f);
+  // M = (I s_a) . s_b over the tree, then its inverse
+  float M[6][6];
+#pragma unroll 1
+  for (int a = 0; a < 6; ++a) {
+    float F[6];
+    ball_inertia_mul(bl, bl.cdof[a], F);
+    for (int b = 0; b <= a; ++b) {
+      const float x = dot6(F, bl.cdof[b]);
+      M[a][b] = x;
+      M[b][a] = x;
+    }
+  }
+  spd_inverse<6>(M, bl.Minv);
 }
 
 // Sphere vs an axis-aligned box bx = (center3, half3) (contact.py
@@ -545,29 +707,97 @@ __device__ void sphere_box(const float* c, float r, const float* bx,
   }
 }
 
+// The two nearest static boxes of a sphere by dist - box margin (strict
+// <: the first of equal keys wins); a pick no box filled stays at an
+// infinite distance, never active.
+struct Nearest2 {
+  float e[2] = {INFINITY, INFINITY}, d[2] = {INFINITY, INFINITY};
+  float p[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  float n[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  float m[2] = {0.f, 0.f};
+  bool in[2] = {false, false};
+
+  __device__ __forceinline__ void test(const float* c, float r,
+                                       const float* bx) {
+    float dist, pos[3], nn[3];
+    bool inside;
+    sphere_box(c, r, bx, &dist, pos, nn, &inside);
+    const float ee = dist - bx[6];
+    const bool b1 = ee < e[0];
+    const bool b2 = !b1 && ee < e[1];
+    if (b1) {
+      e[1] = e[0]; d[1] = d[0]; m[1] = m[0];
+      in[1] = in[0];
+      for (int i = 0; i < 3; ++i) {
+        p[1][i] = p[0][i];
+        n[1][i] = n[0][i];
+      }
+      e[0] = ee; d[0] = dist; m[0] = bx[6];
+      in[0] = inside;
+      for (int i = 0; i < 3; ++i) {
+        p[0][i] = pos[i];
+        n[0][i] = nn[i];
+      }
+    } else if (b2) {
+      e[1] = ee; d[1] = dist; m[1] = bx[6];
+      in[1] = inside;
+      for (int i = 0; i < 3; ++i) {
+        p[1][i] = pos[i];
+        n[1][i] = nn[i];
+      }
+    }
+  }
+};
+
 // Minv[i][j] over the block-diagonal structure: the ant's 14x14 inverse,
-// then the diagonal 1/mass of the world dofs.
+// then the diagonal 1/mass of the slide dofs, or the ball's 6x6 inverse.
+template <int NBALL>
 __device__ __forceinline__ float minv_at(const Tables& tb,
-                                         const float Minv[kNa][kNa], int i,
-                                         int j) {
+                                         const float Minv[kNa][kNa],
+                                         const Ball* bl, int i, int j) {
   if (i < kNa && j < kNa) return Minv[i][j];
-  if (i == j) return tb.wdof[(i - kNa) * kWdofCols + 6];
-  return 0.f;
+  if constexpr (NBALL > 0) {
+    const int va = bl->va;
+    return i >= va && j >= va ? bl->Minv[i - va][j - va] : 0.f;
+  } else {
+    if (i == j) return tb.wdof[(i - kNa) * kWdofCols + 6];
+    return 0.f;
+  }
 }
 
-// y = Minv x over nv dofs.
+// y = Minv x over the ant's and the slides' ns dofs, and the ball's six.
+template <int NBALL>
 __device__ void minv_mul_all(const Tables& tb, const float Minv[kNa][kNa],
-                             int nv, const float* x, float* y) {
+                             const Ball* bl, int ns, const float* x,
+                             float* y) {
   minv_mul(Minv, x, y);
-  for (int d = kNa; d < nv; ++d) y[d] = tb.wdof[(d - kNa) * kWdofCols + 6] * x[d];
+  for (int d = kNa; d < ns; ++d) y[d] = tb.wdof[(d - kNa) * kWdofCols + 6] * x[d];
+  if constexpr (NBALL > 0) {
+    const int va = bl->va;
+    for (int i = 0; i < 6; ++i) {
+      float s = 0.f;
+      for (int j = 0; j < 6; ++j) s = s + bl->Minv[i][j] * x[va + j];
+      y[va + i] = s;
+    }
+  }
 }
 
 // The dof of entry e of a contact's row list: the sphere body's root-path
-// dofs, then the block's slide dofs (-1 where there are fewer).
-template <int R>
+// dofs, then the block's slide dofs, then the ball's six (-1 where there
+// are fewer, or where that body is not in the contact).
+template <int NBLK, int NBALL, int R>
 __device__ __forceinline__ int con_dof(const Tables& tb, const Contact<R>& ct,
                                        int e) {
-  if (e < kBodyDofs) return row_dof(tb.body + ct.body * kBodyCols, e);
+  if (e < kBodyDofs) {
+    if constexpr (NBALL > 0) {
+      if (ct.body < 0) return -1;
+    }
+    return row_dof(tb.body + ct.body * kBodyCols, e);
+  }
+  if constexpr (NBALL > 0) {
+    constexpr int kBall = Rows<NBLK, NBALL>::kBall;
+    if (e >= kBall) return ct.ball ? (int)tb.ball[1] + (e - kBall) : -1;
+  }
   if (ct.blk < 0) return -1;
   const float* br = tb.blk + ct.blk * kBlkCols;
   const int k = e - kBodyDofs;
@@ -577,17 +807,24 @@ __device__ __forceinline__ int con_dof(const Tables& tb, const Contact<R>& ct,
 // Append one active contact: its three rows on the contact's dof list, the
 // impedance constants, A = J Minv J^T, aref - a0, R and the denominator
 // (contact.py contact_qfrc, row by row).  par = (mu, d0, dmax, width, tc,
-// dampr) of the sphere, or of the sphere-block pair.
-template <int R>
+// dampr) of the sphere, of the sphere-block or sphere-ball pair, or of the
+// ball.  body: the sphere's ant body (-1: none); blk: the pair's block
+// (-1: none); ball: +1 if the ball is the contact's first body, -1 if its
+// second, 0 if it is not in it.
+template <int NBLK, int NBALL>
 __device__ void add_contact(const Tables& tb, const Kin& k,
-                            const float Minv[kNa][kNa], const float* v,
-                            const float* qacc0, const float* par, int body,
-                            int blk, const float* pos, const float* nrm,
-                            float dist, float margin, Contact<R>& ct) {
+                            const float Minv[kNa][kNa], const Ball* bl,
+                            const float* v, const float* qacc0,
+                            const float* par, int body, int blk, int ball,
+                            const float* pos, const float* nrm, float dist,
+                            float margin,
+                            Contact<Rows<NBLK, NBALL>::kR>& ct) {
+  constexpr int R = Rows<NBLK, NBALL>::kR;
   const float mu = par[0], d0 = par[1], dmax = par[2], width = par[3];
   const float tc = par[4], dampr = par[5];
   ct.body = body;
   ct.blk = blk;
+  ct.ball = ball;
   ct.mu = mu;
   // tangent frame: reference x if |n.x| < 0.5, else y
   const bool use_x = fabsf(nrm[0]) < 0.5f;
@@ -598,14 +835,37 @@ __device__ void add_contact(const Tables& tb, const Kin& k,
   for (int i = 0; i < 3; ++i) t1[i] = t1[i] / tn;
   cross3(nrm, t1, t2);
   const float* dirs[3] = {nrm, t1, t2};
+  // the ball's columns: [(x - o) x dir; dir] . cdof, about its origin o
+  float Fb[3][6];
+  if constexpr (NBALL > 0) {
+    if (ball) {
+      const float rel[3] = {pos[0] - bl->o[0], pos[1] - bl->o[1],
+                            pos[2] - bl->o[2]};
+      for (int r = 0; r < 3; ++r) {
+        cross3(rel, dirs[r], Fb[r]);
+        for (int i = 0; i < 3; ++i) Fb[r][3 + i] = dirs[r][i];
+      }
+    }
+  }
   int dof[R];
   for (int e = 0; e < R; ++e) {
-    const int d = con_dof(tb, ct, e);
+    const int d = con_dof<NBLK, NBALL>(tb, ct, e);
     dof[e] = d;
     if (e < kBodyDofs) {
       float J[3], W[3];
       if (d >= 0) dof_basis(k, d, pos, J, W);
       for (int r = 0; r < 3; ++r) ct.J[r][e] = d >= 0 ? dot3(J, dirs[r]) : 0.f;
+    } else if constexpr (NBALL > 0) {
+      // the ball's entries (a ball world has no blocks): + as the
+      // contact's first body, - as its second
+      for (int r = 0; r < 3; ++r) {
+        float x = 0.f;
+        if (d >= 0) {
+          x = dot6(Fb[r], bl->cdof[d - bl->va]);
+          if (ball < 0) x = -x;
+        }
+        ct.J[r][e] = x;
+      }
     } else {
       // the block is the contact's second body: a slide moves its box
       // along its axis, so the row's entry is -dir[axis]
@@ -626,7 +886,8 @@ __device__ void add_contact(const Tables& tb, const Kin& k,
       if (dof[i] < 0) continue;
       float s = 0.f;
       for (int j = 0; j < R; ++j)
-        if (dof[j] >= 0) s = s + J[j] * minv_at(tb, Minv, dof[j], dof[i]);
+        if (dof[j] >= 0)
+          s = s + J[j] * minv_at<NBALL>(tb, Minv, bl, dof[j], dof[i]);
       A = A + s * J[i];
       vr = vr + J[i] * v[dof[i]];
       ar = ar + J[i] * qacc0[dof[i]];
@@ -650,11 +911,11 @@ __device__ __forceinline__ void project(Contact<R>& ct) {
 }
 
 // J^T f of one contact, added into x (nv).
-template <int R>
+template <int NBLK, int NBALL, int R>
 __device__ __forceinline__ void add_jt_f(const Tables& tb,
                                          const Contact<R>& ct, float* x) {
   for (int e = 0; e < R; ++e) {
-    const int d = con_dof(tb, ct, e);
+    const int d = con_dof<NBLK, NBALL>(tb, ct, e);
     if (d < 0) continue;
     x[d] = x[d] + (ct.J[0][e] * ct.f[0] + ct.J[1][e] * ct.f[1] +
                    ct.J[2][e] * ct.f[2]);
@@ -675,18 +936,23 @@ __device__ __forceinline__ void mark(int* trace, int bit, bool inside,
 
 // Contact detection, compacted active list and the projected-Jacobi
 // solve; adds the contact force into fcon.  bc holds each block's box
-// (center3, half3).  Sets the trace bits of the active contacts (``mark``;
-// kind 0 the floor, 1-2 the first and second static-box pick, 3 + b block
-// b) when trace is not null.  Returns the active count.
-template <int W, int NBLK>
+// (center3, half3), bl the ball's tree.  Sets the trace bits of the
+// active contacts (``mark``; kind 0 the floor, 1-2 the first and second
+// static-box pick, 3 + b block b, bit kind * S + sphere; then, from
+// (3 + blocks) * S, the ball against the floor, its first and second box
+// pick, then each sphere against the ball) when trace is not null.
+// Returns the active count.
+template <int W, int NBLK, int NBALL>
 __device__ int contact_force(const Tables& tb, const AntParams& P,
                              const Kin& k, const float Minv[kNa][kNa],
-                             const float* v, const float* qacc0,
-                             const float (*bc)[6], float* fcon,
-                             Contact<Dims<W, NBLK>::kRowDofs>* con,
+                             const Ball* bl, const float* v,
+                             const float* qacc0, const float (*bc)[6],
+                             float* fcon,
+                             Contact<Dims<W, NBLK, NBALL>::kRowDofs>* con,
                              int* trace) {
-  constexpr int R = Dims<W, NBLK>::kRowDofs;
-  const int nv = kNa + P.n_w;
+  constexpr int R = Dims<W, NBLK, NBALL>::kRowDofs;
+  const int ns = kNa + P.n_w;
+  const int nv = ns + 6 * NBALL;
   // the static boxes within reach of the torso, as a bit set
   uint32_t near[kBoxWords];
   for (int w = 0; w < kBoxWords; ++w) near[w] = 0u;
@@ -702,6 +968,7 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
   }
   int nc = 0;
   const int S = P.n_sph;
+  const int ball_bit = (3 + P.n_blk) * S;
 #pragma unroll 1
   for (int s = 0; s < S; ++s) {
     const float* sp = tb.sph + s * kSphCols;
@@ -716,17 +983,12 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
         const float pos[3] = {c[0], c[1], c[2] - r};
         const float up[3] = {0.f, 0.f, 1.f};
         mark(trace, s, false, up);
-        add_contact<R>(tb, k, Minv, v, qacc0, sp + 7, body, -1, pos, up, dist,
-                       sp[6], con[nc++]);
+        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, sp + 7, body, -1,
+                                 0, pos, up, dist, sp[6], con[nc++]);
       }
     }
-    // the two nearest boxes within reach by dist - box margin (strict <);
-    // a pick no box filled stays at an infinite distance, never active
-    float best_e[2] = {INFINITY, INFINITY}, best_d[2] = {INFINITY, INFINITY};
-    float best_p[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-    float best_n[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-    float best_m[2] = {0.f, 0.f};
-    bool best_in[2] = {false, false};
+    // the two nearest boxes within reach
+    Nearest2 pick;
 #pragma unroll 1
     for (int w = 0; w < kBoxWords; ++w) {
       uint32_t m = near[w];
@@ -734,42 +996,16 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
       while (m) {
         const int b = (w << 5) + __ffs(m) - 1;
         m &= m - 1u;
-        const float* bx = tb.box + b * kBoxCols;
-        float dist, pos[3], n[3];
-        bool inside;
-        sphere_box(c, r, bx, &dist, pos, n, &inside);
-        const float e = dist - bx[6];
-        const bool b1 = e < best_e[0];
-        const bool b2 = !b1 && e < best_e[1];
-        if (b1) {
-          best_e[1] = best_e[0]; best_d[1] = best_d[0]; best_m[1] = best_m[0];
-          best_in[1] = best_in[0];
-          for (int i = 0; i < 3; ++i) {
-            best_p[1][i] = best_p[0][i];
-            best_n[1][i] = best_n[0][i];
-          }
-          best_e[0] = e; best_d[0] = dist; best_m[0] = bx[6];
-          best_in[0] = inside;
-          for (int i = 0; i < 3; ++i) {
-            best_p[0][i] = pos[i];
-            best_n[0][i] = n[i];
-          }
-        } else if (b2) {
-          best_e[1] = e; best_d[1] = dist; best_m[1] = bx[6];
-          best_in[1] = inside;
-          for (int i = 0; i < 3; ++i) {
-            best_p[1][i] = pos[i];
-            best_n[1][i] = n[i];
-          }
-        }
+        pick.test(c, r, tb.box + b * kBoxCols);
       }
     }
     for (int j = 0; j < 2; ++j) {
-      const float margin = sp[5] + best_m[j];
-      if (best_d[j] < margin) {
-        mark(trace, (1 + j) * S + s, best_in[j], best_n[j]);
-        add_contact<R>(tb, k, Minv, v, qacc0, sp + 7, body, -1, best_p[j],
-                       best_n[j], best_d[j], margin, con[nc++]);
+      const float margin = sp[5] + pick.m[j];
+      if (pick.d[j] < margin) {
+        mark(trace, (1 + j) * S + s, pick.in[j], pick.n[j]);
+        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, sp + 7, body, -1,
+                                 0, pick.p[j], pick.n[j], pick.d[j], margin,
+                                 con[nc++]);
       }
     }
     // every movable block (the box frame is the world's: slides only)
@@ -781,8 +1017,52 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
       sphere_box(c, r, bc[b], &dist, pos, n, &inside);
       if (dist < pr[0]) {
         mark(trace, (3 + b) * S + s, inside, n);
-        add_contact<R>(tb, k, Minv, v, qacc0, pr + 1, body, b, pos, n, dist,
-                       pr[0], con[nc++]);
+        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, pr + 1, body, b,
+                                 0, pos, n, dist, pr[0], con[nc++]);
+      }
+    }
+    // the ball, the pair's second body: the normal from its centre to the
+    // sphere's, the point midway through the overlap
+    if constexpr (NBALL > 0) {
+      const float* pr = tb.bpair + s * kPairCols;
+      const float rb = tb.ball[2];
+      const float d[3] = {c[0] - bl->c[0], c[1] - bl->c[1], c[2] - bl->c[2]};
+      const float dn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-12f);
+      const float n[3] = {d[0] / dn, d[1] / dn, d[2] / dn};
+      const float dist = dn - (r + rb);
+      if (dist < pr[0]) {
+        const float reach = rb + dist * 0.5f;
+        const float pos[3] = {bl->c[0] + n[0] * reach, bl->c[1] + n[1] * reach,
+                              bl->c[2] + n[2] * reach};
+        mark(trace, ball_bit + 3 + s, false, n);
+        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, pr + 1, body, -1,
+                                 -1, pos, n, dist, pr[0], con[nc++]);
+      }
+    }
+  }
+  // the ball against the floor and the two nearest of all static boxes
+  if constexpr (NBALL > 0) {
+    const float* br = tb.ball;
+    const float* c = bl->c;
+    const float rb = br[2];
+    const float dist = c[2] - rb;
+    if (dist < br[9]) {
+      const float pos[3] = {c[0], c[1], c[2] - rb};
+      const float up[3] = {0.f, 0.f, 1.f};
+      mark(trace, ball_bit, false, up);
+      add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, br + kBallPar, -1,
+                               -1, 1, pos, up, dist, br[9], con[nc++]);
+    }
+    Nearest2 pick;
+#pragma unroll 1
+    for (int b = 0; b < P.n_box; ++b) pick.test(c, rb, tb.box + b * kBoxCols);
+    for (int j = 0; j < 2; ++j) {
+      const float margin = br[8] + pick.m[j];
+      if (pick.d[j] < margin) {
+        mark(trace, ball_bit + 1 + j, pick.in[j], pick.n[j]);
+        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, br + kBallPar, -1,
+                                 -1, 1, pick.p[j], pick.n[j], pick.d[j],
+                                 margin, con[nc++]);
       }
     }
   }
@@ -795,17 +1075,17 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
   }
 #pragma unroll 1
   for (int it = 0; it < P.solver_iters; ++it) {
-    float x[Dims<W, NBLK>::kNv], y[Dims<W, NBLK>::kNv];
+    float x[Dims<W, NBLK, NBALL>::kNv], y[Dims<W, NBLK, NBALL>::kNv];
     for (int d = 0; d < nv; ++d) x[d] = 0.f;
 #pragma unroll 1
-    for (int i = 0; i < nc; ++i) add_jt_f(tb, con[i], x);
-    minv_mul_all(tb, Minv, nv, x, y);
+    for (int i = 0; i < nc; ++i) add_jt_f<NBLK, NBALL>(tb, con[i], x);
+    minv_mul_all<NBALL>(tb, Minv, bl, ns, x, y);
 #pragma unroll 1
     for (int i = 0; i < nc; ++i) {
       Contact<R>& ct = con[i];
       float af[3] = {0.f, 0.f, 0.f};
       for (int e = 0; e < R; ++e) {
-        const int d = con_dof(tb, ct, e);
+        const int d = con_dof<NBLK, NBALL>(tb, ct, e);
         if (d < 0) continue;
         for (int r = 0; r < 3; ++r) af[r] = af[r] + ct.J[r][e] * y[d];
       }
@@ -817,7 +1097,7 @@ __device__ int contact_force(const Tables& tb, const AntParams& P,
     }
   }
 #pragma unroll 1
-  for (int i = 0; i < nc; ++i) add_jt_f(tb, con[i], fcon);
+  for (int i = 0; i < nc; ++i) add_jt_f<NBLK, NBALL>(tb, con[i], fcon);
   return nc;
 }
 
@@ -884,12 +1164,13 @@ __device__ __forceinline__ float limit_force(const AntParams& P, float qd,
 // qacc of one forward-dynamics evaluation (engine.forward with the contact
 // and support forces).  Adds the active-contact count to *n_active; fills
 // this evaluation's trace words when trace is not null.
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL>
 __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
                         const float* v, const float* ctrl, float* qacc,
                         int* n_active, int* trace) {
-  constexpr int kNv = Dims<W, NBLK>::kNv;
-  const int nv = kNa + P.n_w;
+  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+  const int ns = kNa + P.n_w;         // the ant's and the slides' dofs
+  const int nv = ns + 6 * NBALL;
   Kin k;
   fk(tb, q, k);
   float M[kNa][kNa], Minv[kNa][kNa];
@@ -906,9 +1187,17 @@ __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
     tau[d] = tau[d] - tb.dof[d * kDofCols + 1] * v[d];
   // world dofs: gravity on the z slides (pure translation: no velocity
   // products), no actuation or damping
-  for (int d = kNa; d < nv; ++d) {
+  for (int d = kNa; d < ns; ++d) {
     const float* wr = tb.wdof + (d - kNa) * kWdofCols;
     bias[d] = (int)wr[0] == 2 ? wr[1] * P.gravity : 0.f;
+  }
+  // the ball's tree: its bias and its 6x6 block's inverse (no actuation,
+  // damping or limits)
+  Ball ball;
+  const Ball* bl = nullptr;
+  if constexpr (NBALL > 0) {
+    ball_dynamics(tb, P, q, v, ball, bias);
+    bl = &ball;
   }
   spd_inverse(M, Minv);
   float rhs[kNv], qacc0[kNv], fcon[kNv];
@@ -916,11 +1205,11 @@ __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
     rhs[d] = tau[d] - bias[d];
     fcon[d] = 0.f;
   }
-  minv_mul_all(tb, Minv, nv, rhs, qacc0);
+  minv_mul_all<NBALL>(tb, Minv, bl, ns, rhs, qacc0);
   // joint limits: the hinges, then the limited slides
   uint32_t lim_bits = 0u;
 #pragma unroll 1
-  for (int d = 6; d < nv; ++d) {
+  for (int d = 6; d < ns; ++d) {
     float m_eff, lo, hi;
     if (d < kNa) {
       const float* dr = tb.dof + d * kDofCols;
@@ -954,9 +1243,9 @@ __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
   }
   if (trace)
     for (int w = 0; w < kTraceWords; ++w) trace[w] = 0;
-  Contact<Dims<W, NBLK>::kRowDofs> con[Dims<W, NBLK>::kMaxCon];
-  *n_active += contact_force<W, NBLK>(tb, P, k, Minv, v, qacc0, bc, fcon, con,
-                                      trace);
+  Contact<Dims<W, NBLK, NBALL>::kRowDofs> con[Dims<W, NBLK, NBALL>::kMaxCon];
+  *n_active += contact_force<W, NBLK, NBALL>(tb, P, k, Minv, bl, v, qacc0, bc,
+                                             fcon, con, trace);
   if (trace) trace[kTraceWords - 1] = (int)lim_bits;
   // falling blocks: the coupled support, against the highest platform top
   // the block's center overlaps (else the floor, z = 0)
@@ -982,35 +1271,51 @@ __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
     if (trace) trace[kTraceWords - 1] |= rows << (24 + 2 * b);
   }
   for (int d = 0; d < nv; ++d) rhs[d] = tau[d] + fcon[d] - bias[d];
-  minv_mul_all(tb, Minv, nv, rhs, qacc);
+  minv_mul_all<NBALL>(tb, Minv, bl, ns, rhs, qacc);
 }
 
-// q + v h with the free joint's body-frame exponential, the hinges and
-// slides linear (engine.integrate_pos).
-__device__ void integrate(const float* q, const float* v, float h, int nv,
-                          float* out) {
-  for (int i = 0; i < 3; ++i) out[i] = q[i] + v[i] * h;
-  const float wx = v[3], wy = v[4], wz = v[5];
+// quat o exp(w h / 2), renormalised (the body-frame exponential of
+// engine._quat_exp_step).
+__device__ __forceinline__ void quat_step(const float* q, const float* w,
+                                          float h, float* o) {
+  const float wx = w[0], wy = w[1], wz = w[2];
   const float angle = sqrtf(wx * wx + wy * wy + wz * wz + 1e-18f);
   const float half = angle * h * 0.5f;
   const float sh = sinf(half), dw = cosf(half);
   const float dx = wx / angle * sh, dy = wy / angle * sh, dz = wz / angle * sh;
-  const float qw = q[3], qx = q[4], qy = q[5], qz = q[6];
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
   const float nw = qw * dw - qx * dx - qy * dy - qz * dz;
   const float nx = qw * dx + qx * dw + qy * dz - qz * dy;
   const float ny = qw * dy - qx * dz + qy * dw + qz * dx;
   const float nz = qw * dz + qx * dy - qy * dx + qz * dw;
   const float nn = sqrtf(nw * nw + nx * nx + ny * ny + nz * nz);
-  out[3] = nw / nn; out[4] = nx / nn; out[5] = ny / nn; out[6] = nz / nn;
-  for (int d = 6; d < nv; ++d) out[d + 1] = q[d + 1] + v[d] * h;
+  o[0] = nw / nn; o[1] = nx / nn; o[2] = ny / nn; o[3] = nz / nn;
+}
+
+// q + v h with the free joints' body-frame exponential, the hinges and
+// slides linear (engine.integrate_pos): the torso, the ns - 6 hinge and
+// slide dofs, then the ball's free joint (its qpos after theirs).
+template <int NBALL>
+__device__ void integrate(const float* q, const float* v, float h, int ns,
+                          float* out) {
+  for (int i = 0; i < 3; ++i) out[i] = q[i] + v[i] * h;
+  quat_step(q + 3, v + 3, h, out + 3);
+  for (int d = 6; d < ns; ++d) out[d + 1] = q[d + 1] + v[d] * h;
+  if constexpr (NBALL > 0) {
+    const int qa = ns + 1;
+    for (int i = 0; i < 3; ++i) out[qa + i] = q[qa + i] + v[ns + i] * h;
+    quat_step(q + qa + 3, v + ns + 3, h, out + qa + 3);
+  }
 }
 
 // One RK4 step (engine.rk4_step: the four stages in order).
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL>
 __device__ void rk4(const Tables& tb, const AntParams& P, float* q, float* v,
                     const float* ctrl, int* n_active, int* trace) {
-  constexpr int kNv = Dims<W, NBLK>::kNv, kNq = Dims<W, NBLK>::kNq;
-  const int nv = kNa + P.n_w;
+  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
+  const int ns = kNa + P.n_w;
+  const int nv = ns + 6 * NBALL, nq = nv + 1 + NBALL;
   float prev_v[kNv], prev_a[kNv], acc_v[kNv], acc_a[kNv];
   for (int d = 0; d < nv; ++d) {
     prev_v[d] = v[d];
@@ -1023,10 +1328,10 @@ __device__ void rk4(const Tables& tb, const AntParams& P, float* q, float* v,
     const float hs = st == 0 ? 0.f : (st == 3 ? P.h : P.h_half);
     const float w = (st == 0 || st == 3) ? 1.f : 2.f;
     float qs[kNq], vs[kNv], as[kNv];
-    integrate(q, prev_v, hs, nv, qs);
+    integrate<NBALL>(q, prev_v, hs, ns, qs);
     for (int d = 0; d < nv; ++d) vs[d] = v[d] + prev_a[d] * hs;
-    forward<W, NBLK>(tb, P, qs, vs, ctrl, as, n_active,
-                     trace ? trace + st * kTraceWords : nullptr);
+    forward<W, NBLK, NBALL>(tb, P, qs, vs, ctrl, as, n_active,
+                            trace ? trace + st * kTraceWords : nullptr);
     for (int d = 0; d < nv; ++d) {
       prev_v[d] = vs[d];
       prev_a[d] = as[d];
@@ -1036,23 +1341,24 @@ __device__ void rk4(const Tables& tb, const AntParams& P, float* q, float* v,
   }
   float vavg[kNv], qn[kNq];
   for (int d = 0; d < nv; ++d) vavg[d] = acc_v[d] / 6.f;
-  integrate(q, vavg, P.h, nv, qn);
-  for (int i = 0; i <= nv; ++i) q[i] = qn[i];
+  integrate<NBALL>(q, vavg, P.h, ns, qn);
+  for (int i = 0; i < nq; ++i) q[i] = qn[i];
   for (int d = 0; d < nv; ++d) v[d] = v[d] + (acc_a[d] / 6.f) * P.h;
 }
 
 // One Ant env step: frame_skip RK4 steps, then the inner reward and the
-// task heads on (x, y, z) of the torso, or of the first block's center
-// where the task observes it first (obs_offset 3).  t + 1; no reset.
-template <int W, int NBLK>
+// task heads on (x, y, z) of the torso, or of the first observed object
+// where the task observes it first (obs_offset 3): the first block's
+// center, or the ball's body origin.  t + 1; no reset.
+template <int W, int NBLK, int NBALL>
 __device__ void ant_step(const Tables& tb, const AntParams& P, float* q,
                          float* v, int* t, const float* ctrl, float* reward,
                          bool* term, int* n_active, int* trace) {
   const float x0 = q[0], y0 = q[1];
 #pragma unroll 1
   for (int fs = 0; fs < P.frame_skip; ++fs)
-    rk4<W, NBLK>(tb, P, q, v, ctrl, n_active,
-                 trace ? trace + fs * 4 * kTraceWords : nullptr);
+    rk4<W, NBLK, NBALL>(tb, P, q, v, ctrl, n_active,
+                        trace ? trace + fs * 4 * kTraceWords : nullptr);
   const float vx = (q[0] - x0) / P.dt_outer, vy = (q[1] - y0) / P.dt_outer;
   const float fwd = sqrtf(vx * vx + vy * vy);
   float csq = 0.f;
@@ -1069,6 +1375,14 @@ __device__ void ant_step(const Tables& tb, const AntParams& P, float* q,
     hx = c[0];
     hy = c[1];
     hz = c[2];
+  }
+  if constexpr (NBALL > 0) {
+    if (P.obs_offset == 3) {
+      const int qa = (int)tb.ball[0];
+      hx = q[qa];
+      hy = q[qa + 1];
+      hz = q[qa + 2];
+    }
   }
   float rew = P.reward_type == 2 ? P.penalty : 0.f;
   bool hit_any = false;
@@ -1096,10 +1410,11 @@ __device__ Tables stage_tables(float* smem, const float* tables,
   return Tables{smem + P.off_body,  smem + P.off_dof,   smem + P.off_act,
                 smem + P.off_sph,   smem + P.off_box,   smem + P.off_goal,
                 smem + P.off_qpos0, smem + P.off_wdof,  smem + P.off_blk,
-                smem + P.off_plat,  smem + P.off_qpair};
+                smem + P.off_plat,  smem + P.off_qpair, smem + P.off_ball,
+                smem + P.off_bpair};
 }
 
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL>
 __global__ void ant_step_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
@@ -1108,12 +1423,13 @@ __global__ void ant_step_kernel(
     float* __restrict__ reward, bool* __restrict__ term,
     int* __restrict__ active_out, int* __restrict__ trace_out,
     const float* __restrict__ tables, AntParams P, int n) {
-  constexpr int kNv = Dims<W, NBLK>::kNv, kNq = Dims<W, NBLK>::kNq;
+  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
   extern __shared__ float smem[];
   const Tables tb = stage_tables(smem, tables, P);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int nv = kNa + P.n_w, nq = nv + 1;
+  const int nv = kNa + P.n_w + 6 * NBALL, nq = nv + 1 + NBALL;
   float q[kNq], v[kNv], ctrl[kNu];
   for (int j = 0; j < nq; ++j) q[j] = qpos[(size_t)i * q_stride + j];
   for (int j = 0; j < nv; ++j) v[j] = qvel[(size_t)i * v_stride + j];
@@ -1124,7 +1440,8 @@ __global__ void ant_step_kernel(
   int* trace = trace_out ? trace_out + (size_t)i * P.frame_skip * 4 *
                                            kTraceWords
                          : nullptr;
-  ant_step<W, NBLK>(tb, P, q, v, &t, ctrl, &rew, &done, &n_active, trace);
+  ant_step<W, NBLK, NBALL>(tb, P, q, v, &t, ctrl, &rew, &done, &n_active,
+                           trace);
   for (int j = 0; j < nq; ++j) qpos_out[(size_t)i * nq + j] = q[j];
   for (int j = 0; j < nv; ++j) qvel_out[(size_t)i * nv + j] = v[j];
   t_out[i] = t;
@@ -1133,7 +1450,7 @@ __global__ void ant_step_kernel(
   if (active_out) active_out[i] = n_active;
 }
 
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL>
 __global__ void ant_rollout_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, int q_stride, int v_stride,
@@ -1142,12 +1459,13 @@ __global__ void ant_rollout_kernel(
     int* __restrict__ episodes, int* __restrict__ active_out,
     const float* __restrict__ tables, AntParams P, int n, int num_steps,
     uint32_t seed) {
-  constexpr int kNv = Dims<W, NBLK>::kNv, kNq = Dims<W, NBLK>::kNq;
+  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
   extern __shared__ float smem[];
   const Tables tb = stage_tables(smem, tables, P);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int nv = kNa + P.n_w, nq = nv + 1;
+  const int nv = kNa + P.n_w + 6 * NBALL, nq = nv + 1 + NBALL;
   float q[kNq], v[kNv];
   for (int j = 0; j < nq; ++j) q[j] = qpos[(size_t)i * q_stride + j];
   for (int j = 0; j < nv; ++j) v[j] = qvel[(size_t)i * v_stride + j];
@@ -1163,13 +1481,15 @@ __global__ void ant_rollout_kernel(
     for (int u = 0; u < kNu; ++u) ctrl[u] = mmt::uniform24(cw[u], -30.f, 30.f);
     float rew;
     bool term;
-    ant_step<W, NBLK>(tb, P, q, v, &t, ctrl, &rew, &term, &n_active, nullptr);
+    ant_step<W, NBLK, NBALL>(tb, P, q, v, &t, ctrl, &rew, &term, &n_active,
+                             nullptr);
     rew_sum = rew_sum + rew;
     if (term || t >= P.episode_limit) {
       // words 8-51 (blocks 2-12): the ant's qpos0 + U(+-0.1) with the
       // quaternion renormalised, then its qvel = 0.1 N(0, 1) by
-      // Box-Muller (lane_env.normal); the world dofs go back to qpos0 at
-      // rest and draw nothing
+      // Box-Muller (lane_env.normal); the world dofs (slides, or the
+      // ball's position and quaternion) go back to qpos0 at rest and draw
+      // nothing
       uint32_t w[44];
       for (int b = 0; b < 11; ++b) {
         const uint4 bb = mmt::philox_block((uint32_t)i, (uint32_t)s,
@@ -1206,7 +1526,7 @@ __global__ void ant_rollout_kernel(
 
 // Launchers of one instantiation: each launches on the given stream with
 // `block` threads per block and returns cudaGetLastError().
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL = 0>
 int launch_ant_step(const float* qpos, const float* qvel, const int* t,
                     const float* act, int q_stride, int v_stride,
                     int a_stride, float* qpos_out, float* qvel_out,
@@ -1214,16 +1534,16 @@ int launch_ant_step(const float* qpos, const float* qvel, const int* t,
                     int* trace_out, const float* tables, AntParams p, int n,
                     int block, void* stream) {
   if (n > 0) {
-    ant_step_kernel<W, NBLK><<<(n + block - 1) / block, block,
-                               sizeof(float) * (size_t)p.n_floats,
-                               (cudaStream_t)stream>>>(
+    ant_step_kernel<W, NBLK, NBALL><<<(n + block - 1) / block, block,
+                                      sizeof(float) * (size_t)p.n_floats,
+                                      (cudaStream_t)stream>>>(
         qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
         t_out, reward, term, active_out, trace_out, tables, p, n);
   }
   return (int)cudaGetLastError();
 }
 
-template <int W, int NBLK>
+template <int W, int NBLK, int NBALL = 0>
 int launch_ant_rollout(const float* qpos, const float* qvel, const int* t,
                        int q_stride, int v_stride, float* qpos_out,
                        float* qvel_out, int* t_out, float* reward_sum,
@@ -1231,9 +1551,9 @@ int launch_ant_rollout(const float* qpos, const float* qvel, const int* t,
                        AntParams p, int n, int num_steps, unsigned int seed,
                        int block, void* stream) {
   if (n > 0) {
-    ant_rollout_kernel<W, NBLK><<<(n + block - 1) / block, block,
-                                  sizeof(float) * (size_t)p.n_floats,
-                                  (cudaStream_t)stream>>>(
+    ant_rollout_kernel<W, NBLK, NBALL><<<(n + block - 1) / block, block,
+                                         sizeof(float) * (size_t)p.n_floats,
+                                         (cudaStream_t)stream>>>(
         qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
         reward_sum, episodes, active_out, tables, p, n, num_steps, seed);
   }
@@ -1257,3 +1577,21 @@ int launch_ant_blocks_rollout(const float* qpos, const float* qvel,
                               int* active_out, const float* tables,
                               AntParams p, int n, int num_steps,
                               unsigned int seed, int block, void* stream);
+
+// The ball-world instantiation (one free object ball, no blocks or
+// slides), compiled in ant_balls.cu.
+constexpr int kBallWorldBalls = 1;
+int launch_ant_balls_step(const float* qpos, const float* qvel, const int* t,
+                          const float* act, int q_stride, int v_stride,
+                          int a_stride, float* qpos_out, float* qvel_out,
+                          int* t_out, float* reward, bool* term,
+                          int* active_out, int* trace_out,
+                          const float* tables, AntParams p, int n, int block,
+                          void* stream);
+int launch_ant_balls_rollout(const float* qpos, const float* qvel,
+                             const int* t, int q_stride, int v_stride,
+                             float* qpos_out, float* qvel_out, int* t_out,
+                             float* reward_sum, int* episodes,
+                             int* active_out, const float* tables,
+                             AntParams p, int n, int num_steps,
+                             unsigned int seed, int block, void* stream);

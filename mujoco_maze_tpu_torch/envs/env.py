@@ -102,9 +102,8 @@ class MazeEnvSpec:
     floor), the reset of its own ``reset_noise`` law and its own
     ``dynamics_step`` (``examples/custom_robot.py``).  On the card a
     custom robot steps through the generic engine kernel in any of these
-    worlds, ball worlds included; the Ant's kernel takes no ball yet
-    (ROADMAP queue 1 item 11d-2), so an AntSmallBilliard spec steps
-    through ``step`` alone.  Everything else raises
+    worlds, ball worlds included, and the Ant through its own kernel,
+    its ball world included.  Everything else raises
     ``NotImplementedError`` naming the ROADMAP queue item that ports it.
     ``device=None`` means CUDA; without a card pass ``device="cpu"``.
     """

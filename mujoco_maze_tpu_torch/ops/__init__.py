@@ -17,10 +17,10 @@
   library loaded with ``ctypes``
 
 The port has the Point robot on object-free mazes and in its object
-worlds, the Ant, the Swimmer and the Reacher on object-free mazes and in
-the block worlds, and custom engine-world robots through the generic
-kernel, in ball worlds too; the Ant kernel's object-ball rows are queued
-in ROADMAP queue 2.
+worlds, the Ant on object-free mazes, in the block worlds and with a free
+object ball, the Swimmer and the Reacher on object-free mazes and in the
+block worlds, and custom engine-world robots through the generic kernel,
+in ball worlds too.
 """
 
 from __future__ import annotations

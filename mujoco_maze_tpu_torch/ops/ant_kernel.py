@@ -2,7 +2,8 @@
 
 ``spec_from_env`` is the counterpart of ``mujoco_maze_tpu/ops/
 ant_pallas.py::spec_from_env`` with ``ant_math.consts_from_model`` and
-``ant_math.world_from_spec``, for the Ant mazes without object balls.
+``ant_math.world_from_spec``, for every Ant maze: object-free, with
+movable blocks, or with one free object ball.
 Where the Pallas kernel baked the model and the maze into the program at
 trace time, the CUDA kernels (``csrc/ant_lane.cuh``) take them as runtime
 tables, packed into one float32 buffer, so one build serves every such
@@ -32,7 +33,15 @@ Ant maze:
   + block half x, half y + block half y, top (JAX env.py:430-469);
 * ``qpair (nblk * S, 7)``: per block and sphere, the pair's mixed
   constants (JAX contact.py:474-477): margin, friction, solimp (3),
-  solref time constant (clamped to 2 dt), solref damping ratio.
+  solref time constant (clamped to 2 dt), solref damping ratio;
+* ``ball (nball, 16)``: the free object ball (JAX ``ant_math.AntBall``):
+  qpos address, dof address, radius, mass, com (3; its sphere's centre in
+  the body frame), isotropic inertia about the com, margin, margin against
+  the floor, friction, solimp (3), solref time constant (clamped to 2 dt),
+  solref damping ratio;
+* ``bpair (nball * S, 7)``: per test sphere, its pair with the ball's
+  sphere, mixed as ``qpair`` (JAX contact.py:438-441): margins summed,
+  friction the max, solimp and solref the mean.
 
 The scalars go by value in a POD struct (``lane_env.AntParams``).
 
@@ -44,7 +53,7 @@ kernel's Philox4x32-10 stream and steps through the same engine.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +63,7 @@ from ..maze.cells import MazeCell
 from ..models.ant import AntRobot
 from ..physics import contact, engine
 from ..physics.contact import CONTACT_SOLVER_ITERS
-from ..physics.model import FREE, HINGE, SLIDE
+from ..physics.model import FREE, HINGE, SLIDE, _quat_to_mat_np
 from .philox import normal_box_muller, philox_words, uniform24
 from .point_kernel import Tensors5, goal_table
 
@@ -63,10 +72,12 @@ MAX_SPHERES = 40          # kMaxSph
 MAX_BOXES = 128           # 32 x kBoxWords
 MAX_WORLD_DOFS = 6        # kBlockWorldDofs
 MAX_BLOCKS = 3            # kBlockWorldBlocks
+MAX_BALLS = 1             # kBallWorldBalls
 NB, NV, NQ, NU = 13, 14, 15, 8   # the ant's bodies, dofs, coordinates, actuators
 TABLES = ("body", "dof", "act", "sph", "box", "goals", "qpos0", "wdof", "blk",
-          "plat", "qpair")
-TABLE_COLS = {"wdof": 7, "blk": 11, "plat": 5, "qpair": 7}
+          "plat", "qpair", "ball", "bpair")
+TABLE_COLS = {"wdof": 7, "blk": 11, "plat": 5, "qpair": 7, "ball": 16,
+              "bpair": 7}
 
 
 class AntKernelSpec(NamedTuple):
@@ -90,7 +101,9 @@ class AntKernelSpec(NamedTuple):
                                # can touch a test sphere (``_reach``)
     n_w: int                   # world (slide) dofs
     n_blk: int                 # movable blocks
-    obs_offset: int            # 3: the heads read the first block's center
+    n_ball: int                # free object balls (0 or 1)
+    obs_offset: int            # 3: the heads read the first block's center,
+                               # or the ball's body origin
 
     def table(self, name: str) -> np.ndarray:
         """One table as a numpy float32 array (rows, cols)."""
@@ -99,17 +112,32 @@ class AntKernelSpec(NamedTuple):
         return flat.reshape(rows, cols)
 
 
+def _ball_bodies(model) -> list:
+    """The bodies after the ant's 13 on a free joint: object balls."""
+    return [int(model.jnt_body[j]) for j in range(1, model.njnt)
+            if int(model.jnt_body[j]) >= NB and int(model.jnt_type[j]) == FREE]
+
+
 def _check_model(model) -> None:
     """The CUDA kernel's topology: the 13-body ant (a free root, then
     bodies welded or on one hinge at their origin, at most two hinges on a
     root path, identity body frames, hinge dof = qpos address - 1),
-    followed by movable blocks: world bodies with identity frames on 1-3
-    slide joints along the coordinate axes, without armature or damping,
-    whose dofs follow the ant's."""
-    n_w = model.nv - NV
-    if (model.nbody < NB or model.nu != NU or model.nq - NQ != n_w
+    followed either by movable blocks: world bodies with identity frames
+    on 1-3 slide joints along the coordinate axes, without armature or
+    damping, whose dofs follow the ant's; or by one free object ball: a
+    world body on one free joint whose 7 coordinates and 6 dofs follow
+    the ant's, without armature or damping."""
+    balls = _ball_bodies(model)
+    if balls and (len(balls) > MAX_BALLS or model.nbody != NB + len(balls)):
+        raise NotImplementedError(
+            f"the Ant kernels take at most {MAX_BALLS} free object ball, in a "
+            "world without movable blocks (no stock ID has a second ball or "
+            "a ball beside blocks)")
+    n_w = model.nv - NV - 6 * len(balls)
+    if (model.nbody < NB or model.nu != NU
+            or model.nq - NQ != n_w + 7 * len(balls)
             or not 0 <= n_w <= MAX_WORLD_DOFS
-            or model.nbody - NB > MAX_BLOCKS):
+            or model.nbody - NB - len(balls) > MAX_BLOCKS):
         raise NotImplementedError(
             "the Ant kernels take the 13-body ant and at most "
             f"{MAX_BLOCKS} movable blocks with {MAX_WORLD_DOFS} slide dofs")
@@ -118,6 +146,18 @@ def _check_model(model) -> None:
     seen = set()
     for j in range(1, model.njnt):
         b = int(model.jnt_body[j])
+        if b in balls:
+            d = int(model.jnt_dofadr[j])
+            if (int(model.body_parent[b]) != -1 or b in seen
+                    or d != NV or int(model.jnt_qposadr[j]) != NQ
+                    or np.any(model.jnt_pos[j] != 0.0)
+                    or np.any(model.dof_armature[d:d + 6] != 0.0)
+                    or np.any(model.dof_damping[d:d + 6] != 0.0)):
+                raise NotImplementedError(
+                    "the Ant kernels take a ball on one free joint after the "
+                    "ant's, without armature or damping")
+            seen.add(b)
+            continue
         if b >= NB:
             axis = np.asarray(model.jnt_axis[j])
             if (int(model.jnt_type[j]) != SLIDE
@@ -175,9 +215,12 @@ def _world_tables(spec: MazeEnvSpec, idx: np.ndarray) -> dict:
     model, cs = spec.dynamic_model, spec.contact_set
     support = {bodyidx: (zdof, plats)
                for bodyidx, zdof, _, plats in spec._falling_support}
-    wdof = np.zeros((model.nv - NV, TABLE_COLS["wdof"]))
+    balls = _ball_bodies(model)
+    wdof = np.zeros((model.nv - NV - 6 * len(balls), TABLE_COLS["wdof"]))
     blk, plat, qpair = [], [], []
     for body in range(NB, model.nbody):
+        if body in balls:
+            continue
         joints = [j for j in range(model.njnt) if int(model.jnt_body[j]) == body]
         for j in joints:
             d = int(model.jnt_dofadr[j])
@@ -208,7 +251,7 @@ def _world_tables(spec: MazeEnvSpec, idx: np.ndarray) -> dict:
                 max(cs.sph_friction[s], cs.dbox_friction[k]), *sim,
                 max(np.float32(srf[0]), np.float32(2.0 * model.timestep)),
                 srf[1]])
-    if len(cs.qpair_s) != len(blk) * len(idx) or len(cs.pair_i):
+    if len(cs.qpair_s) != len(blk) * len(idx):
         raise NotImplementedError(
             "the Ant kernels take sphere-vs-block pairs of the ant only")
 
@@ -217,6 +260,59 @@ def _world_tables(spec: MazeEnvSpec, idx: np.ndarray) -> dict:
 
     return dict(wdof=wdof, blk=table(blk, "blk"), plat=table(plat, "plat"),
                 qpair=table(qpair, "qpair"))
+
+
+def _ball_tables(spec: MazeEnvSpec, idx: np.ndarray) -> dict:
+    """The ball and sphere-vs-ball pair tables (no rows without a ball).
+    The ball's one test sphere sits at its body-frame com and meets the
+    static world; every test sphere of the ant meets it in one pair (JAX
+    ``ant_math._ball_rows`` :814), and there is no other sphere-sphere
+    pair."""
+    model, cs = spec.dynamic_model, spec.contact_set
+    tc_min = np.float32(2.0 * model.timestep)
+    ball, bpair = [], []
+    for body in _ball_bodies(model):
+        spheres = np.nonzero(cs.sph_body == body)[0]
+        (j,) = [j for j in range(model.njnt) if int(model.jnt_body[j]) == body]
+        inertia = np.asarray(model.body_inertia[body])
+        if (len(spheres) != 1 or not cs.sph_vs_static[spheres[0]]
+                or np.any(cs.sph_local[spheres[0]] != model.body_com[body])
+                or np.any(inertia != inertia[0, 0] * np.eye(3))):
+            raise NotImplementedError(
+                "the Ant kernels take a ball of one sphere at its com, with "
+                "an isotropic inertia, that meets the static world")
+        (b,) = spheres
+        ball.append([
+            model.jnt_qposadr[j], model.jnt_dofadr[j], cs.sph_radius[b],
+            model.body_mass[body], *model.body_com[body], inertia[0, 0],
+            cs.sph_margin[b], cs.sph_margin[b] + cs.floor_margin,
+            cs.sph_friction[b], *cs.sph_solimp[b],
+            max(np.float32(cs.sph_solref[b, 0]), tc_min), cs.sph_solref[b, 1]])
+        for s in idx:
+            if np.count_nonzero((cs.pair_i == s) & (cs.pair_j == b)) != 1:
+                raise NotImplementedError(
+                    "the Ant kernels pair every test sphere with the ball")
+            sim = (cs.sph_solimp[s] + cs.sph_solimp[b]) / 2
+            srf = (cs.sph_solref[s] + cs.sph_solref[b]) / 2
+            bpair.append([
+                cs.sph_margin[s] + cs.sph_margin[b],
+                max(cs.sph_friction[s], cs.sph_friction[b]), *sim,
+                max(np.float32(srf[0]), tc_min), srf[1]])
+    if len(cs.pair_i) != len(bpair):
+        raise NotImplementedError(
+            "the Ant kernels take sphere-sphere pairs of the ant's spheres "
+            "with the ball only")
+
+    def table(rows, name):
+        return np.asarray(rows, np.float64).reshape(-1, TABLE_COLS[name])
+
+    return dict(ball=table(ball, "ball"), bpair=table(bpair, "bpair"))
+
+
+def _ant_spheres(cs) -> np.ndarray:
+    """The test spheres of the ant (bodies 0-12) that meet the world, in
+    the contact set's order: the kernels' spheres."""
+    return np.nonzero(cs.sph_vs_static & (cs.sph_body < NB))[0]
 
 
 def _tables(spec: MazeEnvSpec) -> dict:
@@ -256,10 +352,10 @@ def _tables(spec: MazeEnvSpec) -> dict:
                     model.act_ctrlrange[:, 0], model.act_ctrlrange[:, 1]], 1)
     if not cs.has_floor or cs.floor_z != 0:
         raise NotImplementedError("the Ant kernels take a floor at z = 0")
-    idx = np.nonzero(cs.sph_vs_static)[0]
-    if len(idx) > MAX_SPHERES or np.any(cs.sph_body[idx] >= NB):
+    idx = _ant_spheres(cs)
+    if len(idx) > MAX_SPHERES:
         raise NotImplementedError(f"the Ant kernels take at most {MAX_SPHERES} "
-                                  "test spheres, on the ant")
+                                  "test spheres on the ant")
     if len(cs.box_center) > MAX_BOXES:
         raise NotImplementedError(f"{len(cs.box_center)} static boxes > {MAX_BOXES}")
     tc = np.maximum(cs.sph_solref[idx, 0].astype(np.float32),
@@ -275,18 +371,13 @@ def _tables(spec: MazeEnvSpec) -> dict:
     return dict(body=body, dof=dof, act=act, sph=sph, box=box,
                 goals=goal_table(spec).cpu().numpy(),
                 qpos0=np.asarray(model.qpos0)[None],
-                **_world_tables(spec, idx))
+                **_world_tables(spec, idx), **_ball_tables(spec, idx))
 
 
 def spec_from_env(spec: MazeEnvSpec) -> AntKernelSpec:
     """Lower an Ant :class:`MazeEnvSpec` to kernel tables."""
     if spec.robot.NAME != "Ant":
         raise NotImplementedError("the Ant kernels take the Ant robot only")
-    if spec.ball_runtimes:
-        raise NotImplementedError(
-            "the Ant kernels' object-ball rows are not ported yet (ROADMAP "
-            "queue 1 item 11d-2); the Ant's ball worlds step on the CPU "
-            "through spec.step")
     tabs = _tables(spec)
     offsets, parts, off = {}, [], 0
     for name in TABLES:
@@ -300,10 +391,11 @@ def spec_from_env(spec: MazeEnvSpec) -> AntKernelSpec:
     cs = spec.contact_set
     obs_offset = int(task.OBS_OFFSET)
     if obs_offset not in (0, 3) or obs_offset == 3 and not (
-            task.OBSERVE_BLOCKS and spec.block_runtimes):
+            task.OBSERVE_BLOCKS and spec.block_runtimes
+            or task.OBSERVE_BALLS and spec.ball_runtimes):
         raise NotImplementedError(
-            "the Ant kernels' heads read the torso or the first observed "
-            "block")
+            "the Ant kernels' heads read the torso, the first observed "
+            "block or the ball")
     return AntKernelSpec(
         env_spec=spec,
         packed=packed,
@@ -319,9 +411,10 @@ def spec_from_env(spec: MazeEnvSpec) -> AntKernelSpec:
         ctrl_weight=float(spec.robot.CTRL_COST_WEIGHT),
         episode_limit=EPISODE_LIMIT,
         solver_iters=CONTACT_SOLVER_ITERS,
-        reach=_reach(model, cs, np.nonzero(cs.sph_vs_static)[0]),
-        n_w=model.nv - NV,
-        n_blk=model.nbody - NB,
+        reach=_reach(model, cs, _ant_spheres(cs)),
+        n_w=int(tabs["wdof"].shape[0]),
+        n_blk=int(tabs["blk"].shape[0]),
+        n_ball=int(tabs["ball"].shape[0]),
         obs_offset=obs_offset,
     )
 
@@ -351,12 +444,16 @@ def rollout_ctrl(env_index: torch.Tensor, step: int, seed: int) -> torch.Tensor:
 
 
 def rollout_reset(env_index: torch.Tensor, step: int, seed: int,
-                  qpos0: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+                  qpos0: np.ndarray, nv: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reset state an env draws at one rollout step (blocks 2-12,
     words 8-51), the Ant's reset law (models/ant.py): the ant's ``qpos0 +
     U(±0.1)`` with the quaternion renormalised (words 8-22), and its
-    ``qvel = 0.1 N(0, 1)`` by Box-Muller (words 23-50); the world dofs
-    after the ant's go back to ``qpos0`` at rest and draw nothing."""
+    ``qvel = 0.1 N(0, 1)`` by Box-Muller (words 23-50); the world's
+    coordinates after the ant's (block slides, or a free ball's position
+    and quaternion) go back to ``qpos0``, its dofs to rest, and draw
+    nothing.  ``nv``: the env's dofs (``len(qpos0) - 1`` where no free
+    ball adds a second quaternion)."""
     w = philox_words(env_index, step, seed, range(2, 13))
     lo, hi = AntRobot.QPOS_NOISE
     q = [float(np.float32(qpos0[i])) + uniform24(w[i], lo, hi)
@@ -367,10 +464,10 @@ def rollout_reset(env_index: torch.Tensor, step: int, seed: int,
     std = float(np.float32(AntRobot.QVEL_STD))
     v = [normal_box_muller(w[15 + 2 * d], w[16 + 2 * d]) * std
          for d in range(NV)]
-    n_w = len(qpos0) - NQ
+    nv = len(qpos0) - 1 if nv is None else nv
     q += [torch.full_like(q[0], float(np.float32(qpos0[i])))
-          for i in range(NQ, NQ + n_w)]
-    v += [torch.zeros_like(v[0]) for _ in range(n_w)]
+          for i in range(NQ, len(qpos0))]
+    v += [torch.zeros_like(v[0]) for _ in range(NV, nv)]
     return torch.stack(q, dim=1), torch.stack(v, dim=1)
 
 
@@ -386,11 +483,12 @@ def ant_rollout_plain(ks: AntKernelSpec, qpos: torch.Tensor,
     rew = torch.zeros(B, dtype=torch.float32, device=qpos.device)
     eps = torch.zeros(B, dtype=torch.int32, device=qpos.device)
     qpos0 = ks.env_spec.dynamic_model.qpos0
+    nv = ks.env_spec.nv
     for step in range(num_steps):
         act = rollout_ctrl(env_index, step, seed)
         qpos, qvel, t, reward, term = ant_step_plain(ks, qpos, qvel, t, act)
         done = term | (t >= ks.episode_limit)
-        q_r, v_r = rollout_reset(env_index, step, seed, qpos0)
+        q_r, v_r = rollout_reset(env_index, step, seed, qpos0, nv)
         qpos = torch.where(done[:, None], q_r, qpos)
         qvel = torch.where(done[:, None], v_r, qvel)
         t = torch.where(done, torch.zeros_like(t), t)
@@ -450,12 +548,13 @@ def contact_states(spec: MazeEnvSpec, num_envs: int, seed: int,
 
 
 def contact_census(ks: AntKernelSpec, qpos: torch.Tensor):
-    """Per env, the test spheres within their contact margin of the floor
-    and of any static box at ``qpos``: ``(floor (B,), walls (B,))`` int64."""
+    """Per env, the ant's test spheres within their contact margin of the
+    floor and of any static box at ``qpos``: ``(floor (B,), walls (B,))``
+    int64."""
     spec = ks.env_spec
     cs = spec.contact_set
     fkr = engine.fk(spec.dynamic_model, qpos)
-    idx = np.nonzero(cs.sph_vs_static)[0]
+    idx = _ant_spheres(cs)
     sb = torch.as_tensor(cs.sph_body[idx], dtype=torch.long, device=qpos.device)
 
     def const(x):
@@ -602,6 +701,158 @@ def block_states(spec: MazeEnvSpec, num_envs: int, seed: int):
             t.astype(np.int32))
 
 
+BALL_FAR = (50.0, 80.0)     # the far Ant's distance from the ball, m
+BALL_FAST_SPIN = (10.0, 20.0)   # rad/s: a fast ball's spin about the vertical
+BALL_KNIFE = 0.02           # m: how near the goal threshold the heads sit
+
+
+def ball_states(spec: MazeEnvSpec, num_envs: int, seed: int):
+    """``(qpos (B, 22), qvel (B, 20), t (B,))`` numpy states from a seed of
+    an Ant world with a free object ball (AntSmallBilliard), for checks of
+    the Ant kernel's ball rows.
+
+    ``engine_kernel.ball_states`` draws the ant (a small tilt, hips and
+    ankles inside their ranges, its lowest test sphere within ±0.01 of the
+    floor, near the centre of a free cell) and the ball resting on the
+    floor, by env index ``e % 8``: 0 against one of the ant's test spheres,
+    1 against a wall face of its cell or in a corner, 2 its sphere's centre
+    within half the goal threshold of the goal, 3 anywhere in a free cell;
+    the ball's qvel x, y ~ N(0, 1), z ~ N(0, 0.1), spin ~ N(0, 3); the
+    ant's qvel ~ N(0, 0.3); t uniform over the episode.  Then: 4 a leg
+    (or torso capsule) pressed into the ball across its length, two
+    neighbouring test spheres of one capsule at once, each 0.02-0.06 into
+    it (the ball's centre on their bisecting plane, at or above its
+    resting height; where none fits, the ball stays as mode 0 put it); 5 the ant moved 50-80 m from the ball, out of the
+    maze in a random direction, with the ball left against its wall (the
+    two turning trees far apart); 6 the ball's body origin, which the heads
+    read, within 0.02 of the goal threshold on either side (the heads'
+    knife edge); 7 the ball anywhere, spinning fast about the vertical
+    (10-20 rad/s either way; ~N(0, 1) about the horizontal axes, so that
+    it spins in place rather than rolls into the ant).  Deeper presses and
+    faster spins blow up under the engine's explicit RK4 at dt 0.02, the
+    JAX package's XLA step as the port's.  No test sphere sinks more than 0.02 into a wall, nor the
+    ball more than 0.02 into a wall or (outside mode 0 and 4) into an ant
+    sphere."""
+    from .engine_kernel import ball_states as engine_ball_states
+
+    q, v, t = (x.astype(np.float64)
+               for x in engine_ball_states(spec, num_envs, seed))
+    rng = np.random.RandomState(seed + 7919)
+    ms = spec.structure
+    model, cs = spec.dynamic_model, spec.contact_set
+    qa, va = NQ, NV
+    (s_b,) = np.nonzero(cs.sph_body >= NB)[0]
+    r_b = float(cs.sph_radius[s_b])
+    local_b = np.asarray(cs.sph_local[s_b], np.float64)
+    ant = _ant_spheres(cs)
+    r_s = cs.sph_radius[ant]
+    goal = spec.task.goals[0]
+    g_xy, thr = np.asarray(goal.pos[:2], np.float64), float(goal.threshold)
+    s, half = ms.size_scaling, ms.size_scaling / 2
+
+    def walkable(x, y):
+        i = int(np.floor((y + ms.torso_y) / s + 0.5))
+        j = int(np.floor((x + ms.torso_x) / s + 0.5))
+        grid = ms.grid
+        return (0 <= i < grid.shape[0] and 0 <= j < grid.shape[1]
+                and not MazeCell(grid[i, j]).is_block()
+                and not MazeCell(grid[i, j]).is_chasm())
+
+    def centres(qe):
+        fkr = engine.fk(model, torch.as_tensor(qe[None]))
+        R = torch.stack(fkr.body_rot, 1)[0].numpy()
+        P = torch.stack(fkr.body_pos, 1)[0].numpy()
+        sb = cs.sph_body[ant]
+        return P[sb] + np.einsum("sij,sj->si", R[sb], cs.sph_local[ant])
+
+    def fits(c, ce, skip=()):
+        """The ball's centre c clears the walls and the ant's spheres
+        (but ``skip``) to within 0.02."""
+        if len(cs.box_center) and _box_dist(
+                c[None], np.array([r_b]), cs.box_center,
+                cs.box_half).min() < -0.02:
+            return False
+        gap = np.linalg.norm(ce - c, axis=1) - r_s - r_b
+        gap[list(skip)] = 0.0
+        return gap.min() >= -0.02 and walkable(*c[:2])
+
+    def put_ball(e, c, quat=None):
+        if quat is None:
+            quat = rng.normal(size=4)
+            quat /= np.linalg.norm(quat)
+        q[e, qa:qa + 3] = c - _quat_to_mat_np(quat) @ local_b
+        q[e, qa + 3:qa + 7] = quat
+
+    capsules = [np.nonzero(cs.sph_body[ant] == b)[0] for b in range(1, NB)]
+    for e in range(num_envs):
+        mode = e % 8
+        if mode == 4:
+            ce = centres(q[e])
+            for _ in range(500):
+                k = capsules[rng.randint(len(capsules))]
+                i = rng.randint(len(k) - 1)          # two neighbouring spheres
+                a, b = ce[k[i]], ce[k[i + 1]]
+                axis = (b - a) / np.linalg.norm(b - a)
+                u = rng.normal(size=3)
+                u -= axis * (u @ axis)
+                u /= np.linalg.norm(u)
+                reach = r_s[k[i]] + r_b - rng.uniform(0.02, 0.06)
+                off = np.sqrt(reach ** 2 - (np.linalg.norm(b - a) / 2) ** 2)
+                c = (a + b) / 2 + off * u
+                if c[2] >= r_b - 0.01 and fits(c, ce, skip=k):
+                    put_ball(e, c)
+                    break
+        elif mode == 5:
+            ang = rng.uniform(0.0, 2 * np.pi)
+            q[e, :2] = q[e, qa:qa + 2] + rng.uniform(*BALL_FAR) * np.array(
+                [np.cos(ang), np.sin(ang)])
+        elif mode == 6:
+            ce = centres(q[e])
+            for _ in range(200):
+                quat = rng.normal(size=4)
+                quat /= np.linalg.norm(quat)
+                off = _quat_to_mat_np(quat) @ local_b
+                ang = rng.uniform(0.0, 2 * np.pi)
+                o_xy = g_xy + (thr + rng.uniform(-BALL_KNIFE, BALL_KNIFE)) * (
+                    np.array([np.cos(ang), np.sin(ang)]))
+                c = np.r_[o_xy + off[:2], r_b + rng.uniform(-0.01, 0.01)]
+                if fits(c, ce):
+                    put_ball(e, c, quat)
+                    break
+            else:
+                raise RuntimeError(f"no knife-edge ball for env {e}")
+        elif mode == 7:
+            # about the vertical, so that it spins in place rather than
+            # rolls into the ant: the body-frame dofs of a world spin
+            w = np.r_[rng.normal(0.0, 1.0, 2), rng.choice([-1.0, 1.0])
+                      * rng.uniform(*BALL_FAST_SPIN)]
+            R = _quat_to_mat_np(q[e, qa + 3:qa + 7])
+            v[e, va + 3:va + 6] = R.T @ w
+    return (q.astype(np.float32), v.astype(np.float32),
+            np.asarray(t).astype(np.int32))
+
+
+def ball_census(ks: AntKernelSpec, qpos: torch.Tensor):
+    """Per env at ``qpos``, the ball's active candidates: ``(floor (B,),
+    walls (B,), spheres (B,))`` int64, its contact with the floor, with
+    its two nearest static boxes, and the ant's test spheres within their
+    pair margin of it."""
+    spec = ks.env_spec
+    model, cs = spec.dynamic_model, spec.contact_set
+    kd = engine.kin_dyn(model, qpos, torch.zeros(
+        qpos.shape[0], spec.nv, dtype=qpos.dtype, device=qpos.device))
+    _, chain_mask, _, _ = engine.get_masks(model)
+    act = contact.active_candidates(model, cs, kd, chain_mask)
+    statics = np.nonzero(cs.sph_vs_static)[0]
+    groups = int(cs.has_floor) + min(len(cs.box_center), 2)
+    col = [kind * len(statics) + int(np.nonzero(statics == x)[0][0])
+           for kind in range(groups) for x in statics if cs.sph_body[x] >= NB]
+    floor = act[:, col[0]].to(torch.int64)
+    walls = act[:, col[1:]].sum(dim=1)
+    n = groups * len(statics)
+    return floor, walls, act[:, n:n + len(cs.pair_i)].sum(dim=1)
+
+
 def _place_blocks(spec: MazeEnvSpec, q: np.ndarray,
                   rng: np.random.RandomState, e: int) -> list:
     """Draw env ``e``'s movable blocks into its qpos row ``q`` (in place)
@@ -684,10 +935,13 @@ def active_trace(ks: AntKernelSpec, qpos: torch.Tensor, qvel: torch.Tensor,
     """The plain version's active contacts and joint limits at each forward
     evaluation of one env step from ``(qpos, qvel)`` under ``actions``,
     laid out as the step kernel's trace (``AntStep(..., trace=True)``):
-    ``(B, 4 * frame_skip, 9)`` int32, per evaluation 8 words of contact
+    ``(B, 4 * frame_skip, 25)`` int32, per evaluation 8 words of contact
     bits (bit kind * S + sphere; kind 0 the floor, 1 and 2 the first and
-    second static-box pick, 3 + b block b) and one word of limit bits (bit
-    d: dof d's limit is violated).  The stages are those of
+    second static-box pick, 3 + b block b; then, from (3 + blocks) * S, the
+    ball against the floor, its first and second box pick, and each sphere
+    against the ball), 8 of those whose sphere centre is inside its box, 8
+    of those whose tangent frame is built off the x axis, and one word of
+    limit bits (bit d: dof d's limit is violated) and support rows.  The stages are those of
     ``engine.rk4_step``.  With ``detail``, returns ``(trace, info)``: info
     holds each candidate's kernel bit (``bits (C,)``), its ``dist -
     margin`` per evaluation (``gap (B, E, C)``; active where < 0), the
@@ -697,11 +951,17 @@ def active_trace(ks: AntKernelSpec, qpos: torch.Tensor, qvel: torch.Tensor,
     model, cs = spec.dynamic_model, spec.contact_set
     _, chain_mask, _, _ = engine.get_masks(model)
     extra = spec.world_extra_qfrc()
-    S = int(np.sum(cs.sph_vs_static))
-    idx = {int(x): k for k, x in enumerate(np.nonzero(cs.sph_vs_static)[0])}
+    ant = _ant_spheres(cs)
+    S = len(ant)
+    idx = {int(x): k for k, x in enumerate(ant)}
+    ball_bit = (3 + ks.n_blk) * S
     groups = int(cs.has_floor) + min(len(cs.box_center), 2)
-    # the kernel's bit of each candidate (contact._detect's order)
-    bits = [kind * S + s for kind in range(groups) for s in range(S)]
+    # the kernel's bit of each candidate (contact._detect's order: the
+    # spheres that meet the world, the ball's among them, by kind; the
+    # sphere-ball pairs; the sphere-block pairs)
+    bits = [kind * S + idx[int(x)] if int(x) in idx else ball_bit + kind
+            for kind in range(groups) for x in np.nonzero(cs.sph_vs_static)[0]]
+    bits += [ball_bit + 3 + idx[int(i)] for i in cs.pair_i]
     bits += [(3 + int(b)) * S + idx[int(s)]
              for s, b in zip(cs.qpair_s, cs.qpair_b)]
     bits = torch.as_tensor(bits, dtype=torch.int64, device=qpos.device)

@@ -44,9 +44,11 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 # path went through the kernels.  The Point kernels have two
 # instantiations: the plain mazes' ("point_step", "point_rollout") and the
 # object worlds' ("point_objects_step", "point_objects_rollout", with the
-# reduced object solve of csrc/point_objects.cuh).  The Ant kernels have two builds: the
-# object-free mazes' ("ant_step", "ant_rollout") and the block worlds'
-# ("ant_blocks_step", "ant_blocks_rollout"; csrc/ant_blocks.cu).  The
+# reduced object solve of csrc/point_objects.cuh).  The Ant kernels have
+# three builds: the object-free mazes' ("ant_step", "ant_rollout"), the
+# block worlds' ("ant_blocks_step", "ant_blocks_rollout"; csrc/
+# ant_blocks.cu) and the ball worlds' ("ant_balls_step",
+# "ant_balls_rollout"; csrc/ant_balls.cu).  The
 # swimmer kernels serve the Swimmer and the Reacher, with or without world
 # dofs (csrc/swimmer_lane.cu).  "engine_step" counts the generic engine
 # step of custom robots (csrc/engine_lane.cu), which has no rollout kernel,
@@ -58,6 +60,7 @@ LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
                             "point_objects_rollout": 0,
                             "ant_step": 0, "ant_rollout": 0,
                             "ant_blocks_step": 0, "ant_blocks_rollout": 0,
+                            "ant_balls_step": 0, "ant_balls_rollout": 0,
                             "swimmer_step": 0, "swimmer_rollout": 0,
                             "engine_step": 0, "fma_peak": 0}
 # Threads per block of the Ant kernels: one thread per env, and 4096 envs
@@ -168,7 +171,8 @@ class AntParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "off_body", "off_dof", "off_act", "off_sph", "off_box", "off_goal",
         "off_qpos0", "off_wdof", "off_blk", "off_plat", "off_qpair",
-        "n_floats", "n_sph", "n_box", "n_goal", "n_w", "n_blk",
+        "off_ball", "off_bpair",
+        "n_floats", "n_sph", "n_box", "n_goal", "n_w", "n_blk", "n_ball",
         "frame_skip", "solver_iters", "reward_type", "episode_limit",
         "obs_offset",
     )] + [(name, ctypes.c_float) for name in (
@@ -193,9 +197,11 @@ def ant_params(ks: AntKernelSpec) -> AntParams:
         off_sph=o["sph"][0], off_box=o["box"][0], off_goal=o["goals"][0],
         off_qpos0=o["qpos0"][0], off_wdof=o["wdof"][0], off_blk=o["blk"][0],
         off_plat=o["plat"][0], off_qpair=o["qpair"][0],
+        off_ball=o["ball"][0], off_bpair=o["bpair"][0],
         n_floats=ks.packed.numel(),
         n_sph=o["sph"][1], n_box=o["box"][1], n_goal=o["goals"][1],
-        n_w=ks.n_w, n_blk=ks.n_blk, frame_skip=ks.frame_skip,
+        n_w=ks.n_w, n_blk=ks.n_blk, n_ball=ks.n_ball,
+        frame_skip=ks.frame_skip,
         solver_iters=ks.solver_iters,
         reward_type=REWARD_TYPES[ks.reward_type],
         episode_limit=ks.episode_limit, obs_offset=ks.obs_offset,
@@ -381,6 +387,7 @@ def _lib() -> ctypes.CDLL:
     lib.mmt_engine_caps.restype = None
     lib.mmt_ant_max_world_dofs.restype = _I
     lib.mmt_ant_max_blocks.restype = _I
+    lib.mmt_ant_max_balls.restype = _I
     return lib
 
 
@@ -550,19 +557,29 @@ ANT_TRACE_WORDS = 25
 
 
 def _ant_dims(ks: AntKernelSpec):
-    """(nq, nv) of ``ks``: the ant's 15 / 14 and the world dofs."""
-    nv = NV_ANT + ks.n_w
-    return nv + 1, nv
+    """(nq, nv) of ``ks``: the ant's 15 / 14, the slide dofs, and a free
+    ball's 7 / 6."""
+    nv = NV_ANT + ks.n_w + 6 * ks.n_ball
+    return nv + 1 + ks.n_ball, nv
 
 
 def _check_ant_bounds(ks: AntKernelSpec) -> None:
-    """Refuse a world beyond the library's compile-time bounds."""
+    """Refuse a world beyond the library's compile-time bounds: the block
+    worlds' slides and blocks, or one ball in a world without them."""
     lib = _lib()
     if (ks.n_w > lib.mmt_ant_max_world_dofs()
-            or ks.n_blk > lib.mmt_ant_max_blocks()):
+            or ks.n_blk > lib.mmt_ant_max_blocks()
+            or ks.n_ball > lib.mmt_ant_max_balls()
+            or ks.n_ball and (ks.n_w or ks.n_blk)):
         raise NotImplementedError(
-            f"{ks.n_blk} blocks with {ks.n_w} world dofs exceed the Ant "
-            "kernels' bounds")
+            f"{ks.n_blk} blocks with {ks.n_w} world dofs and {ks.n_ball} "
+            "balls exceed the Ant kernels' bounds")
+
+
+def _ant_kernel_name(ks: AntKernelSpec, kind: str) -> str:
+    """The ``LAUNCHES`` key of the instantiation that runs ``ks``."""
+    world = "_balls" if ks.n_ball else "_blocks" if ks.n_w else ""
+    return f"ant{world}_{kind}"
 
 
 class AntStep:
@@ -616,8 +633,9 @@ class AntStep:
             None if tr is None else tr.data_ptr(),
             self.ks.packed.data_ptr(), self.params, B, self.block,
             torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "ant_step")
-        LAUNCHES["ant_blocks_step" if self.ks.n_w else "ant_step"] += 1
+        name = _ant_kernel_name(self.ks, "step")
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
         out = (q_out, v_out, t_out, reward, term)
         if count_active:
             out = out + (active,)
@@ -628,8 +646,8 @@ class AntRollout:
     """``rollout(qpos, qvel, t, seed) -> (qpos', qvel', t', reward_sum,
     episodes)``: the fused random-policy rollout of the Ant with
     auto-reset (ctrl U(±30); reset: the ant's qpos0 + U(±0.1), quaternion
-    renormalised, its qvel 0.1 N(0, 1); the world dofs back to qpos0 at
-    rest)."""
+    renormalised, its qvel 0.1 N(0, 1); the world dofs, a ball's
+    quaternion among them, back to qpos0 at rest)."""
 
     def __init__(self, ks: AntKernelSpec, num_envs: int,
                  num_steps: int) -> None:
@@ -674,8 +692,9 @@ class AntRollout:
             None if active is None else active.data_ptr(),
             self.ks.packed.data_ptr(), self.params, B, self.num_steps, seed,
             self.block, torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "ant_rollout")
-        LAUNCHES["ant_blocks_rollout" if self.ks.n_w else "ant_rollout"] += 1
+        name = _ant_kernel_name(self.ks, "rollout")
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
         out = (q_out, v_out, t_out, rew, eps)
         return out + (active,) if count_active else out
 

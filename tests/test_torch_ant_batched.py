@@ -211,8 +211,14 @@ def test_rollout_words_are_the_point_rollouts():
 
 
 def test_object_worlds_and_float64_are_queued():
+    """The Ant's ball worlds batch (the Ant kernel's ball instantiation;
+    its plain version on the CPU); float64 is still queued (item 9)."""
     for env_id in ("AntSmallBilliard-v0", "AntSmallBilliard-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11d"):
-            mmt.make_batched(env_id, 4, device="cpu")
+        env = mmt.make_batched(env_id, 4, device="cpu")
+        state, obs = env.reset(0)
+        res = env.step(state, torch.zeros(4, 8))
+        assert obs.shape == res.obs.shape == (4, 33)
+        assert res.state.qpos.shape == (4, 22) and res.state.qvel.shape == (4, 20)
+        assert torch.isfinite(res.obs).all() and (res.state.t == 1).all()
     with pytest.raises(NotImplementedError, match="float64"):
         mmt.make_spec("AntUMaze-v0", dtype=torch.float64, device="cpu")

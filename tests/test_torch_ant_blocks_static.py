@@ -66,11 +66,13 @@ def sides(request):
 
 
 def test_registry_census():
-    ids = [i for i in tmmt.env_ids() if tmmt.entry(i).robot_name == "Ant"
-           and i not in ("AntSmallBilliard-v0", "AntSmallBilliard-v1",
-                         "AntSmallBilliard-v2")]
-    blocky = [i for i in ids if tmmt.make_spec(i, device="cpu").block_runtimes]
+    ids = [i for i in tmmt.env_ids() if tmmt.entry(i).robot_name == "Ant"]
+    specs = {i: tmmt.make_spec(i, device="cpu") for i in ids}
+    blocky = [i for i in ids if specs[i].block_runtimes]
     assert sorted(blocky) == sorted(BLOCK_IDS)
+    # the three others with world bodies carry a ball (no blocks)
+    balls = [i for i in ids if specs[i].ball_runtimes]
+    assert sorted(balls) == [f"AntSmallBilliard-v{k}" for k in range(3)]
 
 
 def test_sizes_and_reset_pose(sides):

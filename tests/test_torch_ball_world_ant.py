@@ -16,8 +16,8 @@ free tree: the mass matrix and the bias at a relative 1e-5
 (tests/test_torch_ant_engine.py's bounds) and the integration of both
 free joints' quaternions, renormalised, at 1e-6.
 
-The Ant's own kernel takes no ball yet: ``make_batched`` raises naming
-ROADMAP queue 1 item 11d-2.
+``make_batched`` lowers the Ant kernel's ball instantiation; on the CPU
+its step is the same plain engine step (``spec.step``).
 """
 
 import jax
@@ -149,6 +149,16 @@ def test_mass_matrix_bias_and_integration_match(sides):
 
 
 def test_the_ant_kernel_waits_for_11d_2():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 11d-2"):
-        tmmt.make_batched(ENV_ID, 4, device="cpu")
+    """The Ant kernel takes the ball: ``make_batched`` builds and steps,
+    and on the CPU its step is ``spec.step``'s."""
+    env = tmmt.make_batched(ENV_ID, 4, auto_reset=False, device="cpu")
+    state, _ = env.reset(0)
+    act = torch.as_tensor(np.random.RandomState(1).uniform(-30, 30, (4, 8)),
+                          dtype=torch.float32)
+    res = env.step(state, act)
+    ref = env.spec.step(state, act)
+    for got, want in ((res.state.qpos, ref.state.qpos),
+                      (res.state.qvel, ref.state.qvel),
+                      (res.reward, ref.reward), (res.obs, ref.obs)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert res.obs.shape == (4, 33)

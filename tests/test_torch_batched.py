@@ -133,9 +133,13 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
 
 
 def test_object_worlds_and_other_robots_are_queued():
-    # the Point object worlds are ported; the Ant's object balls are not
+    # the object worlds are ported, the Ant's object ball too; float64 is
+    # still queued (item 9)
     for env_id in ("AntSmallBilliard-v0", "AntSmallBilliard-v1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11d"):
-            mmt.make_batched(env_id, 4, device="cpu")
+        env = mmt.make_batched(env_id, 4, device="cpu")
+        state, _ = env.reset(0)
+        res = env.step(state, torch.zeros(4, 8))
+        assert res.obs.shape == (4, 33) and torch.isfinite(res.obs).all()
+        assert res.state.qpos.shape == (4, 22)
     with pytest.raises(NotImplementedError, match="float64"):
         mmt.make_spec("PointUMaze-v0", dtype=torch.float64, device="cpu")

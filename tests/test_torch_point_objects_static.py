@@ -9,7 +9,7 @@ against the JAX ``_observe`` of the same state, and the lowered object
 solve (``convert.lowered_spec``) against the JAX package's
 ``object_lanes.spec_from_env`` field by field, and against its Pallas
 ``point_pallas.spec_from_env``.  Each ID is built once per module on both
-sides; nothing is traced.  The three AntSmallBilliard IDs still raise.
+sides; nothing is traced.
 """
 
 import jax
