@@ -7,9 +7,10 @@ per source, all started together, then one link), holds each kernel
 against its plain PyTorch version, drives the port's main paths —
 ``make_batched(id, 4096)`` for PointUMaze-v0, AntUMaze-v0, AntPush-v0,
 AntFall-v0, SwimmerUMaze-v0, PointPush-v0 and AntSmallBilliard-v0, the
-custom robot of ``make_roller_umaze(4096)``, and the same robot in the
-SmallBilliard task with its free object ball, each stepped through the
-public API,
+custom robot of ``make_roller_umaze(4096)``, the same robot in the
+SmallBilliard task with its free object ball, and a Point robot without
+the object solve in PointPush-v0 and PointBilliard-v0, each stepped
+through the public API,
 ``rollout_metrics``, and the fused random-policy rollout — counts the
 kernel launches of each path, and times them with CUDA events; and
 measures the card's fp32 peak with its own kernel.
@@ -160,7 +161,37 @@ Phases (each fails the run on its own; nothing is caught):
     beside the generic engine kernel's on the same states;
     ``ant_balls_rollout``'s.  Phases 24-26 run in a process of their own
     (``python3 chip_smoke.py --ant-balls``, which also runs alone);
-27. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+27. the Point kernels' quasi-static rows (``point_quasi_step``: a Point
+    robot without the object solve, ``USES_POINT_WORLD = False``) against
+    their plain version at 4096 envs, teacher-forced for 16 steps from
+    ``point_kernel.quasi_states`` (the robot disc on block faces and inside
+    blocks, equal exit depths among them, blocks at and past their limits
+    and overlapping, the ball on the robot and headed into walls and
+    corners) on PointPush-v0, PointMultiPushSmall-v0, PointFall-v0,
+    PointBlockCarry-v0 and PointBilliard-v0, every output bit-equal (the
+    ``max_abs_err`` of the kernels line is measured on them), with
+    the count of env-steps where a block was pushed, a pair separated, a
+    ball kicked or bounced; one launch on each of the 27 Point object
+    tasks at 256 envs, bit-equal;
+28. the quasi rollout kernel against its plain version on PointPush-v0 and
+    PointBilliard-v0, as phase 18, every output bit-equal;
+29. the quasi main path, ``MazeEnvSpec(QuasiPoint(), task, scaling)`` and
+    ``BatchedMazeEnv(spec, 4096)`` on PointPush-v0 and PointBilliard-v0,
+    through the step API, ``rollout_metrics`` and the fused rollout,
+    counted, timed and checked as phase 19, with the kernels' times, device
+    times, bounds (fp32 operations counted from ``csrc/point_lane.cu``) and
+    plain times;
+30. the float64 Point fidelity path on the card: PointUMaze-v0 and
+    PointBilliard-v0 at 4096 envs through ``BatchedMazeEnv.step`` for 20
+    steps (env-steps/s, no NaN, no kernel launched); the card's float64
+    sine and cosine against numpy's on the host over 10^6 arguments; the
+    MuJoCo goldens of ``tests/goldens`` teacher-forced at
+    ``tests/test_point_golden.py``'s bounds (its free runs are the CPU
+    test's), and on them how often the card's Newton solves move a
+    line-search branch against the host's LAPACK solves.  Phases
+    27-30 run in a process of their own (``python3 chip_smoke.py
+    --point-quasi``, which also runs alone);
+31. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 Outside the default run: ``python3 chip_smoke.py --sweep [--out PATH]``
@@ -170,7 +201,9 @@ holds it against its plain version at its family's phase rule, one JSON
 line an ID, and writes ``artifacts/PORT_REGISTRY_SWEEP.json`` (or PATH);
 ``python3 chip_smoke.py --ant-parent-probe DIR`` runs the Ant kernels'
 object-free and block-world instantiations of the checkout at DIR and of
-this one on the same inputs and requires every output equal to the bit.
+this one on the same inputs and requires every output equal to the bit;
+``python3 chip_smoke.py --point-parent-probe DIR`` does the same for the
+Point kernels' plain-maze and object-solve modes.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 torch, numpy and the port only: no JAX, no gymnasium, nothing of the JAX
@@ -179,6 +212,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -347,6 +381,16 @@ def step_flops(n_walls: int, n_goals: int) -> int:
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_abs_diff(xs, ys) -> float:
+    """max |x - y| over every element of each pair of ``xs`` and ``ys``
+    (tensors or numbers), in float64: NaN where either side is NaN, so
+    that a NaN on both sides never reads as agreement."""
+    d = [(torch.as_tensor(x, dtype=torch.float64)
+          - torch.as_tensor(y, dtype=torch.float64)).abs().max().cpu()
+         for x, y in zip(xs, ys) if torch.as_tensor(x).numel()]
+    return float(torch.stack(d).max())
 
 
 def device_ms(prof, name: str):
@@ -3842,13 +3886,61 @@ def probe_outputs(path: str) -> int:
     return 0
 
 
-def ant_parent_probe(args) -> int:
+POINT_PROBE_FLAG = "--point-parent-probe"     # PARENT_DIR
+POINT_PROBE_OUT_FLAG = "--point-probe-out"    # PATH (.npz), in the probed tree
+POINT_PROBE_WORLDS = ("PointUMaze-v0", "Point4Rooms-v2", "PointPush-v0",
+                      "PointBilliard-v0", "PointFall-v0",
+                      "PointMultiPushSmall-v0")
+
+
+def point_probe_outputs(path: str) -> int:
+    """Every output of one Point step launch (the object worlds' with its
+    trace) and of one ROLLOUT_STEPS-step rollout launch on
+    POINT_PROBE_WORLDS at B envs, from the reset states (plain mazes) or
+    ``object_states`` (object worlds, the reduced object solve) and seeded
+    actions, saved to ``path``: run from the tree whose kernels are
+    probed."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+    from mujoco_maze_tpu_torch.ops.point_kernel import object_states
+
+    out = {}
+    for env_id in POINT_PROBE_WORLDS:
+        env = mmt.make_batched(env_id, B)
+        if env.spec.object_spec is not None:
+            q, v, t = (torch.as_tensor(x, device="cuda")
+                       for x in object_states(env.spec, B, 5))
+        else:
+            st, _ = env.reset(5)
+            q, v, t = st.qpos, st.qvel, st.t
+        act = torch.as_tensor(np.random.RandomState(5).uniform(
+            -1, 1, (B, 2)) * [1.0, 0.25], dtype=torch.float32, device="cuda")
+        step = make_fast_step(env)
+        res = (step(q, v, t, act, trace=True)
+               if env.spec.object_spec is not None else step(q, v, t, act))
+        t_end = (EPISODE_LIMIT - ROLLOUT_STEPS
+                 + torch.arange(B, device="cuda") % ROLLOUT_STEPS).int()
+        roll = make_fast_rollout(env, ROLLOUT_STEPS).per_env(q, v, t_end, 7)
+        for kind, outs in (("step", res), ("rollout", roll)):
+            for i, x in enumerate(outs):
+                out[f"{env_id}/{kind}/{i}"] = x.cpu().numpy()
+    np.savez(path, **out)
+    return 0
+
+
+def ant_parent_probe(args, out_flag: str = PROBE_OUT_FLAG,
+                     what: str = "Ant") -> int:
     """``python3 chip_smoke.py --ant-parent-probe PARENT_DIR``: the Ant
     kernels' <0,0> (AntUMaze-v0) and <6,3> (AntPush-v0, AntFall-v0)
     instantiations of the tree at PARENT_DIR (a checkout with its own
     ``mujoco_maze_tpu_torch``) and of this one, each built from its own
     sources in a process of its own, on the same states and actions; every
-    output must be equal to the bit."""
+    output must be equal to the bit.  ``--point-parent-probe PARENT_DIR``
+    does the same for the Point kernels' plain-maze and object-solve
+    modes (``point_step``, ``point_obj_step`` and their rollouts)."""
     import shutil
     import tempfile
 
@@ -3865,20 +3957,699 @@ def ant_parent_probe(args) -> int:
     got = {}
     for tree, script in (("parent", copy), ("this", __file__)):
         path = os.path.join(work, f"{tree}.npz")
-        subprocess.run([sys.executable, script, PROBE_OUT_FLAG, path],
+        subprocess.run([sys.executable, script, out_flag, path],
                        check=True, cwd=os.path.dirname(script))
         got[tree] = np.load(path)
     keys = sorted(got["parent"].files)
     same = {k: bool(np.array_equal(got["parent"][k], got["this"][k],
                                    equal_nan=True)) for k in keys}
-    log(f"probe: the parent's and this tree's Ant kernels on {PROBE_WORLDS} "
-        f"at {B} envs, one step (qpos, qvel, t, reward, terminated, active "
-        f"counts, traces) and one {ANT_ROLL_STEPS}-step rollout: "
+    worlds = PROBE_WORLDS if what == "Ant" else POINT_PROBE_WORLDS
+    steps = ANT_ROLL_STEPS if what == "Ant" else ROLLOUT_STEPS
+    log(f"probe: the parent's and this tree's {what} kernels on {worlds} "
+        f"at {B} envs, one step (qpos, qvel, t, reward, terminated, and the "
+        f"traces where there are) and one {steps}-step rollout: "
         f"{sum(same.values())} of {len(same)} outputs equal to the bit; "
         f"differing: {[k for k, x in same.items() if not x]}")
     os.remove(copy)
     shutil.rmtree(work, ignore_errors=True)
     return 0 if all(same.values()) and keys == sorted(got["this"].files) else 1
+
+
+# ---------------------------------------------------------------------------
+# phases 27-30: a Point robot without the object solve (the quasi-static
+# rows of the Point kernels), and the float64 fidelity path, in a process
+# of their own
+# ---------------------------------------------------------------------------
+QUASI_FLAG = "--point-quasi"           # runs phases 27-30 alone
+QUASI_RESULT = "POINT_QUASI_RESULT "
+# the five worlds of phase 27: one block, three blocks (pair separation),
+# the Fall block (a z slide the push leaves alone), the heads on the block,
+# the ball with the heads on it
+QUASI_IDS = ("PointPush-v0", "PointMultiPushSmall-v0", "PointFall-v0",
+             "PointBlockCarry-v0", "PointBilliard-v0")
+QUASI_ROLL_IDS = ("PointPush-v0", "PointBilliard-v0")
+QUASI_MAIN_IDS = ("PointPush-v0", "PointBilliard-v0")
+QUASI_CHECK_STEPS = 16
+QUASI_SWEEP_ENVS = 256
+# the float64 fidelity path on the card: the rate at 4096 envs, libm's sine
+# and cosine, and the MuJoCo goldens of tests/test_point_golden.py at its
+# teacher-forced bounds: (id, seed, mean one-step error)
+F64_RATE_IDS = ("PointUMaze-v0", "PointBilliard-v0")
+F64_RATE_STEPS = 20
+TRIG_ARGS = 10 ** 6
+TRIG_MAX_OFF = 10
+F64_EXACT_CASES = (("PointUMaze-v0", 0, 2e-3),
+                   ("PointUMaze-v0", 7, 2e-3),
+                   ("Point4Rooms-v1", 3, 2e-3),
+                   ("PointCorridor-v0", 5, 1e-4))
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "goldens")
+
+
+def quasi_spec(env_id: str, device="cuda"):
+    """``env_id``'s task with a Point robot without the object solve
+    (``USES_POINT_WORLD = False``, nothing else changed): the quasi-static
+    push and kick/roll/bounce ball, on ``device``."""
+    from mujoco_maze_tpu_torch import registry
+    from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+    from mujoco_maze_tpu_torch.models.point import PointRobot
+
+    class QuasiPoint(PointRobot):
+        USES_POINT_WORLD = False
+
+    e = registry.entry(env_id)
+    return MazeEnvSpec(QuasiPoint(), e.task_cls, e.maze_size_scaling,
+                       inner_reward_scaling=e.inner_reward_scaling,
+                       device=device)
+
+
+def quasi_events(spec, qpos, qvel, actions):
+    """Which quasi-static rows one step of ``spec`` exercises, per env
+    ``(B,)`` bool each: a block pushed (the robot disc overlapping it), a
+    pair separated, a ball kicked, a ball bounced off a wall (its resolved
+    move differs from its free one).  Also read by
+    tests/test_torch_point_quasi_step.py."""
+    robot = spec.robot
+    q, v = robot.kinematic_step(qpos, qvel, actions)
+    q, v = robot.residual_step(q, v)
+    x, y = q[:, 0], q[:, 1]
+    zero = torch.zeros_like(x, dtype=torch.bool)
+    pushed, separated, kicked, bounced = zero, zero, zero, zero
+
+    def center(b, qq, a):
+        i = b.qpos_idx[a]
+        return float(b.body_pos[a]) + (qq[:, i] if i >= 0 else 0.0)
+
+    blocks = spec.block_runtimes
+    for b in blocks:
+        cx, cy = center(b, q, 0), center(b, q, 1)
+        hx, hy = float(b.half[0]), float(b.half[1])
+        dx = x - torch.clamp(x, cx - hx, cx + hx)
+        dy = y - torch.clamp(y, cy - hy, cy + hy)
+        pushed = pushed | (torch.sqrt(dx * dx + dy * dy + 1e-12)
+                           < robot.RADIUS)
+    q2 = spec._push_blocks(q, q[:, :2]) if blocks else q
+    for i, bi in enumerate(blocks):
+        for bj in blocks[i + 1:]:
+            over = torch.ones_like(pushed)
+            for a in range(2):
+                gap = float(bi.half[a] + bj.half[a]) - torch.abs(
+                    center(bi, q2, a) - center(bj, q2, a))
+                over = over & (gap > 0)
+            separated = separated | over
+    if spec.ball_runtimes:
+        q3, _ = spec._step_balls(q2, v, q2[:, :2])
+        for b in spec.ball_runtimes:
+            xi, yi = b.qpos_idx[0], b.qpos_idx[1]
+            bx, by = center(b, q2, 0), center(b, q2, 1)
+            dist = torch.sqrt((bx - x) ** 2 + (by - y) ** 2 + 1e-12)
+            reach = spec.ROBOT_GEOM_R + b.size
+            hit = dist < reach
+            kicked = kicked | hit
+            # the ball's move without a wall, against its resolved move
+            push = (reach - dist) * spec.BALL_KICK_GAIN
+            vx = torch.where(hit, v[:, xi] + (bx - x) / dist * push, v[:, xi])
+            vy = torch.where(hit, v[:, yi] + (by - y) / dist * push, v[:, yi])
+            free = torch.stack([bx + vx * robot.timestep,
+                                by + vy * robot.timestep], 1)
+            got = torch.stack([center(b, q3, 0), center(b, q3, 1)], 1)
+            bounced = bounced | ((got - free).abs().max(dim=1).values > 1e-6)
+    return {"block pushed": pushed, "pair separated": separated,
+            "ball kicked": kicked, "ball bounced": bounced}
+
+
+def quasi_step_flops(ks) -> int:
+    """fp32 operations of one env-step with the quasi-static rows, counted
+    from csrc/point_lane.cu as ``step_flops`` counts (selects and
+    comparisons none): the Point step; the world velocities' clip 2 each;
+    per block, the push 40; per block pair, the separation 40; per ball,
+    the kick, roll and steering 53 and the two crossing passes over the
+    ball walls 60 each per wall; the heads' anchor 3."""
+    nb, nl, nw = ks.quasi_counts
+    n = step_flops(ks.walls.shape[0], ks.goals.shape[0]) + 2 * ks.n_world
+    n += 40 * nb + 40 * (nb * (nb - 1) // 2)
+    n += nl * (53 + 2 * 60 * nw)
+    return n + (3 if ks.obs_offset == 3 else 0)
+
+
+def quasi_step_check(env_id: str, seed: int, envs: int = B,
+                     steps: int = QUASI_CHECK_STEPS):
+    """Phase 27 for one ID: the quasi step kernel vs its plain version at
+    ``envs`` envs, teacher-forced for ``steps`` steps from
+    ``point_kernel.quasi_states`` (the robot against block faces and inside
+    blocks, blocks at their limits and overlapping, the ball on the robot,
+    headed into walls and corners), then along the public step API's
+    trajectory with random actions; every output bit-equal.  Returns the
+    counts of env-steps whose rows fired."""
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import make_fast_step
+    from mujoco_maze_tpu_torch.ops.point_kernel import (point_step_plain,
+                                                        quasi_states)
+
+    spec = quasi_spec(env_id)
+    env = BatchedMazeEnv(spec, envs)
+    kstep = make_fast_step(env)
+    ks = kstep.ks
+    q, v, t, a = (torch.as_tensor(x, device="cuda")
+                  for x in quasi_states(spec, envs, seed))
+    st = EnvState(qpos=q, qvel=v, t=t)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    policy = env.random_policy()
+    off, events, errs = 0, {}, []
+    for s in range(steps):
+        act = a if s == 0 else policy(None, gen)
+        kout = kstep(st.qpos, st.qvel, st.t, act)
+        pout = point_step_plain(ks, st.qpos, st.qvel, st.t, act)
+        same = torch.ones(envs, dtype=torch.bool, device="cuda")
+        for k_, p_ in zip(kout, pout):
+            eq = k_ == p_
+            same &= eq if eq.dim() == 1 else eq.all(dim=1)
+        off += int((~same).sum())
+        errs.append(max_abs_diff(kout, pout))
+        for name, hit in quasi_events(spec, st.qpos, st.qvel, act).items():
+            events[name] = events.get(name, 0) + int(hit.sum())
+        res = env.step(st, act)
+        st = res.state
+    err = max_abs_diff(errs, [0.0] * len(errs))
+    log(f"phase 27: {env_id} quasi step kernel vs plain, {steps} "
+        f"teacher-forced steps x {envs} envs: env-steps not bit-equal {off} "
+        f"of {steps * envs} (tol 0, a NaN on either side unequal), max "
+        f"|kernel - plain| {err:.3g}; env-steps with the rows exercised "
+        f"{events}")
+    if off or err != 0.0:
+        raise SystemExit(f"quasi step kernel disagrees with its plain "
+                         f"version on {env_id}")
+    return {"env_steps": steps * envs, "not_bit_equal": off,
+            "max_abs_err": err, **events}
+
+
+def quasi_rollout_check(env_id: str, seed: int):
+    """Phase 28 for one ID: the quasi rollout kernel vs its plain version
+    (the same Philox stream), ROLLOUT_STEPS steps from t spread over the
+    window's end: every output bit-equal, the episode counts and each
+    reset draw exact, the world dofs of the envs that reset on the last
+    step at qpos0 (0), at rest."""
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout
+    from mujoco_maze_tpu_torch.ops.point_kernel import (point_rollout_plain,
+                                                        quasi_states,
+                                                        rollout_draws)
+
+    env = BatchedMazeEnv(quasi_spec(env_id), B)
+    roll = make_fast_rollout(env, ROLLOUT_STEPS)
+    q, v, _, _ = (torch.as_tensor(x, device="cuda")
+                  for x in quasi_states(env.spec, B, seed))
+    t0 = (EPISODE_LIMIT - ROLLOUT_STEPS
+          + torch.arange(B, device="cuda") % ROLLOUT_STEPS).to(torch.int32)
+    kern = roll.per_env(q, v, t0, seed)
+    plain = point_rollout_plain(roll.ks, q, v, t0, seed, ROLLOUT_STEPS)
+    off = sum(int((k_ != p_).reshape(B, -1).any(dim=1).sum())
+              for k_, p_ in zip(kern, plain))
+    err = max_abs_diff(kern, plain)
+    qk, vk, tk, _, ek = kern
+    last = tk == 0
+    _, q_r, v_r = rollout_draws(torch.arange(B, device="cuda"),
+                                ROLLOUT_STEPS - 1, seed)
+    draw_off = int(((qk[last, :3] != q_r[last]) | (vk[last, :3] != v_r[last]))
+                   .any(dim=1).sum())
+    world_off = int(((qk[last, 3:] != 0) | (vk[last, 3:] != 0))
+                    .any(dim=1).sum())
+    log(f"phase 28: {env_id} quasi rollout kernel vs plain, {ROLLOUT_STEPS} "
+        f"steps x {B} envs from t in [{EPISODE_LIMIT - ROLLOUT_STEPS}, "
+        f"{EPISODE_LIMIT}): outputs not bit-equal {off} (tol 0), max "
+        f"|kernel - plain| {err:.3g}; episodes "
+        f"{int(ek.sum())} vs {int(plain[4].sum())}; {int(last.sum())} envs "
+        f"reset on the last step: reset draws off {draw_off}, world dofs not "
+        f"at qpos0 at rest {world_off} (tol 0)")
+    if off or err != 0.0 or draw_off or world_off:
+        raise SystemExit(f"quasi rollout kernel disagrees with its plain "
+                         f"version on {env_id}")
+    if int(ek.sum()) < B or int(last.sum()) == 0:
+        raise SystemExit(f"{env_id}: expected every env to reset in the window")
+    return err
+
+
+def quasi_main_path(env_id: str):
+    """Phase 29 for one ID: the main path, ``MazeEnvSpec(QuasiPoint(),
+    task, scaling)`` then ``BatchedMazeEnv(spec, B)``, through the step
+    API, ``rollout_metrics`` and the fused rollout, 1000 steps each,
+    counted and checked; the CUDA path against the CPU path on a small
+    input; the step API's device idle share; the kernels' times per launch
+    and on the device, their bounds and their plain versions' times."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_rollout
+    from mujoco_maze_tpu_torch.ops.point_kernel import (point_rollout_plain,
+                                                        point_step_plain,
+                                                        quasi_states)
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = quasi_spec(env_id)
+    env = BatchedMazeEnv(spec, B)
+    policy = env.random_policy()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    st, obs = env.reset(29)
+    fused = make_fast_rollout(env, MAIN_STEPS)
+    for _ in range(5):  # warm-up
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    make_fast_rollout(env, 1)(st.qpos, st.qvel, st.t, 1)
+    torch.cuda.synchronize()
+
+    lane_env.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(MAIN_STEPS):
+        res = env.step(st, policy(obs, gen))
+        st, obs = res.state, res.obs
+    ev[1].record()
+    st_m, rew_m, eps_m = env.rollout_metrics(st, policy, MAIN_STEPS, gen)
+    ev[2].record()
+    qf, vf, tf, rew_f, eps_f = fused(st.qpos, st.qvel, st.t, 43)
+    ev[3].record()
+    torch.cuda.synchronize()
+    launches = dict(lane_env.LAUNCHES)
+    ms_api, ms_metrics, ms_fused = (ev[i].elapsed_time(ev[i + 1])
+                                    for i in range(3))
+    log(f"phase 29: quasi main path {env_id} x {B} envs, {MAIN_STEPS} steps "
+        f"per path; launches {launches}")
+    expected = {k: 0 for k in launches}
+    expected.update({"point_quasi_step": 2 * MAIN_STEPS,
+                     "point_quasi_rollout": 1})
+    if launches != expected:
+        raise SystemExit(f"quasi main path launches {launches}, expected "
+                         f"{expected}")
+    rate = lambda ms: B * MAIN_STEPS / (ms * 1e-3)
+    log(f"phase 29: {env_id} env-steps/s (CUDA events): step API "
+        f"{rate(ms_api):.6g}, rollout_metrics {rate(ms_metrics):.6g}, fused "
+        f"rollout {rate(ms_fused):.6g} ({ms_fused:.6g} ms per 1000-step launch)")
+    xmin, xmax, ymin, ymax = spec.structure.xy_limits()
+
+    def inside(x, y, pad):
+        return bool((x > xmin - pad).all() and (x < xmax + pad).all()
+                    and (y > ymin - pad).all() and (y < ymax + pad).all())
+
+    objects = ([spec.block_center(qf, b) for b in spec.block_runtimes]
+               + [spec.ball_center3(qf, b) for b in spec.ball_runtimes])
+    # every env truncates near the end of each 1000-step path, so the
+    # objects' motion is read over 200 more (uncounted) public-API steps
+    moved = torch.zeros(B, dtype=torch.bool, device="cuda")
+    s2, o2 = st, obs
+    for _ in range(200):
+        r2 = env.step(s2, policy(o2, gen))
+        s2, o2 = r2.state, r2.obs
+        moved |= s2.qpos[:, 3:].abs().max(dim=1).values > 1e-3
+    checks = {
+        f"obs shape (B, {spec.obs_dim})": tuple(obs.shape) == (B, spec.obs_dim),
+        "obs finite": bool(torch.isfinite(obs).all()),
+        "obs time channel = t * 0.001": bool(
+            (obs[:, -1] == st.t.float() * 0.001).all()),
+        "obs first object = its centre": bool((obs[:, 3:6] == (
+            spec.ball_center3(st.qpos, spec.ball_runtimes[0])
+            if spec.ball_runtimes else
+            spec.block_center(st.qpos, spec.block_runtimes[0]))).all()),
+        "rollout_metrics reward finite": bool(torch.isfinite(rew_m)),
+        "rollout_metrics ended >= B episodes": int(eps_m) >= B,
+        "fused state finite": bool(torch.isfinite(qf).all()
+                                   and torch.isfinite(vf).all()),
+        "fused robot and objects inside the maze (+-1)": inside(
+            qf[:, 0], qf[:, 1], 1.0) and all(inside(c[:, 0], c[:, 1], 1.0)
+                                            for c in objects),
+        "objects moved in 200 steps (envs that pushed or struck one)":
+            int(moved.sum()) > 0,
+        "fused t < 1000 (auto-reset at the episode limit)": int(tf.max()) < 1000,
+        "fused reward finite": bool(torch.isfinite(rew_f)),
+        "fused episodes >= B (truncation at 1000)": int(eps_f) >= B,
+    }
+    log(f"phase 29: {env_id} output checks {checks}; envs whose objects "
+        f"moved in those 200 steps {int(moved.sum())} of {B}")
+    if not all(checks.values()):
+        raise SystemExit(f"the quasi main path's output failed a check on "
+                         f"{env_id}")
+
+    # the port's CUDA path against its CPU path on a small input
+    n_small = 64
+    cpu_env = BatchedMazeEnv(quasi_spec(env_id, "cpu"), n_small,
+                             auto_reset=False)
+    gpu_env = BatchedMazeEnv(spec, n_small, auto_reset=False)
+    q, v, t, a = quasi_states(cpu_env.spec, n_small, 5)
+    s_cpu = EnvState(qpos=torch.as_tensor(q), qvel=torch.as_tensor(v),
+                     t=torch.as_tensor(t))
+    rng = np.random.RandomState(5)
+    small_err = 0.0
+    for k in range(5):
+        act = (torch.as_tensor(a) if k == 0 else torch.as_tensor(
+            rng.uniform(-1, 1, (n_small, 2)) * [1.0, 0.25], dtype=torch.float32))
+        r_cpu = cpu_env.step(s_cpu, act)
+        s_gpu = EnvState(qpos=s_cpu.qpos.cuda(), qvel=s_cpu.qvel.cuda(),
+                         t=s_cpu.t.cuda())
+        r_gpu = gpu_env.step(s_gpu, act.cuda())
+        small_err = max(small_err,
+                        float((r_gpu.obs.cpu() - r_cpu.obs).abs().max()),
+                        float((r_gpu.reward.cpu() - r_cpu.reward).abs().max()))
+        if not torch.equal(r_gpu.terminated.cpu(), r_cpu.terminated):
+            raise SystemExit("the quasi CUDA path and CPU path disagree on "
+                             "terminated")
+        s_cpu = r_cpu.state
+    log(f"phase 29: {env_id} CUDA path vs CPU path, {n_small} envs x 5 steps "
+        f"teacher-forced from quasi states: max |err| obs and reward "
+        f"{small_err:.3g} (tol {STEP_TOL})")
+    if not small_err <= STEP_TOL:
+        raise SystemExit("the quasi CUDA path disagrees with the CPU path")
+
+    # where a step-API step's time goes: one profiled window of 50 steps
+    acts = [policy(obs, gen) for _ in range(50)]
+    s = st
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        for a_ in acts:
+            s = env.step(s, a_).state
+        ev[1].record()
+        torch.cuda.synchronize()
+    window_us = 1e3 * ev[0].elapsed_time(ev[1])
+    on_device = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA")
+                        and e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(t_ for t_, _, _ in on_device)
+    idle = 1 - busy_us / window_us if busy_us else float("nan")
+    n_kernels = sum(n for _, n, _ in on_device) / 50
+    top = "; ".join(f"{k[:60]} {t_ / 50:.4g} us/step ({n / 50:.3g}/step)"
+                    for t_, n, k in on_device[:4])
+    log(f"phase 29: profiled {env_id} step API, 50 steps in {window_us:.6g} "
+        f"us: device busy {busy_us:.6g} us (idle share {idle:.4g}), "
+        f"{n_kernels:.3g} kernels/step; top: {top}")
+
+    # the kernels' numbers at the main path's shapes
+    kstep = env._kernel_step
+    ks = kstep.ks
+    act = policy(obs, gen)
+    roll64 = make_fast_rollout(env, ROLLOUT_STEPS)
+    ms_step = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 200)
+    ms_roll = cuda_ms(lambda: fused.per_env(st.qpos, st.qvel, st.t, 19), 1)
+    ms_roll64 = cuda_ms(lambda: roll64.per_env(st.qpos, st.qvel, st.t, 19), 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kstep(st.qpos, st.qvel, st.t, act)
+        roll64.per_env(st.qpos, st.qvel, st.t, 19)
+        torch.cuda.synchronize()
+    dev_step, n_step = device_ms(prof, "point_quasi_step_kernel")
+    dev_roll64, _ = device_ms(prof, "point_quasi_rollout_kernel")
+    if not n_step:   # the profiler recorded no launch: CUDA events instead
+        dev_step = device_ms_events(lambda: kstep(st.qpos, st.qvel, st.t, act), 5)
+        dev_roll64 = device_ms_events(
+            lambda: roll64.per_env(st.qpos, st.qvel, st.t, 19), 2)
+    ms_step_plain = cuda_ms(lambda: point_step_plain(ks, st.qpos, st.qvel,
+                                                     st.t, act), 5)
+    ms_roll_plain = cuda_ms(lambda: point_rollout_plain(
+        ks, st.qpos, st.qvel, st.t, 19, ROLLOUT_STEPS), 1)
+    flops = quasi_step_flops(ks)
+    nq = 3 + ks.n_world
+    tables = 4 * (4 * ks.walls.shape[0] + 9 * ks.goals.shape[0]
+                  + ks.quasi_table.numel())
+    step_bound = bound(B * obj_bytes(nq, "step") + tables, B * flops)
+    roll_bound = bound(B * obj_bytes(nq, "rollout") + tables,
+                       B * MAIN_STEPS * (flops + 33))
+    roll64_bound = bound(B * obj_bytes(nq, "rollout") + tables,
+                         B * ROLLOUT_STEPS * (flops + 33))
+    log(f"phase 29: {env_id} point_quasi_step {ms_step:.6g} ms/launch, "
+        f"{dev_step:.6g} ms on the device ({n_step} profiled), plain "
+        f"{ms_step_plain:.6g} ms, bound {step_bound[0]:.3g} ms by "
+        f"{step_bound[1]} ({flops} fp32 operations per env-step); "
+        f"point_quasi_rollout {ms_roll:.6g} ms per {MAIN_STEPS}-step launch "
+        f"(bound {roll_bound[0]:.3g} ms), {ms_roll64:.6g} ms per "
+        f"{ROLLOUT_STEPS}-step launch, {dev_roll64:.6g} ms on the device, "
+        f"plain {ms_roll_plain:.6g} ms (bound {roll64_bound[0]:.3g} ms)")
+    return {
+        "rates": {"step_api": rate(ms_api), "rollout_metrics": rate(ms_metrics),
+                  "fused": rate(ms_fused), "idle_share": idle,
+                  "kernels_per_step": n_kernels},
+        "step": {"launches": launches["point_quasi_step"], "ms": ms_step,
+                 "device_ms": dev_step, "plain_ms": ms_step_plain,
+                 "bound_ms": step_bound[0], "bound_by": step_bound[1],
+                 "fp32_ops_per_env_step": flops},
+        "rollout": {"launches": launches["point_quasi_rollout"],
+                    "steps_per_launch": ROLLOUT_STEPS, "ms": ms_roll64,
+                    "device_ms": dev_roll64, "plain_ms": ms_roll_plain,
+                    "bound_ms": roll64_bound[0], "bound_by": roll64_bound[1],
+                    "ms_per_1000_steps": ms_roll,
+                    "bound_ms_per_1000_steps": roll_bound[0]},
+    }
+
+
+@contextlib.contextmanager
+def card_solve_flips():
+    """Within one float64 step on the card: each Newton solve runs twice,
+    with the card's ``torch.linalg.solve`` (whose result the step keeps)
+    and with the host's (LAPACK) in its place.  Yields a dict that
+    receives, per env, ``diff`` (some host solve's bits differ from the
+    card's on the same system), ``flip`` (some line-search branch differs
+    between the two runs) and ``moved`` (the two results differ by more
+    than rounding, 1e-9 relative), each where a contact row is active."""
+    from mujoco_maze_tpu_torch.physics import point_world as pw
+
+    orig = pw._solve_newton
+    rec = {}
+
+    def twin(p, M, a0, J, aref, rinv):
+        live = (rinv > 0.0).any(-1)
+        diff = torch.zeros_like(live)
+
+        def host_solve(H, g):
+            nonlocal diff
+            theirs = torch.linalg.solve(H.cpu(), g.cpu()).to(H.device)
+            diff = diff | (torch.linalg.solve(H, g) != theirs).any(-1)
+            return theirs
+
+        mine, theirs = [], []
+        x = orig(p, M, a0, J, aref, rinv, branches=mine)
+        x_host = orig(p, M, a0, J, aref, rinv, solve=host_solve,
+                      branches=theirs)
+        flip = torch.stack([a != b for a, b in zip(mine, theirs)]).any(0)
+        moved = ((x - x_host).abs() > 1e-9 * (1.0 + x.abs())).any(-1)
+        for name, hit in (("diff", diff), ("flip", flip), ("moved", moved)):
+            rec[name] = rec.get(name, torch.zeros_like(live)) | (hit & live)
+        return x
+
+    pw._solve_newton = twin
+    try:
+        yield rec
+    finally:
+        pw._solve_newton = orig
+
+
+def golden_errors(spec, g, flips):
+    """The float64 path's qpos after each step of a MuJoCo golden, all of
+    its steps in one batch on the card, each from the golden's state
+    before it (teacher-forced); adds the step's counts of
+    :func:`card_solve_flips` and its env-steps to ``flips``."""
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+
+    import numpy as np
+
+    qp = np.concatenate([g["reset_qpos"][None], g["qpos"][:-1]])
+    qv = np.concatenate([g["reset_qvel"][None], g["qvel"][:-1]])
+    n = len(g["actions"])
+    st = EnvState(qpos=torch.tensor(qp, device="cuda"),
+                  qvel=torch.tensor(qv, device="cuda"),
+                  t=torch.zeros(n, dtype=torch.int32, device="cuda"))
+    with card_solve_flips() as rec:
+        q = spec.step(st, torch.tensor(g["actions"], device="cuda")).state.qpos
+    flips["env_steps"] += n
+    for name, hit in rec.items():
+        flips[name] += int(hit.sum())
+    return q.cpu().numpy()
+
+
+def f64_golden_check():
+    """The MuJoCo goldens of tests/test_point_golden.py, case for case at
+    its teacher-forced bounds, through the float64 path on the card (the
+    free runs, one env stepped serially, are the CPU test's); returns each
+    case's numbers and the cases that miss a bound."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch import registry
+
+    def load(name):
+        return np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
+
+    def spec_of(env_id):
+        return registry.make_spec(env_id, dtype=torch.float64, device="cuda")
+
+    out, bad = {}, []
+    flips = {"env_steps": 0, "diff": 0, "flip": 0, "moved": 0}
+    for env_id, seed, tf_mean in F64_EXACT_CASES:
+        g = load(f"{env_id}_s{seed}")
+        q = golden_errors(spec_of(env_id), g, flips)
+        errs = np.abs(q[:, :3] - g["qpos"][:, :3]).max(1)
+        out[f"{env_id}_s{seed}"] = {
+            "tf_mean": float(errs.mean()), "tf_median": float(np.median(errs))}
+        if not (errs.mean() < tf_mean and np.median(errs) < 1e-9):
+            bad.append(f"{env_id}_s{seed}")
+    for seed in (2, 9):
+        g = load(f"PointPush-v0_s{seed}")
+        q = golden_errors(spec_of("PointPush-v0"), g, flips)
+        rob = np.abs(q[:, :3] - g["qpos"][:, :3]).max(1)
+        blk = np.abs(q[:, 3:5] - g["qpos"][:, 3:5]).max(1)
+        out[f"PointPush-v0_s{seed}"] = {
+            "robot_median": float(np.median(rob)), "robot_mean": float(rob.mean()),
+            "block_mean": float(blk.mean())}
+        if not (np.median(rob) < 1e-9 and blk.mean() < 1e-3
+                and rob.mean() < 2e-3):
+            bad.append(f"PointPush-v0_s{seed}")
+    spec = spec_of("PointBilliard-v0")
+    g = load("PointBilliard-v0_strike")
+    errs = np.abs(golden_errors(spec, g, flips) - g["qpos"]).max(1)
+    out["PointBilliard-v0_strike"] = {
+        "tf_mean": float(errs.mean()), "tf_median": float(np.median(errs))}
+    if not (errs.mean() < 1e-3 and np.median(errs) < 1e-9):
+        bad.append("PointBilliard-v0_strike")
+    g = load("PointBilliard-v0_s11")
+    q = golden_errors(spec, g, flips)
+    ball_err = np.abs(q[:, 3:6] - g["qpos"][:, 3:6]).max(1)
+    rob = np.abs(q[:, :3] - g["qpos"][:, :3]).max(1)
+    out["PointBilliard-v0_s11"] = {"ball_max": float(ball_err.max()),
+                                   "robot_mean": float(rob.mean())}
+    if not (ball_err.max() < 1e-9 and rob.mean() < 1e-3):
+        bad.append("PointBilliard-v0_s11")
+    out["solve_flips"] = flips
+    return out, bad
+
+
+def f64_phase():
+    """Phase 30: the float64 fidelity path on the card: PointUMaze-v0 and
+    PointBilliard-v0 at B envs through ``BatchedMazeEnv.step`` (no kernel:
+    ``spec.step``), env-steps/s and no NaN; the card's sine and cosine
+    against numpy's on the host over TRIG_ARGS arguments (|x| <= 50), and
+    the floor switch they decide; the MuJoCo goldens teacher-forced at
+    tests/test_point_golden.py's bounds, and on them how often the card's
+    Newton solves move a line-search branch against the host's."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch import registry
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.ops import lane_env
+    from mujoco_maze_tpu_torch.physics.exact_trig import sincos
+
+    rates = {}
+    for env_id in F64_RATE_IDS:
+        env = BatchedMazeEnv(registry.make_spec(env_id, dtype=torch.float64), B)
+        policy = env.random_policy()
+        gen = torch.Generator(device="cuda").manual_seed(30)
+        st, obs = env.reset(30)
+        res = env.step(st, policy(obs, gen))       # warm-up
+        st, obs = res.state, res.obs
+        lane_env.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(F64_RATE_STEPS):
+            res = env.step(st, policy(obs, gen))
+            st, obs = res.state, res.obs
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        finite = bool(torch.isfinite(st.qpos).all()
+                      and torch.isfinite(st.qvel).all())
+        launched = sum(lane_env.LAUNCHES.values())
+        rates[env_id] = {"env_steps_s": B * F64_RATE_STEPS / (ms * 1e-3),
+                         "ms_per_step": ms / F64_RATE_STEPS, "finite": finite,
+                         "dtype": str(st.qpos.dtype)}
+        log(f"phase 30: {env_id} float64 x {B} envs, {F64_RATE_STEPS} steps "
+            f"through BatchedMazeEnv.step: {rates[env_id]['env_steps_s']:.6g} "
+            f"env-steps/s ({ms / F64_RATE_STEPS:.6g} ms a step, "
+            f"{time.perf_counter() - t0:.2f} s wall), state finite {finite}, "
+            f"kernel launches {launched} (tol 0)")
+        if not finite or launched or st.qpos.dtype != torch.float64:
+            raise SystemExit(f"the float64 path failed on {env_id}")
+    rng = np.random.RandomState(2026)
+    x = rng.uniform(-50.0, 50.0, TRIG_ARGS)
+    s, c = (y.cpu().numpy() for y in sincos(torch.tensor(x, device="cuda")))
+    s_off = np.nonzero(s != np.sin(x))[0]
+    c_off = np.nonzero(c != np.cos(x))[0]
+    sw = (0.5 * (c * c + s * s) - 0.5 < 0) != (
+        0.5 * (np.cos(x) ** 2 + np.sin(x) ** 2) - 0.5 < 0)
+    trig = {"args": TRIG_ARGS, "sin_off": len(s_off), "cos_off": len(c_off),
+            "switch_off": int(sw.sum()),
+            "args_off": [float(v) for v in x[np.union1d(s_off, c_off)][:10]]}
+    log(f"phase 30: the card's float64 sin/cos vs numpy on the host over "
+        f"{TRIG_ARGS} arguments in [-50, 50]: sin off {len(s_off)}, cos off "
+        f"{len(c_off)}, floor switch off {int(sw.sum())} (tol {TRIG_MAX_OFF} "
+        f"each) {trig['args_off']}")
+    if max(len(s_off), len(c_off), int(sw.sum())) > TRIG_MAX_OFF:
+        raise SystemExit("the card's sine and cosine differ from numpy's")
+    goldens, bad = f64_golden_check()
+    fl = goldens["solve_flips"]
+    log(f"phase 30: MuJoCo goldens teacher-forced through the float64 path "
+        f"on the card (tests/test_point_golden.py's bounds; the free runs are "
+        f"the CPU test's): {goldens}; failed {bad}")
+    log(f"phase 30: the card's Newton solves against the host's (LAPACK) on "
+        f"those {fl['env_steps']} env-steps, where a contact row is active: "
+        f"solve bits differ on {fl['diff']}, a line-search branch differs on "
+        f"{fl['flip']}, the solve's result moves (> 1e-9 relative) on "
+        f"{fl['moved']}")
+    if bad:
+        raise SystemExit(f"the float64 path misses the golden bounds on {bad}")
+    return {"rates": rates, "trig": trig, "goldens": goldens}
+
+
+def point_quasi_phases() -> int:
+    """Phases 27-30, run in a process of their own (``python3 chip_smoke.py
+    --point-quasi``, started by ``main``; it also runs alone).  Prints its
+    result as one ``POINT_QUASI_RESULT {json}`` line."""
+    from mujoco_maze_tpu_torch import registry
+    from mujoco_maze_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    _build.load()
+    checks = {env_id: quasi_step_check(env_id, 171 + k)
+              for k, env_id in enumerate(QUASI_IDS)}
+    tasks = [i for i in registry.env_ids() if i.startswith("Point")
+             and quasi_spec(i, "cpu").nq > 3]
+    sweep = [quasi_step_check(env_id, 181 + k, QUASI_SWEEP_ENVS, 1)
+             for k, env_id in enumerate(tasks)]
+    sweep_off = sum(x["not_bit_equal"] for x in sweep)
+    log(f"phase 27: {len(tasks)} Point object tasks with the quasi robot, one "
+        f"launch each at {QUASI_SWEEP_ENVS} envs: env-steps not bit-equal "
+        f"{sweep_off} (tol 0)")
+    if len(tasks) != 27:
+        raise SystemExit(f"expected 27 Point object tasks, found {len(tasks)}")
+    step_err = max_abs_diff([x["max_abs_err"] for x in
+                             list(checks.values()) + sweep],
+                            [0.0] * (len(checks) + len(sweep)))
+    roll_err = max_abs_diff([quasi_rollout_check(env_id, 191 + k)
+                             for k, env_id in enumerate(QUASI_ROLL_IDS)],
+                            [0.0] * len(QUASI_ROLL_IDS))
+    mains = {env_id: quasi_main_path(env_id) for env_id in QUASI_MAIN_IDS}
+    f64 = f64_phase()
+    log(f"phases 27-30 took {time.perf_counter() - t0:.1f} s")
+    first = mains[QUASI_MAIN_IDS[0]]
+    out = {"step": {**first["step"], "max_abs_err": step_err,
+                    "launches": sum(m["step"]["launches"] for m in mains.values()),
+                    "checks": checks},
+           "rollout": {**first["rollout"], "max_abs_err": roll_err,
+                       "launches": sum(m["rollout"]["launches"]
+                                       for m in mains.values())},
+           "main_paths": {k: {"rates": m["rates"], "step": m["step"],
+                              "rollout": m["rollout"]}
+                          for k, m in mains.items()},
+           "float64": f64, "seconds": time.perf_counter() - t0}
+    print(QUASI_RESULT + json.dumps(out), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -4159,6 +4930,8 @@ def main() -> int:
     engine = run_child(ENGINE_FLAG, ENGINE_RESULT, "20-23")
     # -- 24-26. the Ant with a free object ball --------------------------------
     balls = run_child(BALLS_FLAG, BALLS_RESULT, "24-26")
+    # -- 27-30. the quasi-static rows; the float64 Point path ---------------
+    quasi = run_child(QUASI_FLAG, QUASI_RESULT, "27-30")
     # engine_step's operation bound against the fp32 peak phase 16 measured
     # (the child process's bound is on the data sheet's 67e12)
     eng = engine["step"]
@@ -4251,6 +5024,19 @@ def main() -> int:
                            "rates": ball["rates"],
                            "roller_smallbilliard": ball["roller"],
                            "ant_smallbilliard_world": ball["ant_world"]}})
+    for kind, line in (("step", "635"), ("rollout", "621")):
+        kernels.append({
+            **quasi[kind], "name": f"point_quasi_{kind}_kernel", "route": "cuda",
+            "source": "mujoco_maze_tpu_torch/csrc/point_lane.cu",
+            "replaces": f"mujoco_maze_tpu/ops/point_pallas.py:{line} "
+                        "(_push_blocks_lanes :230, _step_balls_lanes :325)",
+            "library_ms": None,
+            "worlds": "the 27 Point object worlds with a Point robot without "
+                      "the object solve (USES_POINT_WORLD = False)",
+            "main_path": " and ".join(QUASI_MAIN_IDS) + " with that robot",
+            **({"main_path_rates": {k: m["rates"] for k, m in
+                                    quasi["main_paths"].items()},
+                "float64_path": quasi["float64"]} if kind == "step" else {})})
     log(f"done in {time.perf_counter() - T0:.1f} s (build {build_s:.2f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
@@ -4263,11 +5049,16 @@ def main() -> int:
 if __name__ == "__main__":
     ARGS = sys.argv[1:]
     sys.exit(point_objects_phases() if OBJ_FLAG in ARGS
+             else point_quasi_phases() if QUASI_FLAG in ARGS
              else engine_phases() if ENGINE_FLAG in ARGS
              else ant_balls_phases() if BALLS_FLAG in ARGS
              else registry_sweep(ARGS) if ARGS[:1] == [SWEEP_FLAG]
              else ant_parent_probe(ARGS[1:]) if ARGS[:1] == [PROBE_FLAG]
              else probe_outputs(ARGS[1]) if ARGS[:1] == [PROBE_OUT_FLAG]
+             else ant_parent_probe(ARGS[1:], POINT_PROBE_OUT_FLAG, "Point")
+             if ARGS[:1] == [POINT_PROBE_FLAG]
+             else point_probe_outputs(ARGS[1])
+             if ARGS[:1] == [POINT_PROBE_OUT_FLAG]
              else engine_faults() if FAULTS_FLAG in ARGS
              else engine_check(ARGS[1:]) if ARGS[:1] == [CHECK_FLAG]
              else main())

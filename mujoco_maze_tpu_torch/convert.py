@@ -15,20 +15,27 @@ import torch
 from .envs.env import EnvState
 from .ops.ant_kernel import AntKernelSpec
 from .ops.engine_kernel import EngineKernelSpec
+from .ops import point_kernel as pk
 from .ops.point_kernel import PointKernelSpec
 from .ops.swimmer_kernel import SwimmerKernelSpec
 
 
-def from_jax_state(qpos, qvel, t, goal_pos=None, *, device) -> EnvState:
+def from_jax_state(qpos, qvel, t, goal_pos=None, *, device,
+                   dtype: torch.dtype = torch.float32) -> EnvState:
     """The port's :class:`EnvState` from the arrays of a JAX ``EnvState``
     (``np.asarray(state.qpos)`` etc.; the JAX PRNG key has no counterpart:
     the port's randomness lives in ``torch.Generator`` objects).  The two
     packages lay qpos and qvel out alike, so every coordinate carries
     across as it is: a free object ball's position and quaternion (7 qpos)
-    and its 6 dofs among them."""
+    and its 6 dofs among them; in the object worlds of a Point robot
+    without the object solve, the robot's 3, each block's slides and each
+    ball's x, y, rot.  ``dtype=torch.float64`` (the Point fidelity path)
+    keeps float64 states in float64, never rounded through float32."""
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
 
     def f32(a):
-        return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+        return torch.tensor(np.asarray(a, dtype=np_dtype), device=device)
 
     return EnvState(
         qpos=f32(qpos),
@@ -49,13 +56,52 @@ def to_numpy(state: EnvState) -> Dict[str, Optional[np.ndarray]]:
     }
 
 
+def _lowered_quasi(ks) -> Dict[str, object]:
+    """The quasi-static table of a Point world without the object solve,
+    read back as the kernel reads it, under the names of
+    ``point_pallas.PointKernelSpec``'s ``blocks``, ``balls``,
+    ``objball_walls_*`` and ``ball_kick`` fields and its heads' anchor
+    (``head_base``, ``head_qadr``): each block's body_pos, its x/y half
+    extents, axis mask and travel limits, its x/y/z qpos addresses; each
+    ball's body_pos, ``reach`` (robot_geom_r + size) and x/y qpos
+    addresses; ``push_radius``; ``ball_keep`` (1 - ball_decay)."""
+    tab = ks.quasi_table.detach().cpu().numpy()
+    n_blocks, n_balls, n_walls = ks.quasi_counts
+
+    def floats(row, lo, hi):
+        return tuple(float(x) for x in row[lo:hi])
+
+    def ints(row, lo, hi):
+        return tuple(int(x) for x in row[lo:hi])
+
+    blocks, balls = [], []
+    for k in range(n_blocks):
+        r = tab[pk.QUASI_HEAD + k * pk.QUASI_BLOCK:][:pk.QUASI_BLOCK]
+        blocks.append({"body_pos": floats(r, 0, 3), "half": floats(r, 3, 5),
+                       "axis_mask": floats(r, 5, 7), "xy_lo": floats(r, 7, 9),
+                       "xy_hi": floats(r, 9, 11), "qpos_idx": ints(r, 11, 14)})
+    off = pk.QUASI_HEAD + n_blocks * pk.QUASI_BLOCK
+    for k in range(n_balls):
+        r = tab[off + k * pk.QUASI_BALL:][:pk.QUASI_BALL]
+        balls.append({"body_pos": floats(r, 0, 2), "reach": float(r[2]),
+                      "qpos_idx": ints(r, 3, 5)})
+    walls = tab[off + n_balls * pk.QUASI_BALL:].reshape(n_walls, 4)
+    return {"blocks": blocks, "balls": balls,
+            "objball_walls_p1": walls[:, :2], "objball_walls_p2": walls[:, 2:],
+            "objball_walls_mask": np.ones(n_walls, dtype=bool),
+            "head_base": floats(tab, 0, 3), "head_qadr": ints(tab, 3, 6),
+            "push_radius": float(tab[6]), "ball_kick": float(tab[7]),
+            "ball_keep": float(tab[8])}
+
+
 def lowered_spec(ks) -> Dict[str, object]:
     """The kernel data of ``ks`` under the field names of the JAX package:
     ``point_pallas.PointKernelSpec`` for a :class:`PointKernelSpec` (in an
     object world with ``n_world``, ``obs_offset``, ``object_dof_idx`` and
     the fields of its ``object_lanes.ObjectLanesSpec`` under
     ``object_spec.<name>``, the balls and blocks as lists of dicts of
-    their ``BallL`` / ``BlockL`` fields);
+    their ``BallL`` / ``BlockL`` fields; without the object solve, the
+    quasi-static table read back by :func:`_lowered_quasi`);
     ``ant_math.AntConsts``, ``ant_math.AntWorld`` and
     ``ant_pallas.AntEnvKernelSpec`` for an :class:`AntKernelSpec`;
     ``swimmer_pallas.SwimmerEnvKernelSpec`` (its ``dyn`` fields, those of
@@ -81,6 +127,8 @@ def lowered_spec(ks) -> Dict[str, object]:
                  "radius", "body_mass", "couple_arm", "spin_inertia",
                  "arrow_tips", "n_world", "obs_offset", "object_dof_idx"):
         out[name] = getattr(ks, name)
+    if ks.quasi_table is not None:
+        out.update(_lowered_quasi(ks))
     o = ks.object_spec
     if o is not None:
         for name in o._fields:

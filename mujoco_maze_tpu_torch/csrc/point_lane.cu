@@ -14,9 +14,19 @@
 //                    (_step_math :419-430), the heads read the first object
 //                    where the task says so (:567-574), and a reset puts
 //                    the world dofs at 0, at rest (sample_reset :599-612).
+//   point_quasi_step, point_quasi_rollout <- the same, in the object worlds
+//                    of a Point robot without the object solve: the
+//                    quasi-static block push with its pair separation
+//                    (point_pallas.py _push_blocks_lanes :230) and the
+//                    kick/roll/bounce ball (_step_balls_lanes :325) run at
+//                    the robot's post-residual position (the branch
+//                    :445-456), and the heads read the first object through
+//                    its qpos addresses.
 //
-// The plain mazes' kernels are the instantiations without objects
-// (kObj = false): their code is the same as before the object worlds came.
+// point_step has three modes: the plain mazes' (kPlainMode), the reduced
+// object solve (kObjMode) and the quasi-static rows (kQuasiMode).  Each
+// mode's code sits behind if constexpr, so the plain and object-solve
+// instantiations are the same code as before the quasi-static mode came.
 //
 // Design.  One thread is one env; its state stays in registers for the
 // whole step (or the whole rollout).  Blocks of 128 threads; the last block
@@ -72,6 +82,12 @@ struct PointParams {
   float penalty, inv_scale;             // task heads
   int reward_type;                      // 0 none, 1 dist, 2 goal
   int episode_limit;
+};
+
+// The quasi-static rows' counts (mirrors lane_env.QuasiParams); outside
+// the anonymous namespace, as the C entry points take it by value.
+struct QuasiParams {
+  int n_blocks, n_balls, n_walls, n_world, n_table, head_obj;
 };
 
 namespace {
@@ -147,16 +163,145 @@ struct ObjCtx {
   uint32_t* trace;
 };
 
+// The quasi-static rows' table (shared memory; ops/point_kernel.py
+// quasi_table): a header, then the blocks, the ball, the ball walls.
+constexpr int kQuasiMaxWorld = 9;    // world dofs of the build
+constexpr int kQHead = 16, kQBlock = 16, kQBall = 8;
+constexpr int kQPushR = 6, kQKick = 7, kQKeep = 8;   // header slots
+struct QuasiCtx {
+  QuasiParams p;
+  const float* tab;
+};
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// A world dof's value by qpos address (>= 3), or 0 where absent (-1).
+__device__ __forceinline__ float world_at(const float* w, int adr) {
+  return adr >= 0 ? w[adr - 3] : 0.f;
+}
+
+// Quasi-static push of the blocks by the robot disc at (x, y), then the
+// pair separation (MazeEnvSpec._push_blocks / _separate_blocks, in their
+// order of operations); the kick/roll/bounce ball (_step_balls).  wq, wv:
+// the env's world dofs.
+__device__ void quasi_rows(const QuasiCtx& qc, const PointParams& p, float x,
+                           float y, float* wq, float* wv) {
+  const float* tab = qc.tab;
+  const float push_r = tab[kQPushR];
+  for (int k = 0; k < qc.p.n_blocks; ++k) {
+    const float* b = tab + kQHead + k * kQBlock;
+    const int ix = (int)b[11], iy = (int)b[12];
+    const float cx = b[0] + world_at(wq, ix);
+    const float cy = b[1] + world_at(wq, iy);
+    const float lox = cx - b[3], hix = cx + b[3];
+    const float loy = cy - b[4], hiy = cy + b[4];
+    const float dx = x - clampf(x, lox, hix), dy = y - clampf(y, loy, hiy);
+    const float dist = sqrtf(dx * dx + dy * dy + 1e-12f);
+    const float overlap = push_r - dist;
+    const bool far = dist > 1e-6f;
+    // inside the AABB: out along the least exit depth, the first of equal
+    const float pen0 = hix - x, pen1 = x - lox, pen2 = hiy - y, pen3 = y - loy;
+    const bool use_x = fminf(pen0, pen1) <= fminf(pen2, pen3);
+    const float nix = use_x ? (pen0 <= pen1 ? 1.f : -1.f) : 0.f;
+    const float niy = use_x ? 0.f : (pen2 <= pen3 ? 1.f : -1.f);
+    const float nx = far ? -dx / dist : nix;
+    const float ny = far ? -dy / dist : niy;
+    const float push = overlap > 0.f ? overlap : 0.f;
+    if (ix >= 0) wq[ix - 3] = clampf(cx + push * nx * b[5], b[7], b[9]) - b[0];
+    if (iy >= 0) wq[iy - 3] = clampf(cy + push * ny * b[6], b[8], b[10]) - b[1];
+  }
+  for (int i = 0; i < qc.p.n_blocks; ++i) {
+    for (int j = i + 1; j < qc.p.n_blocks; ++j) {
+      const float* bi = tab + kQHead + i * kQBlock;
+      const float* bj = tab + kQHead + j * kQBlock;
+      float ci[2], cj[2], pen[2];
+      for (int a = 0; a < 2; ++a) {
+        ci[a] = bi[a] + world_at(wq, (int)bi[11 + a]);
+        cj[a] = bj[a] + world_at(wq, (int)bj[11 + a]);
+        pen[a] = (bi[3 + a] + bj[3 + a]) - fabsf(ci[a] - cj[a]);
+      }
+      const bool overlapping = pen[0] > 0.f && pen[1] > 0.f;
+      const bool use_x = pen[0] <= pen[1];
+      for (int a = 0; a < 2; ++a) {
+        const bool sel = overlapping && (a == 0 ? use_x : !use_x);
+        const float d = pen[a] > 0.f ? pen[a] : 0.f;
+        float sgn = sign_of(cj[a] - ci[a]);
+        sgn = sgn == 0.f ? 1.f : sgn;
+        const int adr_i = (int)bi[11 + a], adr_j = (int)bj[11 + a];
+        // both slide on this axis: half each; else the one that does
+        const float share = (adr_i >= 0 && adr_j >= 0) ? 0.5f : 1.f;
+        if (adr_i >= 0) {
+          const float move = (sel ? d * share : 0.f) * sgn;
+          wq[adr_i - 3] = clampf(ci[a] - move, bi[7 + a], bi[9 + a]) - bi[a];
+        }
+        if (adr_j >= 0) {
+          const float move = (sel ? d * share : 0.f) * sgn;
+          wq[adr_j - 3] = clampf(cj[a] + move, bj[7 + a], bj[9 + a]) - bj[a];
+        }
+      }
+    }
+  }
+  const Tables wt{tab + kQHead + qc.p.n_blocks * kQBlock +
+                      qc.p.n_balls * kQBall,
+                  qc.p.n_walls, nullptr, 0};
+  for (int k = 0; k < qc.p.n_balls; ++k) {
+    const float* b = tab + kQHead + qc.p.n_blocks * kQBlock + k * kQBall;
+    const int xi = (int)b[3] - 3, yi = (int)b[4] - 3;
+    float bx = b[0] + wq[xi], by = b[1] + wq[yi];
+    float vx = wv[xi], vy = wv[yi];
+    const float dx = bx - x, dy = by - y;
+    const float dist = sqrtf(dx * dx + dy * dy + 1e-12f);
+    const float overlap = b[2] - dist;
+    if (overlap > 0.f) {
+      vx = vx + dx / dist * overlap * tab[kQKick];
+      vy = vy + dy / dist * overlap * tab[kQKick];
+    }
+    const float ox = bx, oy = by;
+    bx = bx + vx * p.dt;
+    by = by + vy * p.dt;
+    vx = vx * tab[kQKeep];
+    vy = vy * tab[kQKeep];
+    // the ball's manual wall resolution (segments.resolve)
+    float px, py, rx, ry, qx, qy, sx, sy;
+    float resx = bx, resy = by;
+    const bool hit1 = detect(wt, ox, oy, bx, by, &px, &py, &rx, &ry);
+    const float b2x = px + p.restitution * (rx - px);
+    const float b2y = py + p.restitution * (ry - py);
+    const bool hit2 = detect(wt, ox, oy, b2x, b2y, &qx, &qy, &sx, &sy);
+    if (hit1) {
+      resx = hit2 ? ox : b2x;
+      resy = hit2 ? oy : b2y;
+    }
+    const bool bounced = fabsf(resx - bx) > 1e-7f || fabsf(resy - by) > 1e-7f;
+    const float mx = resx - ox, my = resy - oy;
+    const float mnorm = sqrtf(mx * mx + my * my + 1e-12f);
+    const float speed = sqrtf(vx * vx + vy * vy);
+    if (bounced && mnorm > 1e-6f) {
+      vx = mx / mnorm * speed * p.restitution;
+      vy = my / mnorm * speed * p.restitution;
+    }
+    wq[xi] = resx - b[0];
+    wq[yi] = resy - b[1];
+    wv[xi] = vx;
+    wv[yi] = vy;
+  }
+}
+
+constexpr int kPlainMode = 0, kObjMode = 1, kQuasiMode = 2;
+
 // One Point env step (envs/env.py _step_manual, float32 branch, plus the
 // task heads): kinematics and wrap; [the objects' RK4 step;] COM residual;
 // wall ejection; two arrow-tip contacts; wall-crossing resolution with
 // restitution and give-up; t + 1.  No reset.  oq, ov: the object dofs in
-// the solve's order (kObj only).
-template <bool kObj>
+// the solve's order (kObjMode), or the world dofs by qpos address - 3
+// (kQuasiMode, whose quasi-static rows run after the residual).
+template <int kMode>
 __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
                            float* v, int* t, float ax, float ar,
                            float* reward, bool* term, const ObjCtx* oc,
-                           float* oq, float* ov) {
+                           float* oq, float* ov, const QuasiCtx* qc) {
   const float ox = q[0], oy = q[1];
   // kinematics (point.py:44-57): single-branch wrap, full qvel clip
   float ori = q[2] + ar;
@@ -167,7 +312,11 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
   float vx = fminf(fmaxf(v[0], -p.vel_limit), p.vel_limit);
   float vy = fminf(fmaxf(v[1], -p.vel_limit), p.vel_limit);
   float vr = fminf(fmaxf(v[2], -p.vel_limit), p.vel_limit);
-  if constexpr (kObj) {
+  if constexpr (kMode == kQuasiMode) {
+    for (int k = 0; k < qc->p.n_world; ++k)
+      ov[k] = fminf(fmaxf(ov[k], -p.vel_limit), p.vel_limit);
+  }
+  if constexpr (kMode == kObjMode) {
     // the objects' RK4 step from the post-teleport, pre-residual robot
     // pose with the clipped velocities; the robot's dofs do not feel it
 #pragma unroll
@@ -191,6 +340,7 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
   vx = vx + dvx;
   vy = vy + dvy;
   ori = th1;
+  if constexpr (kMode == kQuasiMode) quasi_rows(*qc, p, x, y, oq, ov);
 
   // wall-contact ejection (segments.impedance_eject, oriented by old)
   {
@@ -288,7 +438,15 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
   // where the task observes it there: lane_env.goal_heads, with the
   // first-hit-wins order of the goals and their dim masks
   float hx = x, hy = y, hz = ori;
-  if constexpr (kObj) {
+  if constexpr (kMode == kQuasiMode) {
+    if (qc->p.head_obj) {
+      const float* h = qc->tab;
+      hx = h[0] + world_at(oq, (int)h[3]);
+      hy = h[1] + world_at(oq, (int)h[4]);
+      hz = h[2] + world_at(oq, (int)h[5]);
+    }
+  }
+  if constexpr (kMode == kObjMode) {
     if (oc->p.head_obj) {
       const float* base = oc->tab + mmt_obj::kHeadBase;
       const float* hd = oc->tab + mmt_obj::kHeadDof;
@@ -347,8 +505,9 @@ __global__ void point_step_kernel(
   int t = t_in[i];
   float rew;
   bool done;
-  point_step<false>(p, tb, q, v, &t, act[i * a_stride], act[i * a_stride + 1],
-                    &rew, &done, nullptr, nullptr, nullptr);
+  point_step<kPlainMode>(p, tb, q, v, &t, act[i * a_stride],
+                         act[i * a_stride + 1], &rew, &done, nullptr, nullptr,
+                         nullptr, nullptr);
   for (int k = 0; k < 3; ++k) {
     qpos_out[i * 3 + k] = q[k];
     qvel_out[i * 3 + k] = v[k];
@@ -383,9 +542,9 @@ __global__ void point_rollout_kernel(
     const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
     float rew;
     bool term;
-    point_step<false>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
-                      mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term,
-                      nullptr, nullptr, nullptr);
+    point_step<kPlainMode>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+                           mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term,
+                           nullptr, nullptr, nullptr, nullptr);
     // branch-free auto-reset (point_pallas.py sample_reset): q ~ U(+-0.1),
     // v ~ U(0, 0.1), t = 0
     const bool done = term || t >= p.episode_limit;
@@ -475,8 +634,9 @@ __global__ void point_obj_step_kernel(
                   trace ? trace + (size_t)i * 4 * op.trace_words : nullptr};
   float rew;
   bool done;
-  point_step<true>(p, tb, q, v, &t, act[(size_t)i * a_stride],
-                   act[(size_t)i * a_stride + 1], &rew, &done, &oc, oq, ov);
+  point_step<kObjMode>(p, tb, q, v, &t, act[(size_t)i * a_stride],
+                       act[(size_t)i * a_stride + 1], &rew, &done, &oc, oq, ov,
+                       nullptr);
   float* qo = qpos_out + (size_t)i * nq;
   float* vo = qvel_out + (size_t)i * nq;
   for (int k = 0; k < 3; ++k) {
@@ -522,9 +682,9 @@ __global__ void point_obj_rollout_kernel(
     const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
     float rew;
     bool term;
-    point_step<true>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
-                     mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term, &oc,
-                     oq, ov);
+    point_step<kObjMode>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+                         mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term,
+                         &oc, oq, ov, nullptr);
     const bool done = term || t >= p.episode_limit;
     const float qr[3] = {mmt::uniform24(b0.z, -0.1f, 0.1f),
                          mmt::uniform24(b0.w, -0.1f, 0.1f),
@@ -552,6 +712,131 @@ __global__ void point_obj_rollout_kernel(
     vo[k] = v[k];
   }
   store_objects(tab, op.nd, oq, ov, qo, vo);
+  t_out[i] = t;
+  reward_sum[i] = rew_sum;
+  episodes[i] = eps;
+}
+
+// Load an env's world dofs (qpos columns 3 .. 3 + n_world).
+__device__ void load_world(int n_world, const float* qrow, const float* vrow,
+                           float* wq, float* wv) {
+  for (int k = 0; k < kQuasiMaxWorld; ++k) {
+    wq[k] = k < n_world ? qrow[3 + k] : 0.f;
+    wv[k] = k < n_world ? vrow[3 + k] : 0.f;
+  }
+}
+
+__global__ void point_quasi_step_kernel(
+    const float* __restrict__ qpos, const float* __restrict__ qvel,
+    const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
+    int v_stride, int a_stride, float* __restrict__ qpos_out,
+    float* __restrict__ qvel_out, int* __restrict__ t_out,
+    float* __restrict__ reward, bool* __restrict__ term,
+    const float* __restrict__ walls, int n_walls,
+    const float* __restrict__ goals, int n_goals, PointParams p,
+    const float* __restrict__ quasi_table, QuasiParams qp, int n) {
+  extern __shared__ float smem[];
+  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
+  const float* tab = stage_objects(
+      smem + n_walls * kWallCols + n_goals * kGoalCols, quasi_table,
+      qp.n_table);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int nq = 3 + qp.n_world;
+  const float* qrow = qpos + (size_t)i * q_stride;
+  const float* vrow = qvel + (size_t)i * v_stride;
+  float q[3] = {qrow[0], qrow[1], qrow[2]};
+  float v[3] = {vrow[0], vrow[1], vrow[2]};
+  float wq[kQuasiMaxWorld], wv[kQuasiMaxWorld];
+  load_world(qp.n_world, qrow, vrow, wq, wv);
+  int t = t_in[i];
+  const QuasiCtx qc{qp, tab};
+  float rew;
+  bool done;
+  point_step<kQuasiMode>(p, tb, q, v, &t, act[(size_t)i * a_stride],
+                         act[(size_t)i * a_stride + 1], &rew, &done, nullptr,
+                         wq, wv, &qc);
+  float* qo = qpos_out + (size_t)i * nq;
+  float* vo = qvel_out + (size_t)i * nq;
+  for (int k = 0; k < 3; ++k) {
+    qo[k] = q[k];
+    vo[k] = v[k];
+  }
+  for (int k = 0; k < qp.n_world; ++k) {
+    qo[3 + k] = wq[k];
+    vo[3 + k] = wv[k];
+  }
+  t_out[i] = t;
+  reward[i] = rew;
+  term[i] = done;
+}
+
+__global__ void point_quasi_rollout_kernel(
+    const float* __restrict__ qpos, const float* __restrict__ qvel,
+    const int* __restrict__ t_in, int q_stride, int v_stride,
+    float* __restrict__ qpos_out, float* __restrict__ qvel_out,
+    int* __restrict__ t_out, float* __restrict__ reward_sum,
+    int* __restrict__ episodes, const float* __restrict__ walls, int n_walls,
+    const float* __restrict__ goals, int n_goals, PointParams p,
+    const float* __restrict__ quasi_table, QuasiParams qp, int n,
+    int num_steps, uint32_t seed) {
+  extern __shared__ float smem[];
+  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
+  const float* tab = stage_objects(
+      smem + n_walls * kWallCols + n_goals * kGoalCols, quasi_table,
+      qp.n_table);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int nq = 3 + qp.n_world;
+  const float* qrow = qpos + (size_t)i * q_stride;
+  const float* vrow = qvel + (size_t)i * v_stride;
+  float q[3] = {qrow[0], qrow[1], qrow[2]};
+  float v[3] = {vrow[0], vrow[1], vrow[2]};
+  float wq[kQuasiMaxWorld], wv[kQuasiMaxWorld];
+  load_world(qp.n_world, qrow, vrow, wq, wv);
+  int t = t_in[i];
+  const QuasiCtx qc{qp, tab};
+  float rew_sum = 0.f;
+  int eps = 0;
+  for (int s = 0; s < num_steps; ++s) {
+    // counter (env, step, block, 0): actions, then the reset draws; the
+    // world dofs draw nothing and reset to qpos0 (0), at rest
+    const uint4 b0 = mmt::philox_block((uint32_t)i, (uint32_t)s, 0u, seed);
+    const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
+    float rew;
+    bool term;
+    point_step<kQuasiMode>(p, tb, q, v, &t, mmt::uniform24(b0.x, -1.f, 1.f),
+                           mmt::uniform24(b0.y, -0.25f, 0.25f), &rew, &term,
+                           nullptr, wq, wv, &qc);
+    const bool done = term || t >= p.episode_limit;
+    const float qr[3] = {mmt::uniform24(b0.z, -0.1f, 0.1f),
+                         mmt::uniform24(b0.w, -0.1f, 0.1f),
+                         mmt::uniform24(b1.x, -0.1f, 0.1f)};
+    const float vr[3] = {mmt::uniform24(b1.y, 0.f, 0.1f),
+                         mmt::uniform24(b1.z, 0.f, 0.1f),
+                         mmt::uniform24(b1.w, 0.f, 0.1f)};
+    for (int k = 0; k < 3; ++k) {
+      q[k] = done ? qr[k] : q[k];
+      v[k] = done ? vr[k] : v[k];
+    }
+    for (int k = 0; k < kQuasiMaxWorld; ++k) {
+      wq[k] = done ? 0.f : wq[k];
+      wv[k] = done ? 0.f : wv[k];
+    }
+    t = done ? 0 : t;
+    rew_sum = rew_sum + rew;
+    eps = eps + (done ? 1 : 0);
+  }
+  float* qo = qpos_out + (size_t)i * nq;
+  float* vo = qvel_out + (size_t)i * nq;
+  for (int k = 0; k < 3; ++k) {
+    qo[k] = q[k];
+    vo[k] = v[k];
+  }
+  for (int k = 0; k < qp.n_world; ++k) {
+    qo[3 + k] = wq[k];
+    vo[3 + k] = wv[k];
+  }
   t_out[i] = t;
   reward_sum[i] = rew_sum;
   episodes[i] = eps;
@@ -628,6 +913,45 @@ extern "C" int mmt_point_obj_rollout(
         qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
         reward_sum, episodes, walls, n_walls, goals, n_goals, p, obj_table,
         op, rows, n, num_steps, seed);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_point_quasi_step(
+    const float* qpos, const float* qvel, const int* t, const float* act,
+    int q_stride, int v_stride, int a_stride, float* qpos_out,
+    float* qvel_out, int* t_out, float* reward, bool* term,
+    const float* walls, int n_walls, const float* goals, int n_goals,
+    PointParams p, const float* quasi_table, QuasiParams qp, int n,
+    void* stream) {
+  if (qp.n_world > kQuasiMaxWorld) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    point_quasi_step_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
+                              table_bytes(n_walls, n_goals) +
+                                  sizeof(float) * (size_t)qp.n_table,
+                              (cudaStream_t)stream>>>(
+        qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
+        t_out, reward, term, walls, n_walls, goals, n_goals, p, quasi_table,
+        qp, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mmt_point_quasi_rollout(
+    const float* qpos, const float* qvel, const int* t, int q_stride,
+    int v_stride, float* qpos_out, float* qvel_out, int* t_out,
+    float* reward_sum, int* episodes, const float* walls, int n_walls,
+    const float* goals, int n_goals, PointParams p, const float* quasi_table,
+    QuasiParams qp, int n, int num_steps, unsigned int seed, void* stream) {
+  if (qp.n_world > kQuasiMaxWorld) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    point_quasi_rollout_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
+                                 table_bytes(n_walls, n_goals) +
+                                     sizeof(float) * (size_t)qp.n_table,
+                                 (cudaStream_t)stream>>>(
+        qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
+        reward_sum, episodes, walls, n_walls, goals, n_goals, p, quasi_table,
+        qp, n, num_steps, seed);
   }
   return (int)cudaGetLastError();
 }

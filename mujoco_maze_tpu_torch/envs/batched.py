@@ -11,7 +11,9 @@ random-policy rollout kernel is ``ops.make_fast_rollout``.  In the block
 worlds the observation holds the blocks' centers (``spec.obs_dim`` wide);
 a reset puts the Ant's blocks back at their start, at rest, and noises
 the Swimmer's and the Reacher's with the rest of their state
-(``MazeEnvSpec.reset``).
+(``MazeEnvSpec.reset``).  A float64 spec (the Point fidelity path) steps
+through ``spec.step``, as the JAX package takes its fast step for float32
+only (JAX ``envs/batched.py:39-41``): the kernels are float32.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ class BatchedMazeEnv:
         self.num_envs = num_envs
         self.auto_reset = auto_reset
         self.generator = torch.Generator(device=spec.device)
-        self._kernel_step = make_fast_step(self)
+        self._kernel_step = (make_fast_step(self)
+                             if spec.dtype == torch.float32 else None)
 
     # -- public API --------------------------------------------------------
     def reset(self, seed: int) -> Tuple[EnvState, torch.Tensor]:
@@ -50,8 +53,13 @@ class BatchedMazeEnv:
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         """state: batched EnvState; action: (num_envs, action_dim)."""
         spec = self.spec
-        qp, qv, tt, rew, term = self._kernel_step(
-            state.qpos, state.qvel, state.t, action)
+        if self._kernel_step is None:
+            res = spec.step(state, action.to(spec.dtype))
+            qp, qv, tt = res.state.qpos, res.state.qvel, res.state.t
+            rew, term = res.reward, res.terminated
+        else:
+            qp, qv, tt, rew, term = self._kernel_step(
+                state.qpos, state.qvel, state.t, action)
         trunc = tt >= EPISODE_LIMIT
         new_state = EnvState(qpos=qp, qvel=qv, t=tt, goal_pos=state.goal_pos)
         obs = spec._observe(new_state)

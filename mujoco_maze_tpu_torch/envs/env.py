@@ -3,8 +3,10 @@
 Port of ``mujoco_maze_tpu.envs.env`` in float32 for the Point robot
 (manual collision) in object-free mazes and in its object worlds —
 movable blocks, the Fall worlds' falling block on its platform, and hinge
-balls, stepped by the reduced object solve (``ops/object_lanes.py``) —
-for the Ant robot (the rigid-body engine with contacts) in object-free
+balls, stepped by the reduced object solve (``ops/object_lanes.py``), or,
+for a Point robot without ``USES_POINT_WORLD``, by the quasi-static push
+and kick/roll/bounce ball — and in float64 for the Point robot through the
+exact mj_step replica (``physics/point_world.py``); for the Ant robot (the rigid-body engine with contacts) in object-free
 mazes, in the block worlds and with a free object ball, for any custom
 robot on the engine in the same worlds, and for the Swimmer and the Reacher
 (closed-form planar dynamics, no contacts) in object-free mazes and in the
@@ -20,8 +22,11 @@ over an explicit :class:`EnvState` of batched tensors (``qpos (B, nq)``,
 
 Point step order (maze_env.py:448-481): manual robot kinematics → the
 objects' RK4 step from the post-teleport robot pose (object worlds) →
-smooth residual → wall-contact ejection → arrow-tip contacts → robot wall
-resolution → observation (t already incremented) → task heads.  The Ant
+smooth residual → the quasi-static push and ball (object worlds without
+the solve) → wall-contact ejection → arrow-tip contacts → robot wall
+resolution → observation (t already incremented) → task heads; in float64
+the replica's RK4 step (the robot, or the robot with its balls and x/y
+blocks) replaces everything between the kinematics and the resolution.  The Ant
 step is frame_skip RK4 steps of the world model with contacts, then the
 observation and the heads, with the inner reward (forward speed minus
 control cost) scaled by the task's ``INNER_REWARD_SCALING``; the
@@ -74,8 +79,9 @@ class _BlockRuntime(NamedTuple):
     half: np.ndarray                # (3,) box half extents
     falling: bool                   # a z slide resting on a platform
     qpos_idx: Tuple[int, int, int]  # qpos address of the x, y, z slide, or -1
-    xy_lo: np.ndarray               # (2,) float32 travel limits of the center
-    xy_hi: np.ndarray
+    xy_lo: np.ndarray               # (2,) travel limits of the center, in
+    xy_hi: np.ndarray               # the spec's dtype
+    axis_mask: np.ndarray = np.ones(3)  # (3,) 1.0 where the x/y/z slide exists
 
 
 class _BallRuntime(NamedTuple):
@@ -86,6 +92,12 @@ class _BallRuntime(NamedTuple):
     size: float                     # radius
     qpos_idx: Tuple[int, ...]       # hinge: the x, y, rot dofs; free: (adr,)
     kind: str = "hinge"             # "hinge" | "free"
+
+
+def _axis_mask(b) -> np.ndarray:
+    """(3,) 1.0 where a movable block has its x, y, z slide (JAX
+    env.py:253-262)."""
+    return np.asarray([float(b.move_x), float(b.move_y), float(b.move_z)])
 
 
 class MazeEnvSpec:
@@ -106,7 +118,21 @@ class MazeEnvSpec:
     its ball world included.  Everything else raises
     ``NotImplementedError`` naming the ROADMAP queue item that ports it.
     ``device=None`` means CUDA; without a card pass ``device="cpu"``.
+
+    A Point-family robot without ``USES_POINT_WORLD`` keeps the JAX
+    package's quasi-static object model in its object worlds: the robot
+    disc pushes the blocks along their slides (``_push_blocks``, with the
+    pair separation ``_separate_blocks``) and kicks the balls, which roll
+    with decay and bounce off the ball-inflated walls (``_step_balls``).
+    ``dtype=torch.float64`` is the Point robot's fidelity path: the exact
+    mj_step replica of ``physics/point_world.py`` (JAX env.py:1024-1060).
     """
+
+    # the quasi-static ball (JAX env.py:97-100): rolling friction stops it
+    # within ~10 steps; velocity gain per unit overlap per step
+    BALL_ROLL_DECAY = 0.5
+    BALL_KICK_GAIN = 2.0
+    ROBOT_GEOM_R = 0.5      # the Point's body sphere (point.xml:22)
 
     def __init__(
         self,
@@ -120,10 +146,14 @@ class MazeEnvSpec:
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
     ) -> None:
-        if dtype != torch.float32:
+        fidelity = (dtype == torch.float64 and robot.MANUAL_COLLISION
+                    and getattr(robot, "USES_POINT_WORLD", False))
+        if dtype != torch.float32 and not fidelity:
             raise NotImplementedError(
-                "the float64 Point fidelity path is not ported yet "
-                "(ROADMAP queue 1 item 9)")
+                "float64 steps only the Point robot, through the exact "
+                "mj_step replica; the Ant, the Swimmer, the Reacher and "
+                "custom robots in float64 are not ported yet (ROADMAP queue 1 "
+                "item 16)")
         self.robot = robot
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -150,7 +180,7 @@ class MazeEnvSpec:
             raise NotImplementedError(
                 "mazes with several start cells are not ported yet "
                 "(ROADMAP queue 1 item 8)")
-        self.heads: TaskHeads = self.task.lower(self.device)
+        self.heads: TaskHeads = self.task.lower(self.device, dtype)
 
         self.walls = None
         self.dynamic_model = None
@@ -159,20 +189,30 @@ class MazeEnvSpec:
         self.ball_runtimes: Tuple[_BallRuntime, ...] = ()
         self.object_world = None
         self.object_spec = None
+        self.point_world = None
+        self.point_ball_world = None
+        self.point_block_world = None
         self._falling_support: tuple = ()
+        # the ball-inflated wall soup of the quasi-static ball (JAX
+        # env.py:188-191)
+        self.objball_walls = self._walls(
+            ms.wall_segments(self.task.OBJECT_BALL_SIZE))
         if getattr(robot, "USES_WORLD_ENGINE", False):
             self._build_engine_world()
             self.init_qpos = self.dynamic_model.qpos0.copy()
         else:
             if robot.MANUAL_COLLISION:
-                segs = ms.wall_segments(robot.RADIUS)
-                self.walls = segments.pad_walls(segs, max(len(segs), 1),
-                                                self.device)
+                self.walls = self._walls(ms.wall_segments(robot.RADIUS))
             self._build_world_layout()
             self.init_qpos = np.zeros(self.nq, dtype=np.float64)
             self.init_qpos[: robot.nq] = robot.init_qpos(ms.height_offset)
-            if robot.MANUAL_COLLISION:
-                # the reduced object solve (JAX env.py:164-191, float32)
+            if fidelity:
+                self._build_point_world()
+            elif (robot.MANUAL_COLLISION
+                  and getattr(robot, "USES_POINT_WORLD", False)):
+                # the reduced object solve (JAX env.py:164-187, float32);
+                # a Point robot without USES_POINT_WORLD keeps the
+                # quasi-static push and the kick/roll/bounce ball
                 self.object_world = object_lanes.object_world(ms, robot)
                 self.object_spec = object_lanes.spec_from_env(self)
         self.init_qvel = np.zeros(self.nv, dtype=np.float64)
@@ -183,6 +223,32 @@ class MazeEnvSpec:
             n_objects += len(ms.movable_blocks)
         self.obs_dim = robot.obs_dim + 3 * n_objects + 1
 
+    def _walls(self, segs: np.ndarray) -> segments.Walls:
+        """A wall-segment soup on the spec's device, in its dtype."""
+        w = segments.pad_walls(segs, max(len(segs), 1), self.device)
+        return w._replace(p1=w.p1.to(self.dtype), p2=w.p2.to(self.dtype))
+
+    def _build_point_world(self) -> None:
+        """The float64 fidelity path's worlds (JAX env.py:143-163): the
+        exact mj_step replica's constants and wall boxes; the hinge balls
+        and the x/y blocks join its coupled solve, while z (falling) blocks
+        keep the quasi-static push (``block_world_from_structure`` gives
+        None for them)."""
+        from ..physics import point_world as pw
+
+        ms, robot = self.structure, self.robot
+        self.point_world = (
+            pw.params_for_world(
+                any_blocks=bool(ms.movable_blocks), dt=robot.timestep,
+                torso_z=(0.75 + ms.height_offset) if ms.elevated else 0.0),
+            pw.boxes_on(pw.wall_boxes_from_structure(ms, dtype=np.float64),
+                        self.device))
+        if ms.object_balls and robot.OBJBALL_TYPE == "hinge":
+            self.point_ball_world = pw.ball_world_from_structure(
+                ms, dtype=np.float64)
+        self.point_block_world = pw.block_world_from_structure(
+            ms, dtype=np.float64)
+
     def _build_world_layout(self) -> None:
         """World dofs of a robot without the engine world (JAX
         env.py:225-281): the robot's dofs, then one qpos and one dof per
@@ -190,6 +256,7 @@ class MazeEnvSpec:
         ball's x, y, rot.  Spin blocks raise before this (ROADMAP item
         11e)."""
         next_idx = self.robot.nq
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
         blocks = []
         for b in self.structure.movable_blocks:
             idxs = []
@@ -200,8 +267,8 @@ class MazeEnvSpec:
             blocks.append(_BlockRuntime(
                 body_pos=np.asarray(b.pos, np.float64),
                 half=np.asarray(b.size, np.float64), falling=b.falling,
-                qpos_idx=tuple(idxs), xy_lo=lo.astype(np.float32),
-                xy_hi=hi.astype(np.float32)))
+                qpos_idx=tuple(idxs), xy_lo=lo.astype(np_dtype),
+                xy_hi=hi.astype(np_dtype), axis_mask=_axis_mask(b)))
         self.block_runtimes = tuple(blocks)
         balls = []
         for ob in self.structure.object_balls:
@@ -306,7 +373,8 @@ class MazeEnvSpec:
                 body_pos=np.asarray(b.pos, np.float64),
                 half=np.asarray(b.size, np.float64), falling=b.falling,
                 qpos_idx=tuple(qadr.get(f"{b.name}_{a}", -1) for a in "xyz"),
-                xy_lo=lo.astype(np.float32), xy_hi=hi.astype(np.float32))
+                xy_lo=lo.astype(np.float32), xy_hi=hi.astype(np.float32),
+                axis_mask=_axis_mask(b))
             for b in ms.movable_blocks
             for lo, hi in (self._block_xy_limits(b),))
         self.ball_runtimes = tuple(
@@ -544,17 +612,41 @@ class MazeEnvSpec:
         return new_state, inner, info
 
     def _step_manual(self, state: EnvState, action: torch.Tensor) -> EnvState:
-        """Point path (maze_env.py:450-473), the float32 branch of the JAX
-        package's ``_step_manual``."""
+        """Point path (maze_env.py:450-473): the JAX package's
+        ``_step_manual``, its float32 branch or, for a float64 spec, its
+        fidelity branch."""
         robot = self.robot
         qpos, qvel = state.qpos, state.qvel
         old_xy = qpos[:, :2]
         # robot kinematics + full-state velocity clip (point.py:44-57)
         qpos, qvel = robot.kinematic_step(qpos, qvel, action.to(self.dtype))
+        if self.point_world is not None:
+            qpos, qvel = self._step_fidelity(qpos, qvel)
+        else:
+            qpos, qvel = self._step_fast(qpos, qvel, old_xy)
+        # robot wall resolution (maze_env.py:457-464)
+        resolved = segments.resolve(self.walls, old_xy, qpos[:, :2],
+                                    self.restitution_coef)
+        qpos = torch.cat([resolved, qpos[:, 2:]], dim=1)
+        return EnvState(qpos=qpos, qvel=qvel, t=state.t + 1,
+                        goal_pos=state.goal_pos)
+
+    def _step_fast(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                   old_xy: torch.Tensor):
+        """The float32 branch (JAX env.py:1062-1123) from the kinematic
+        write to the contact responses."""
+        robot = self.robot
         if self.object_spec is not None:
             qpos, qvel = self._step_objects(qpos, qvel)
         # closed-form smooth residual of mj_step
         qpos, qvel = robot.residual_step(qpos, qvel)
+        # without the object solve: the quasi-static push and ball at the
+        # robot's post-move position, blocks first (JAX env.py:1079-1088)
+        if self.object_world is None:
+            if self.block_runtimes:
+                qpos = self._push_blocks(qpos, qpos[:, :2])
+            if self.ball_runtimes:
+                qpos, qvel = self._step_balls(qpos, qvel, qpos[:, :2])
         # wall-contact ejection at the position mj_step saw (pre manual
         # resolution): the body sphere (0.5) exceeds the manual detector's
         # inflation (0.4), so pressing into a wall overlaps the geoms
@@ -574,12 +666,188 @@ class MazeEnvSpec:
                 robot.CONTACT_LAM, robot.timestep, robot.BODY_MASS,
                 robot.COUPLE_ARM, robot.SPIN_INERTIA_PRIME, old=old_xy)
             qvel = torch.cat([qvel[:, :3] + dv3, qvel[:, 3:]], dim=1)
-        # robot wall resolution (maze_env.py:457-464)
-        resolved = segments.resolve(self.walls, old_xy, qpos[:, :2],
-                                    self.restitution_coef)
-        qpos = torch.cat([resolved, qpos[:, 2:]], dim=1)
-        return EnvState(qpos=qpos, qvel=qvel, t=state.t + 1,
-                        goal_pos=state.goal_pos)
+        return qpos, qvel
+
+    def _step_fidelity(self, qpos: torch.Tensor, qvel: torch.Tensor):
+        """The float64 branch (JAX env.py:1024-1060): one RK4 mj_step of
+        the exact replica, over the robot alone or, with hinge balls or
+        x/y blocks, over the coupled robot + object world; z blocks then
+        take the quasi-static push."""
+        from ..physics import point_world as pw
+
+        pwp, pwb = self.point_world
+        if (self.point_ball_world is not None
+                or self.point_block_world is not None):
+            idx = []
+            if self.point_ball_world is not None:
+                idx += [i for b in self.ball_runtimes for i in b.qpos_idx]
+            if self.point_block_world is not None:
+                idx += [i for b in self.block_runtimes
+                        for i in b.qpos_idx[:2] if i >= 0]
+            at = torch.tensor(idx, device=qpos.device)
+            qw = torch.cat([qpos[:, :3], qpos[:, idx]], dim=1)
+            vw = torch.cat([qvel[:, :3], qvel[:, idx]], dim=1)
+            qw, vw = pw.rk4_step_world(pwp, pwb, self.point_ball_world, qw,
+                                       vw, self.point_block_world)
+            qpos = torch.cat([qw[:, :3], qpos[:, 3:]], dim=1).index_copy(
+                1, at, qw[:, 3:])
+            qvel = torch.cat([vw[:, :3], qvel[:, 3:]], dim=1).index_copy(
+                1, at, vw[:, 3:])
+        else:
+            q3, v3 = pw.rk4_step(pwp, pwb, qpos[:, :3], qvel[:, :3])
+            qpos = torch.cat([q3, qpos[:, 3:]], dim=1)
+            qvel = torch.cat([v3, qvel[:, 3:]], dim=1)
+            if self.ball_runtimes:
+                qpos, qvel = self._step_balls(qpos, qvel, qpos[:, :2])
+        if self.block_runtimes and self.point_block_world is None:
+            qpos = self._push_blocks(qpos, qpos[:, :2])
+        return qpos, qvel
+
+    # ------------------------------------------------------------------
+    # the quasi-static object model (JAX env.py:641-851), batched; the
+    # plain version of the quasi rows of the CUDA Point kernels
+    # (csrc/point_lane.cu point_quasi_*), which repeat these operations in
+    # this order
+    # ------------------------------------------------------------------
+    def _np_dtype(self):
+        return np.float64 if self.dtype == torch.float64 else np.float32
+
+    def _c(self, v: float) -> float:
+        """``v`` rounded to the spec's dtype, as a Python float (a constant
+        that JAX keeps in an array of the spec's dtype)."""
+        return float(self._np_dtype()(v))
+
+    def _push_blocks(self, qpos: torch.Tensor,
+                     robot_xy: torch.Tensor) -> torch.Tensor:
+        """Quasi-static push of near-massless blocks by the robot disc (JAX
+        env.py:641-698): the robot disc's overlap with a block's AABB moves
+        the block along its slides, clamped to its travel limits (inside
+        the AABB along the axis of least exit depth, the first of equal
+        ones); then each overlapping block pair is separated
+        (:meth:`_separate_blocks`).  qvel is left as it is."""
+        r = self.robot.RADIUS if self.robot.RADIUS is not None else 0.5
+        x, y = robot_xy[:, 0], robot_xy[:, 1]
+        zero = torch.zeros_like(x)
+        one = torch.ones_like(x)
+        q = list(qpos.unbind(1))
+        for b in self.block_runtimes:
+            ix, iy = b.qpos_idx[0], b.qpos_idx[1]
+            cx = self._c(b.body_pos[0]) + (q[ix] if ix >= 0 else zero)
+            cy = self._c(b.body_pos[1]) + (q[iy] if iy >= 0 else zero)
+            hx, hy = self._c(b.half[0]), self._c(b.half[1])
+            lox, hix = cx - hx, cx + hx
+            loy, hiy = cy - hy, cy + hy
+            clx = torch.minimum(torch.maximum(x, lox), hix)
+            cly = torch.minimum(torch.maximum(y, loy), hiy)
+            dx, dy = x - clx, y - cly
+            dist = torch.sqrt(dx * dx + dy * dy + 1e-12)
+            overlap = r - dist
+            far = dist > 1e-6
+            nx = torch.where(far, -dx / dist, zero)
+            ny = torch.where(far, -dy / dist, zero)
+            # inside the AABB: out along the least exit depth (argmin over
+            # the four, the first of equal ones)
+            pen0, pen1, pen2, pen3 = hix - x, x - lox, hiy - y, y - loy
+            use_x = torch.minimum(pen0, pen1) <= torch.minimum(pen2, pen3)
+            nix = torch.where(use_x, torch.where(pen0 <= pen1, one, -one), zero)
+            niy = torch.where(use_x, zero, torch.where(pen2 <= pen3, one, -one))
+            nx = torch.where(far, nx, nix)
+            ny = torch.where(far, ny, niy)
+            push = torch.where(overlap > 0, overlap, zero)
+            for k, (c, n, i) in enumerate(((cx, nx, ix), (cy, ny, iy))):
+                if i >= 0:
+                    newc = torch.clamp(c + push * n * float(b.axis_mask[k]),
+                                       float(b.xy_lo[k]), float(b.xy_hi[k]))
+                    q[i] = newc - self._c(b.body_pos[k])
+        blocks = self.block_runtimes
+        for i in range(len(blocks)):
+            for j in range(i + 1, len(blocks)):
+                self._separate_blocks(q, blocks[i], blocks[j])
+        return torch.stack(q, dim=1)
+
+    def _separate_blocks(self, q: list, bi: _BlockRuntime,
+                         bj: _BlockRuntime) -> None:
+        """Project two overlapping blocks apart along the axis of least
+        penetration, split evenly where both slide on it (JAX
+        env.py:700-734); updates the columns ``q`` in place."""
+        zero = torch.zeros_like(q[0])
+
+        def center(b):
+            return [self._c(b.body_pos[a])
+                    + (q[b.qpos_idx[a]] if b.qpos_idx[a] >= 0 else zero)
+                    for a in range(2)]
+
+        ci, cj = center(bi), center(bj)
+        f = self._np_dtype()
+        half = [float(f(bi.half[a]) + f(bj.half[a])) for a in range(2)]
+        pen = [half[a] - torch.abs(ci[a] - cj[a]) for a in range(2)]
+        overlapping = (pen[0] > 0) & (pen[1] > 0)
+        use_x = pen[0] <= pen[1]
+        for axis in range(2):
+            sel = overlapping & (use_x if axis == 0 else ~use_x)
+            d = torch.where(pen[axis] > 0, pen[axis], zero)
+            sgn = torch.sign(cj[axis] - ci[axis])
+            sgn = torch.where(sgn == 0, 1.0, sgn)
+            mi = 1.0 if bi.qpos_idx[axis] >= 0 else 0.0
+            mj = 1.0 if bj.qpos_idx[axis] >= 0 else 0.0
+            tot = mi + mj
+            if tot == 0:
+                continue
+            for b, c, share, s in ((bi, ci, mi / tot, -1.0),
+                                   (bj, cj, mj / tot, 1.0)):
+                idx = b.qpos_idx[axis]
+                if idx < 0:
+                    continue
+                move = torch.where(sel, d * share, zero) * sgn
+                newc = torch.clamp(c[axis] - move if s < 0 else c[axis] + move,
+                                   float(b.xy_lo[axis]), float(b.xy_hi[axis]))
+                q[idx] = newc - self._c(b.body_pos[axis])
+
+    def _step_balls(self, qpos: torch.Tensor, qvel: torch.Tensor,
+                    robot_xy: torch.Tensor):
+        """The kick/roll/bounce ball (JAX env.py:787-851): the robot's body
+        sphere overlapping a ball adds ``overlap * KICK`` of velocity away
+        from the robot; the ball moves by ``vel * dt``, its velocity decays
+        by ``1 - DECAY``, its move is resolved against the ball-inflated
+        walls with restitution (the robot's manual resolution), and a
+        bounce steers its velocity along the resolved move, scaled by the
+        restitution."""
+        dt = self.robot.dt
+        rest = self.restitution_coef
+        x, y = robot_xy[:, 0], robot_xy[:, 1]
+        q = list(qpos.unbind(1))
+        v = list(qvel.unbind(1))
+        for ob in self.ball_runtimes:
+            xi, yi = ob.qpos_idx[0], ob.qpos_idx[1]
+            bpx, bpy = self._c(ob.body_pos[0]), self._c(ob.body_pos[1])
+            bx, by = bpx + q[xi], bpy + q[yi]
+            vx, vy = v[xi], v[yi]
+            dx, dy = bx - x, by - y
+            dist = torch.sqrt(dx * dx + dy * dy + 1e-12)
+            overlap = (self.ROBOT_GEOM_R + ob.size) - dist
+            hit = overlap > 0.0
+            vx = torch.where(hit, vx + dx / dist * overlap * self.BALL_KICK_GAIN,
+                             vx)
+            vy = torch.where(hit, vy + dy / dist * overlap * self.BALL_KICK_GAIN,
+                             vy)
+            old = torch.stack([bx, by], dim=1)
+            bx = bx + vx * dt
+            by = by + vy * dt
+            vx = vx * (1.0 - self.BALL_ROLL_DECAY)
+            vy = vy * (1.0 - self.BALL_ROLL_DECAY)
+            res = segments.resolve(self.objball_walls, old,
+                                   torch.stack([bx, by], dim=1), rest)
+            rx, ry = res[:, 0], res[:, 1]
+            bounced = (torch.abs(rx - bx) > 1e-7) | (torch.abs(ry - by) > 1e-7)
+            mx, my = rx - old[:, 0], ry - old[:, 1]
+            mnorm = torch.sqrt(mx * mx + my * my + 1e-12)
+            speed = torch.sqrt(vx * vx + vy * vy)
+            steer = bounced & (mnorm > 1e-6)
+            vx = torch.where(steer, mx / mnorm * speed * rest, vx)
+            vy = torch.where(steer, my / mnorm * speed * rest, vy)
+            q[xi], q[yi] = rx - bpx, ry - bpy
+            v[xi], v[yi] = vx, vy
+        return torch.stack(q, dim=1), torch.stack(v, dim=1)
 
     def _step_objects(self, qpos: torch.Tensor, qvel: torch.Tensor):
         """The objects' RK4 step (``object_lanes.object_step_lanes``), from

@@ -19,7 +19,12 @@ class Robot(ABC):
     """Static robot description + batched dynamics functions.
 
     Class attrs mirror the reference contract (agent_model.py:13-17):
-    ``MANUAL_COLLISION``, ``ORI_IND``, ``RADIUS``, ``OBJBALL_TYPE``.
+    ``MANUAL_COLLISION``, ``ORI_IND``, ``RADIUS``, ``OBJBALL_TYPE``; and
+    the port's routing flags: ``USES_POINT_WORLD`` (a manual-collision
+    robot whose object worlds take the object solve in float32 and the
+    exact replica in float64; without it the quasi-static push and the
+    kick/roll/bounce ball, JAX envs/env.py:143-191) and, for robots on
+    the rigid-body engine, ``USES_WORLD_ENGINE``.
     """
 
     NAME: str
@@ -27,6 +32,7 @@ class Robot(ABC):
     ORI_IND: Optional[int] = None
     RADIUS: Optional[float] = None
     OBJBALL_TYPE: Optional[str] = None
+    USES_POINT_WORLD: bool = False
 
     nq: int            # robot generalized coordinates
     nv: int            # robot dofs

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..physics.exact_trig import sincos
 from .base import Robot, uniform_from
 
 
@@ -28,6 +29,11 @@ class PointRobot(Robot):
     ORI_IND = 2
     RADIUS = 0.4
     OBJBALL_TYPE = "hinge"
+    # the object worlds step their objects with the reduced object solve
+    # (float32) or the exact mj_step replica (float64); a Point robot that
+    # sets this to False keeps the quasi-static block push and the
+    # kick/roll/bounce ball (JAX models/point.py:31-34)
+    USES_POINT_WORLD = True
 
     VELOCITY_LIMITS: float = 10.0
 
@@ -88,14 +94,17 @@ class PointRobot(Robot):
         """The reference's direct qpos write + velocity clip (point.py:44-57).
 
         Clips the FULL qvel (the reference clips ``self.data.qvel``
-        wholesale).
+        wholesale).  The float64 fidelity path's sine and cosine are
+        libm's to the bit (``physics/exact_trig.py``), as the JAX
+        package's XLA float64 ones are.
         """
         ori = qpos[:, 2] + action[:, 1]
         # Single-branch wrap (point.py:48-51) — not a modulo.
         ori = torch.where(ori < -math.pi, ori + 2 * math.pi, ori)
         ori = torch.where(ori > math.pi, ori - 2 * math.pi, ori)
-        x = qpos[:, 0] + torch.cos(ori) * action[:, 0]
-        y = qpos[:, 1] + torch.sin(ori) * action[:, 0]
+        s, c = sincos(ori)
+        x = qpos[:, 0] + c * action[:, 0]
+        y = qpos[:, 1] + s * action[:, 0]
         qpos = torch.cat([torch.stack([x, y, ori], dim=1), qpos[:, 3:]], dim=1)
         qvel = torch.clamp(qvel, -self.VELOCITY_LIMITS, self.VELOCITY_LIMITS)
         return qpos, qvel

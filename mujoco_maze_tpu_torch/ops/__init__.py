@@ -20,10 +20,16 @@ The port has the Point robot on object-free mazes and in its object
 worlds, the Ant on object-free mazes, in the block worlds and with a free
 object ball, the Swimmer and the Reacher on object-free mazes and in the
 block worlds, and custom engine-world robots through the generic kernel,
-in ball worlds too.
+in ball worlds too.  The Point kernels cover the object worlds in both of
+the JAX package's models: the reduced object solve, and, for a Point
+robot without ``USES_POINT_WORLD``, the quasi-static block push and
+kick/roll/bounce ball.  The kernels are float32: a float64 spec (the
+Point fidelity path) has none, and steps through ``MazeEnvSpec.step``.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def _kernel(env, which: int):
@@ -47,6 +53,10 @@ def _kernel(env, which: int):
         "Reacher": swimmer,
     }
     robot = env.spec.robot
+    if env.spec.dtype != torch.float32:
+        raise NotImplementedError(
+            "the kernels are float32; a float64 spec steps through "
+            "MazeEnvSpec.step (BatchedMazeEnv does so by its dtype)")
     if robot.NAME in kernels:
         lower, step, rollout = kernels[robot.NAME]
         return lower(env.spec), (step, rollout)[which]

@@ -1,6 +1,6 @@
 """Launch wrappers of the CUDA kernels (port of the launch side of
-``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point (plain mazes
-and object worlds), Ant and swimmer (Swimmer and Reacher) step and
+``mujoco_maze_tpu.ops.lane_env.LaneEnvKernel``): the Point (plain mazes,
+object worlds with the object solve, and with the quasi-static rows), Ant and swimmer (Swimmer and Reacher) step and
 rollout kernels, and the generic engine step kernel of custom robots.
 
 Each wrapper checks device, dtype, shape and the unit inner stride of its
@@ -44,7 +44,10 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 # path went through the kernels.  The Point kernels have two
 # instantiations: the plain mazes' ("point_step", "point_rollout") and the
 # object worlds' ("point_objects_step", "point_objects_rollout", with the
-# reduced object solve of csrc/point_objects.cuh).  The Ant kernels have
+# reduced object solve of csrc/point_objects.cuh) and the object worlds of
+# a Point robot without the object solve ("point_quasi_step",
+# "point_quasi_rollout": the quasi-static push and kick/roll/bounce ball of
+# csrc/point_lane.cu).  The Ant kernels have
 # three builds: the object-free mazes' ("ant_step", "ant_rollout"), the
 # block worlds' ("ant_blocks_step", "ant_blocks_rollout"; csrc/
 # ant_blocks.cu) and the ball worlds' ("ant_balls_step",
@@ -58,6 +61,7 @@ from .swimmer_math import LIMIT_D0, LIMIT_DMAX, LIMIT_WIDTH
 LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
                             "point_objects_step": 0,
                             "point_objects_rollout": 0,
+                            "point_quasi_step": 0, "point_quasi_rollout": 0,
                             "ant_step": 0, "ant_rollout": 0,
                             "ant_blocks_step": 0, "ant_blocks_rollout": 0,
                             "ant_balls_step": 0, "ant_balls_rollout": 0,
@@ -151,6 +155,22 @@ def obj_params(ks: PointKernelSpec) -> ObjParams:
         az_c=F(0.5 * (o.arrow_z_lo + o.arrow_z_hi)),
         floor_pen=F(object_lanes.FLOOR_PEN), inv101=object_lanes.R(1.01),
     )
+
+
+class QuasiParams(ctypes.Structure):
+    """The counts of one object world without the object solve, passed by
+    value (mirrors ``struct QuasiParams`` in ``csrc/point_lane.cu``)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n_blocks", "n_balls", "n_walls", "n_world", "n_table", "head_obj")]
+
+
+def quasi_params(ks: PointKernelSpec) -> QuasiParams:
+    n_blocks, n_balls, n_walls = ks.quasi_counts
+    return QuasiParams(
+        n_blocks=n_blocks, n_balls=n_balls, n_walls=n_walls,
+        n_world=ks.n_world, n_table=ks.quasi_table.numel(),
+        head_obj=int(ks.obs_offset == 3))
 
 
 def trace_words(ks: PointKernelSpec) -> int:
@@ -350,6 +370,20 @@ def _lib() -> ctypes.CDLL:
                                          # row scratch
         _I, _I, ctypes.c_uint, _P]       # B, steps, seed, stream
     lib.mmt_point_obj_rollout.restype = _I
+    lib.mmt_point_quasi_step.argtypes = [
+        _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _P, QuasiParams,    # params, quasi table, its counts
+        _I, _P]                          # B, stream
+    lib.mmt_point_quasi_step.restype = _I
+    lib.mmt_point_quasi_rollout.argtypes = [
+        _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
+        _P, _P, _P, _P, _P,              # qpos', qvel', t', reward sum, episodes
+        _P, _I, _P, _I,                  # walls, W, goals, G
+        PointParams, _P, QuasiParams,    # params, quasi table, its counts
+        _I, _I, ctypes.c_uint, _P]       # B, steps, seed, stream
+    lib.mmt_point_quasi_rollout.restype = _I
     lib.mmt_ant_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
@@ -434,9 +468,11 @@ class PointStep:
     terminated)``: one Point step with explicit actions and no reset (the
     counterpart of ``LaneEnvKernel.build_step``).  In an object world
     ``qpos``/``qvel`` are ``(B, 3 + n_world)`` and the objects' RK4 step
-    runs inside the kernel; ``trace=True`` (CUDA, object worlds) adds each
-    env's active candidate rows per forward evaluation, ``(B, 4,
-    trace_words)`` int32 bit sets in ``object_lanes`` row order."""
+    runs inside the kernel (the reduced object solve, or, for a Point
+    robot without ``USES_POINT_WORLD``, the quasi-static rows);
+    ``trace=True`` (CUDA, object-solve worlds) adds each env's active
+    candidate rows per forward evaluation, ``(B, 4, trace_words)`` int32
+    bit sets in ``object_lanes`` row order."""
 
     def __init__(self, ks: PointKernelSpec, num_envs: int) -> None:
         self.ks = ks
@@ -444,6 +480,8 @@ class PointStep:
         self.params = point_params(ks)
         self.scratch = (_ObjScratch(ks, num_envs)
                         if ks.object_spec is not None else None)
+        self.quasi = (quasi_params(ks) if ks.quasi_table is not None
+                      else None)
 
     def __call__(self, qpos, qvel, t, actions, trace: bool = False):
         B, dev = self.num_envs, self.ks.walls.device
@@ -469,7 +507,14 @@ class PointStep:
                actions.data_ptr(), qpos.stride(0), qvel.stride(0),
                actions.stride(0))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if self.scratch is None:
+        if self.quasi is not None:
+            if trace:
+                raise ValueError("the quasi-static rows have no trace")
+            rc = _lib().mmt_point_quasi_step(
+                *ins, *outs, *_tables(self.ks), self.params,
+                self.ks.quasi_table.data_ptr(), self.quasi, B, stream)
+            name = "point_quasi_step"
+        elif self.scratch is None:
             if trace:
                 raise ValueError("a plain maze has no object rows to trace")
             rc = _lib().mmt_point_step(*ins, *outs, *_tables(self.ks),
@@ -504,6 +549,8 @@ class PointRollout:
         self.params = point_params(ks)
         self.scratch = (_ObjScratch(ks, num_envs)
                         if ks.object_spec is not None else None)
+        self.quasi = (quasi_params(ks) if ks.quasi_table is not None
+                      else None)
 
     def per_env(self, qpos, qvel, t, seed: int) -> Tensors5:
         """The rollout with per-env reward sums ``(B,)`` float32 and
@@ -531,7 +578,12 @@ class PointRollout:
                q_out.data_ptr(), v_out.data_ptr(), t_out.data_ptr(),
                rew.data_ptr(), eps.data_ptr(), *_tables(self.ks), self.params)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if self.scratch is None:
+        if self.quasi is not None:
+            rc = _lib().mmt_point_quasi_rollout(
+                *ins, self.ks.quasi_table.data_ptr(), self.quasi, B,
+                self.num_steps, seed, stream)
+            name = "point_quasi_rollout"
+        elif self.scratch is None:
             rc = _lib().mmt_point_rollout(*ins, B, self.num_steps, seed,
                                           stream)
             name = "point_rollout"

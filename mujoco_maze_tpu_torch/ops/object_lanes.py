@@ -119,7 +119,7 @@ def object_world(ms, robot) -> Optional[tuple]:
     model)."""
     balls = (pw.ball_world_from_structure(ms)
              if ms.object_balls and robot.OBJBALL_TYPE == "hinge" else None)
-    blocks = pw.block_world_from_structure(ms)
+    blocks = pw.block_world_from_structure(ms, allow_z=True)
     if balls is None and blocks is None:
         return None
     params = pw.params_for_world(

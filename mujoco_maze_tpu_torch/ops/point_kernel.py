@@ -12,7 +12,10 @@ maze:
   scale, valid``;
 * in the object worlds, ``obj_table`` float32: the reduced object solve's
   wall boxes, balls and blocks with their contact constants, laid out by
-  :func:`object_table` (the layout ``csrc/point_objects.cuh`` reads);
+  :func:`object_table` (the layout ``csrc/point_objects.cuh`` reads); or,
+  for a Point robot without ``USES_POINT_WORLD``, ``quasi_table``: the
+  blocks, the ball and the ball-inflated walls of the quasi-static rows
+  (:func:`quasi_table`, read by ``quasi_rows`` in ``csrc/point_lane.cu``);
 * the scalars, passed by value in POD structs (``lane_env.PointParams``,
   ``lane_env.ObjParams``).
 
@@ -77,6 +80,13 @@ class PointKernelSpec(NamedTuple):
     head_base: tuple = (0.0, 0.0, 0.0)
     head_dof: tuple = (-1, -1, -1)
     max_rows: int = 0          # R: candidate rows of one forward evaluation
+    # object worlds without the object solve (a Point robot without
+    # USES_POINT_WORLD): the quasi-static push and kick/roll/bounce ball,
+    # laid out by quasi_table() (the layout csrc/point_lane.cu reads; the
+    # heads' anchor in its header, through qpos addresses), and its counts
+    # of blocks, balls and ball-wall segments
+    quasi_table: Optional[torch.Tensor] = None
+    quasi_counts: tuple = (0, 0, 0)
 
 
 def goal_table(spec: MazeEnvSpec) -> torch.Tensor:
@@ -102,11 +112,15 @@ def spec_from_env(spec: MazeEnvSpec) -> PointKernelSpec:
     walls = torch.cat([w.p1, w.p2], dim=1)[w.mask].contiguous()
     goals = goal_table(spec)
     task = spec.task
+    if spec.dtype != torch.float32:
+        raise NotImplementedError(
+            "the Point kernels are float32; a float64 spec steps through "
+            "MazeEnvSpec.step (the fidelity path)")
     obj = {}
     if spec.object_spec is not None:
         obj = _object_fields(spec)
     elif spec.nq != robot.nq:
-        raise NotImplementedError("world dofs without an object solve")
+        obj = _quasi_fields(spec)
     return PointKernelSpec(
         env_spec=spec,
         walls=walls,
@@ -228,6 +242,87 @@ def _object_fields(spec: MazeEnvSpec) -> dict:
         obj_table=torch.as_tensor(table, device=spec.device),
         obs_offset=offset, head_base=tuple(float(b) for b in base),
         head_dof=hdof, max_rows=ol.row_count(ks))
+
+
+# ---------------------------------------------------------------------------
+# the quasi-static table of csrc/point_lane.cu (object worlds without the
+# object solve)
+# ---------------------------------------------------------------------------
+# Bounds of the one build (csrc/point_lane.cu kQuasi*): the 27 Point
+# object tasks, with a Point robot without the object solve, have at most
+# 3 blocks, 1 ball, 26 ball-inflated wall segments and 9 world dofs.
+QUASI_MAX_BLOCKS = 3
+QUASI_MAX_BALLS = 1
+QUASI_MAX_OBJWALLS = 26
+QUASI_MAX_WORLD = 9
+# Layout, in floats: a header (the heads' base (3) and qpos addresses (3),
+# the push radius, the kick gain, 1 - the roll decay, padding to 16); per
+# block 16 (body_pos 3, half 2, axis_mask 2, xy_lo 2, xy_hi 2, qpos
+# addresses x y z 3, padding 2); per ball 8 (body_pos 2, robot_geom_r +
+# size, qpos addresses x y 2, padding 3); the ball walls 4 each.
+QUASI_HEAD = 16
+QUASI_BLOCK = 16
+QUASI_BALL = 8
+
+
+def quasi_table(spec: MazeEnvSpec):
+    """The float32 table of the quasi-static rows of ``spec``, each
+    constant the float32 value the plain version
+    (``MazeEnvSpec._push_blocks`` / ``_step_balls``) computes with, and
+    its counts ``(blocks, balls, ball-wall segments)``; raises above the
+    bounds of the one build."""
+    f = np.float32
+    blocks, balls = spec.block_runtimes, spec.ball_runtimes
+    ow = spec.objball_walls
+    walls = torch.cat([ow.p1, ow.p2], dim=1)[ow.mask].cpu().numpy()
+    n_world = spec.nq - spec.robot.nq
+    if (len(blocks) > QUASI_MAX_BLOCKS or len(balls) > QUASI_MAX_BALLS
+            or walls.shape[0] > QUASI_MAX_OBJWALLS
+            or n_world > QUASI_MAX_WORLD):
+        raise NotImplementedError(
+            f"{len(blocks)} blocks, {len(balls)} balls, {walls.shape[0]} "
+            f"ball-wall segments and {n_world} world dofs exceed the Point "
+            f"kernels' quasi-static bounds ({QUASI_MAX_BLOCKS}, "
+            f"{QUASI_MAX_BALLS}, {QUASI_MAX_OBJWALLS}, {QUASI_MAX_WORLD})")
+    base, qadr = (0.0, 0.0, 0.0), (-1, -1, -1)
+    if spec.task.OBS_OFFSET == 3:
+        # the first observed object: balls precede blocks in the obs; a
+        # ball's z is 0, a block's its body z plus its z slide
+        if spec.task.OBSERVE_BALLS and balls:
+            base = (balls[0].body_pos[0], balls[0].body_pos[1], 0.0)
+            qadr = (balls[0].qpos_idx[0], balls[0].qpos_idx[1], -1)
+        else:
+            base, qadr = blocks[0].body_pos, blocks[0].qpos_idx
+    head = ([float(f(b)) for b in base] + [float(a) for a in qadr]
+            + [float(spec.robot.RADIUS), spec.BALL_KICK_GAIN,
+               float(f(1.0) - f(spec.BALL_ROLL_DECAY))])
+    head += [0.0] * (QUASI_HEAD - len(head))
+    rows = []
+    for b in blocks:
+        rec = ([float(f(x)) for x in b.body_pos]
+               + [float(f(x)) for x in b.half[:2]]
+               + [float(x) for x in b.axis_mask[:2]]
+               + [float(x) for x in b.xy_lo] + [float(x) for x in b.xy_hi]
+               + [float(i) for i in b.qpos_idx])
+        rows += rec + [0.0] * (QUASI_BLOCK - len(rec))
+    for b in balls:
+        rec = ([float(f(x)) for x in b.body_pos]
+               + [float(f(spec.ROBOT_GEOM_R + b.size))]
+               + [float(i) for i in b.qpos_idx[:2]])
+        rows += rec + [0.0] * (QUASI_BALL - len(rec))
+    table = np.asarray(head + rows + list(walls.reshape(-1)), dtype=np.float32)
+    return table, (len(blocks), len(balls), walls.shape[0])
+
+
+def _quasi_fields(spec: MazeEnvSpec) -> dict:
+    """The quasi-static fields of :class:`PointKernelSpec` (``spec_from_env``
+    of ``point_pallas`` with ``object_spec`` None)."""
+    table, counts = quasi_table(spec)
+    return dict(
+        n_world=spec.nq - spec.robot.nq, obs_offset=spec.task.OBS_OFFSET,
+        head_base=tuple(float(x) for x in table[:3]),
+        quasi_table=torch.as_tensor(table, device=spec.device),
+        quasi_counts=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -364,3 +459,120 @@ def trace_bits(trace: torch.Tensor, rows: int) -> torch.Tensor:
     words = trace.to(torch.int64) & 0xFFFFFFFF
     bits = torch.arange(32, device=trace.device)
     return ((words[..., None] >> bits) & 1).flatten(-2)[..., :rows].bool()
+
+
+# ---------------------------------------------------------------------------
+# checks of the quasi-static rows: states that touch the objects
+# ---------------------------------------------------------------------------
+def quasi_states(spec: MazeEnvSpec, n: int, seed: int):
+    """``(qpos, qvel, t, actions)`` numpy arrays of ``n`` states and
+    actions of an object world without the object solve that exercise the
+    quasi-static rows, one kind of contact per env in turn: the robot disc
+    overlapping a block's face; the robot's centre inside a block, at its
+    centre or on a diagonal (equal exit depths: the tie rule) or anywhere;
+    a block at or past a travel limit; two blocks overlapping (where there
+    are two); the ball overlapping the robot; the ball headed into a wall
+    segment, or at one of its ends (a corner: the give-up); ``t`` spread
+    over the episode.  The actions hold the robot still (forward gain 0)
+    in half the envs, so that the contact survives the kinematic write."""
+    rng = np.random.RandomState(seed)
+    blocks, balls = spec.block_runtimes, spec.ball_runtimes
+    r = float(spec.robot.RADIUS)
+    qpos = np.zeros((n, spec.nq), np.float64)
+    qvel = np.zeros((n, spec.nv), np.float64)
+    ow = spec.objball_walls
+    segs = torch.cat([ow.p1, ow.p2], dim=1)[ow.mask].cpu().numpy()
+    kinds = []
+    for b in range(len(blocks)):
+        kinds += [("face", b), ("inside", b), ("limit", b)]
+    if len(blocks) > 1:
+        kinds += [("pair", 0)]
+    for b in range(len(balls)):
+        kinds += [("kick", b), ("wall", b), ("corner", b)]
+
+    def center(b, q):
+        return np.array([b.body_pos[a] + (q[b.qpos_idx[a]] if b.qpos_idx[a] >= 0
+                                          else 0.0) for a in range(2)])
+
+    for e in range(n):
+        q, v = qpos[e], qvel[e]
+        for b in blocks:
+            for a in range(2):
+                i = b.qpos_idx[a]
+                if i >= 0:
+                    lo = float(b.xy_lo[a]) - b.body_pos[a]
+                    hi = float(b.xy_hi[a]) - b.body_pos[a]
+                    q[i] = rng.uniform(max(lo, -1.0), min(hi, 1.0))
+            if b.qpos_idx[2] >= 0:
+                q[b.qpos_idx[2]] = rng.uniform(-1.0, 0.0)
+        v[3:] = rng.uniform(-1.0, 1.0, spec.nv - 3)
+        kind, k = kinds[e % len(kinds)]
+        ang = rng.uniform(-np.pi, np.pi)
+        if kind in ("face", "inside", "limit"):
+            b = blocks[k]
+            if kind == "limit":
+                for a in range(2):
+                    i = b.qpos_idx[a]
+                    if i >= 0:
+                        lim = float((b.xy_lo, b.xy_hi)[rng.randint(2)][a])
+                        q[i] = lim - b.body_pos[a] + rng.choice(
+                            [0.0, rng.uniform(-0.05, 0.05)])
+            c = center(b, q)
+            h = np.asarray(b.half[:2])
+            if kind == "inside":
+                mode = rng.randint(3)
+                if mode == 0:
+                    p = c.copy()
+                elif mode == 1:
+                    s = rng.uniform(0.0, min(h))
+                    p = c + s * np.array([rng.choice([-1, 1]),
+                                          rng.choice([-1, 1])])
+                else:
+                    p = c + rng.uniform(-1, 1, 2) * h
+            else:
+                a = rng.randint(2)
+                side = rng.choice([-1.0, 1.0])
+                p = c + rng.uniform(-1, 1, 2) * h
+                p[a] = c[a] + side * (h[a] + rng.uniform(0.0, r))
+            q[:2] = p
+        elif kind == "pair":
+            i, j = rng.choice(len(blocks), 2, replace=False)
+            bi, bj = blocks[i], blocks[j]
+            cj = center(bj, q)
+            target = cj + rng.uniform(-1, 1, 2) * np.asarray(bj.half[:2])
+            for a in range(2):
+                if bi.qpos_idx[a] >= 0:
+                    q[bi.qpos_idx[a]] = target[a] - bi.body_pos[a]
+            ci = center(bi, q)
+            q[:2] = ci + rng.uniform(2.5, 4.0) * np.array([np.cos(ang),
+                                                           np.sin(ang)])
+        else:
+            b = balls[k]
+            xi, yi = b.qpos_idx[0], b.qpos_idx[1]
+            if kind == "kick":
+                c = np.asarray(b.body_pos) + rng.uniform(-0.6, 0.6, 2)
+                d = rng.uniform(0.0, spec.ROBOT_GEOM_R + b.size)
+                q[:2] = c - d * np.array([np.cos(ang), np.sin(ang)])
+            else:
+                s = segs[rng.randint(len(segs))]
+                p1, p2 = s[:2], s[2:]
+                w = 0.0 if kind == "corner" else rng.uniform(0.1, 0.9)
+                if kind == "corner" and rng.randint(2):
+                    w = 1.0
+                p = p1 + w * (p2 - p1)
+                tang = (p2 - p1) / (np.linalg.norm(p2 - p1) + 1e-12)
+                nrm = np.array([-tang[1], tang[0]]) * rng.choice([-1.0, 1.0])
+                c = p + nrm * rng.uniform(0.01, 0.15)
+                speed = rng.uniform(3.0, 10.0)
+                vdir = -nrm + rng.uniform(-0.5, 0.5) * tang
+                vdir /= np.linalg.norm(vdir)
+                v[xi], v[yi] = speed * vdir
+                q[:2] = c + 3.0 * nrm
+            q[xi], q[yi] = c[0] - b.body_pos[0], c[1] - b.body_pos[1]
+        q[2] = ang
+        v[:3] = rng.uniform(-0.5, 0.5, 3)
+    t = rng.randint(0, EPISODE_LIMIT, n).astype(np.int32)
+    act = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.25, 0.25, n)], 1)
+    act[::2, 0] = 0.0
+    return (qpos.astype(np.float32), qvel.astype(np.float32), t,
+            act.astype(np.float32))

@@ -88,7 +88,7 @@ class TaskHeads(NamedTuple):
 
 
 def lower_goals(goals: List[MazeGoal], pad_to: Optional[int] = None,
-                device=None) -> GoalArrays:
+                device=None, dtype=torch.float32) -> GoalArrays:
     g = max(len(goals), 1) if pad_to is None else pad_to
     pos = np.zeros((g, 3), dtype=np.float64)
     dim_mask = np.zeros((g, 3), dtype=np.float64)
@@ -103,7 +103,7 @@ def lower_goals(goals: List[MazeGoal], pad_to: Optional[int] = None,
         valid[i] = True
 
     def f32(a):
-        return torch.as_tensor(a.astype(np.float32), device=device)
+        return torch.as_tensor(a, device=device).to(dtype)
 
     return GoalArrays(
         pos=f32(pos),
@@ -187,14 +187,15 @@ class MazeTask(ABC):
         ...
 
     # -- lowering to batched torch heads ----------------------------------
-    def lower(self, device=None) -> TaskHeads:
-        goals = lower_goals(self.goals, device=device)
+    def lower(self, device=None, dtype=torch.float32) -> TaskHeads:
+        goals = lower_goals(self.goals, device=device, dtype=dtype)
         offset = self.OBS_OFFSET
         reward_type = self.REWARD_TYPE
         penalty = 0.0 if self.PENALTY is None else float(self.PENALTY)
         # the dist head multiplies by the float32 reciprocal of the scale
         # (the CUDA kernel does the same, so the two agree to the bit)
-        inv_scale = float(np.float32(1.0) / np.float32(self.scale))
+        inv_scale = (float(np.float32(1.0) / np.float32(self.scale))
+                     if dtype == torch.float32 else 1.0 / float(self.scale))
 
         def termination(obs: torch.Tensor, goal_pos=None) -> torch.Tensor:
             return _goal_hits(goals, obs, offset, goal_pos).any(dim=1)

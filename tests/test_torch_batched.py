@@ -134,7 +134,8 @@ def test_step_wrapper_checks_and_cpu_path(umaze):
 
 def test_object_worlds_and_other_robots_are_queued():
     # the object worlds are ported, the Ant's object ball too; float64 is
-    # still queued (item 9)
+    # ported for the Point (item 9) and still queued for the other robots
+    # (item 16)
     for env_id in ("AntSmallBilliard-v0", "AntSmallBilliard-v1"):
         env = mmt.make_batched(env_id, 4, device="cpu")
         state, _ = env.reset(0)
@@ -142,4 +143,6 @@ def test_object_worlds_and_other_robots_are_queued():
         assert res.obs.shape == (4, 33) and torch.isfinite(res.obs).all()
         assert res.state.qpos.shape == (4, 22)
     with pytest.raises(NotImplementedError, match="float64"):
-        mmt.make_spec("PointUMaze-v0", dtype=torch.float64, device="cpu")
+        mmt.make_spec("AntUMaze-v0", dtype=torch.float64, device="cpu")
+    assert mmt.make_spec("PointUMaze-v0", dtype=torch.float64,
+                         device="cpu").dtype == torch.float64
