@@ -41,8 +41,8 @@ Phases (each fails the run on its own; nothing is caught):
    stream), 8 steps from t spread over [992, 1000): every env resets;
 7. the Ant main path at 4096 envs, 1000 steps per path, counted and timed
    as in phase 4, with checks of what comes out;
-8. each Ant kernel's time per launch by block size, device time, bound
-   and plain time;
+8. each Ant kernel's time per launch by envs a block (one warp each),
+   device time, bound and plain time;
 9. the block-world step kernel against its plain version on AntPush-v0,
    AntFall-v0, AntPushMaze-v0 (three blocks, six world dofs) and
    AntBlockCarry-v0 (the heads on the block) at 4096 envs, teacher-forced
@@ -156,7 +156,7 @@ Phases (each fails the run on its own; nothing is caught):
     (-0.05, 0.5) of the floor and none through it; some ball struck;
     equal episode counts on the same seeds) and against the CPU path on a
     small input; the step API's device idle share; ``ant_balls_step``'s
-    time per launch by threads per block, on the device, its bound (the
+    time per launch by envs a block, on the device, its bound (the
     generic kernel's need-based count) and its plain version's time,
     beside the generic engine kernel's on the same states;
     ``ant_balls_rollout``'s.  Phases 24-26 run in a process of their own
@@ -200,10 +200,15 @@ launches its step kernel once from its family's contact-rich states and
 holds it against its plain version at its family's phase rule, one JSON
 line an ID, and writes ``artifacts/PORT_REGISTRY_SWEEP.json`` (or PATH);
 ``python3 chip_smoke.py --ant-parent-probe DIR`` runs the Ant kernels'
-object-free and block-world instantiations of the checkout at DIR and of
-this one on the same inputs and requires every output equal to the bit;
-``python3 chip_smoke.py --point-parent-probe DIR`` does the same for the
-Point kernels' plain-maze and object-solve modes.
+three instantiations of the checkout at DIR and of this one on the same
+inputs, holds each tree's against the plain version and the two against
+each other at phases 5/9/24's rule (and counts the outputs equal to the
+bit), times both in turns (DIR, this, this, DIR) and prints both trees'
+ptxas lines for them; ``python3 chip_smoke.py --point-parent-probe DIR``
+runs the Point kernels' plain-maze and object-solve modes of both and
+requires every output equal to the bit; ``python3 chip_smoke.py
+--ant-phases`` builds the Ant kernels with their phase counters and
+prints where a forward evaluation's SM cycles go on four Ant worlds.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 torch, numpy and the port only: no JAX, no gymnasium, nothing of the JAX
@@ -577,9 +582,8 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
     edges and the largest of the three."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EnvState
-    from mujoco_maze_tpu_torch.ops import make_fast_step
-    from mujoco_maze_tpu_torch.ops.ant_kernel import (MAX_SPHERES,
-                                                      active_trace,
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_step
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (active_trace,
                                                       ant_step_plain,
                                                       ball_census,
                                                       ball_states,
@@ -630,9 +634,8 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
     S = ks.offsets["sph"][1]
     pair0 = (3 + ks.n_blk) * S + 3      # the first sphere-ball pair's bit
     candidates = S * (3 + ks.n_blk) + ks.n_ball * (3 + S)
-    # the kernel's compacted list: kMaxCon of its instantiation
-    room = (MAX_SPHERES * (6 if ks.n_w else 3)
-            + ks.n_ball * (3 + MAX_SPHERES))
+    # the kernel's contact slots: one for each candidate
+    room = lane_env.ant_slots(ks)
     active = 0
     saved, raw_q = [], []
     for _ in range(steps):
@@ -740,8 +743,8 @@ def ant_step_check(env_id: str, seed: int, phase: str, budget_s: float,
         f"(tol 0) and {knife_mis} at the {knife_envs} knife-edge env-steps; "
         f"envs seen {cover}; episodes ended {resets}; active contacts per "
         f"env-step {active / (steps * B):.4g}, at most {most_active} in one "
-        f"forward evaluation (of {candidates} candidates; the kernel's list "
-        f"holds {room}); envs whose plain state blew up "
+        f"forward evaluation (of {candidates} candidates; the kernel holds "
+        f"{room} slots); envs whose plain state blew up "
         f"(non-finite, |qvel| > {BLOWN_QVEL:g} or a block {BLOWN_TRAVEL:g} past "
         f"its travel) {int(blown_envs.sum())}"
         + (f" (tol {int(BALL_BLOWN_SHARE * B)})" if balls else "")
@@ -909,9 +912,11 @@ def fall_mechanic_check():
         raise SystemExit("the Fall block does not perch and drop through the kernel")
 
 
-# fp32 operations of one Ant env step, counted from csrc/ant_lane.cuh (a
-# sine, cosine, square root, division, min or max counts as one; integer
-# and Philox work not counted).  Per forward evaluation, fixed: kinematics
+# fp32 operations of one Ant env step, counted from the one-thread-per-env
+# Ant kernel that preceded the warp-per-env csrc/ant_lane.cuh and kept as
+# the bound: what an env-step needs, not the work the lanes do (a sine,
+# cosine, square root, division, min or max counts as one; integer and
+# Philox work not counted).  Per forward evaluation, fixed: kinematics
 # 1,641; mass matrix 7,839; RNE bias 4,306; actuation 60; Cholesky and
 # inverse 6,531; qacc0 406; hinge limits 320; the spheres' centres and
 # floor tests 814; qacc 420; the reach test 22 per static box.  The tests
@@ -949,6 +954,18 @@ def ant_bytes(ks, per_launch: str) -> int:
     nq, nv = 15 + ks.n_w + 7 * ks.n_ball, 14 + ks.n_w + 6 * ks.n_ball
     io = 4 * (nq + nv + 1)
     return 2 * io + 32 + 4 + 1 if per_launch == "step" else 2 * io + 8
+
+
+def ant_group_counts(ks) -> list:
+    """The envs a block at which the Ant step is timed: 1, 2 and 4 where
+    their shared memory fits a block, and the launch's own."""
+    from mujoco_maze_tpu_torch.ops import lane_env
+
+    counts = {lane_env.ant_geometry(ks).groups}
+    for g in (1, 2, 4):
+        with contextlib.suppress(NotImplementedError):
+            counts.add(lane_env.ant_geometry(ks, g).groups)
+    return sorted(counts)
 
 
 def ant_main_path(env_id: str, phase: str, numbers_phase: str):
@@ -1077,15 +1094,17 @@ def ant_main_path(env_id: str, phase: str, numbers_phase: str):
     kstep = make_fast_step(env)
     ks = kstep.ks
     act = policy(obs, gen)
-    sizes = ((64, lane_env.ANT_BLOCK) if blocks
-             else (128, 64, lane_env.ANT_BLOCK))
-    block_ms = {}
-    for blk in sizes:
-        kstep.block = blk
-        block_ms[blk] = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 20)
-    log(f"phase {numbers_phase}: {env_id} ant step ms per launch by threads per "
-        f"block: {block_ms}")
-    ms_step = block_ms[lane_env.ANT_BLOCK]
+    geo = lane_env.ant_geometry(ks)
+    group_ms = {}
+    for g in ant_group_counts(ks):
+        kstep.groups = g
+        group_ms[g] = cuda_ms(lambda: kstep(st.qpos, st.qvel, st.t, act), 20)
+    kstep.groups = geo.groups
+    resident = lane_env.ant_resident_warps(ks)
+    log(f"phase {numbers_phase}: {env_id} ant step ms per launch by envs (warps) "
+        f"per block: {group_ms}; the launch: {geo._asdict()}; warps an SM "
+        f"holds (registers and shared memory): {resident}")
+    ms_step = group_ms[geo.groups]
     ms_step_plain = cuda_ms(lambda: ant_step_plain(ks, st.qpos, st.qvel, st.t, act), 2)
     active_step = int(kstep(st.qpos, st.qvel, st.t, act, count_active=True)[5].sum())
     roll8 = make_fast_rollout(env, ANT_ROLL_STEPS)
@@ -1138,10 +1157,19 @@ def ant_main_path(env_id: str, phase: str, numbers_phase: str):
         f"{ks.offsets['box'][1]} boxes, {ks.n_blk} blocks, {ks.n_w} world dofs")
     return {
         "step": {"name": step_name, "launches": launches[step_name],
-                 "ms": ms_step, "plain_ms": ms_step_plain,
-                 "bound_ms": step_bound[0], "bound_by": step_bound[1]},
+                 "ms": ms_step, "device_ms": dev_step,
+                 "ms_by_groups": group_ms, "launch": geo._asdict(),
+                 "warps_per_sm": resident, "plain_ms": ms_step_plain,
+                 "bound_ms": step_bound[0], "bound_by": step_bound[1],
+                 "env_steps_per_s": {
+                     "step_api": rate(ms_api),
+                     "rollout_metrics": rate(ms_metrics),
+                     "fused_rollout": rate(ms_fused)},
+                 "idle_share": 1 - busy_us / window_us},
         "rollout": {"name": roll_name, "launches": launches[roll_name],
-                    "ms": ms_roll, "plain_ms": ms_roll_plain,
+                    "ms": ms_roll, "device_ms": dev_roll,
+                    "fused_ms_per_1000": ms_fused,
+                    "plain_ms": ms_roll_plain,
                     "bound_ms": roll_bound[0], "bound_by": roll_bound[1]},
     }
 
@@ -3303,7 +3331,7 @@ def ant_ball_main_path():
     launch counts set to 0 just before and read just after; checks of
     what comes out, the ball's height and strikes from a third pass; the
     CUDA path against the CPU path on a small input; the step API's device
-    idle share; ant_balls_step's time per launch by threads per block, on
+    idle share; ant_balls_step's time per launch by envs a block, on
     the device, its bound and its plain version's time on the main path's
     state and, beside the generic engine kernel's (phase 23's), on the
     ball states with legs on the ball; ant_balls_rollout's numbers."""
@@ -3432,14 +3460,16 @@ def ant_ball_main_path():
     act23 = (-30 + 60 * torch.rand(B, 8, generator=gen, device="cuda")).contiguous()
     act = policy(obs, gen)
     tables = 4 * ks.packed.numel()
+    geo = lane_env.ant_geometry(ks)
     nums = {}
     for where, args in (("main path state", (st.qpos, st.qvel, st.t, act)),
                         ("ball states", (q23, v23, t23, act23))):
-        block_ms = {}
-        for blk in (128, 64, lane_env.ANT_BLOCK):
-            kstep.block = blk
-            block_ms[blk] = cuda_ms(lambda: kstep(*args), 20)
-        ms = block_ms[lane_env.ANT_BLOCK]
+        group_ms = {}
+        for g in ant_group_counts(ks):
+            kstep.groups = g
+            group_ms[g] = cuda_ms(lambda: kstep(*args), 20)
+        kstep.groups = geo.groups
+        ms = group_ms[geo.groups]
         dev = device_ms_events(lambda: kstep(*args), 5)
         ms_plain = cuda_ms(lambda: ant_step_plain(ks, *args), 2)
         n_act, tr = kstep(*args, count_active=True, trace=True)[5:]
@@ -3447,7 +3477,9 @@ def ant_ball_main_path():
         flops = engine_step_flops(eks, ant_trace_as_engine(ks, eks, tr))
         b = bound(B * ant_bytes(ks, "step") + tables, B * flops)
         line = (f"phase 26: {ANT_BALL_MAIN_ID} on the {where}: ant_balls_step "
-                f"ms per launch by threads per block {block_ms}; "
+                f"ms per launch by envs (warps) per block {group_ms} (the "
+                f"launch: {geo._asdict()}; warps an SM holds: "
+                f"{lane_env.ant_resident_warps(ks)}); "
                 f"{dev:.6g} ms on the device (CUDA events around single "
                 f"launches), plain {ms_plain:.6g} ms; bound {b[0]:.3g} ms by "
                 f"{b[1]} ({flops:.6g} fp32 operations per env-step at "
@@ -3459,13 +3491,15 @@ def ant_ball_main_path():
             line += (f"; the generic engine kernel on the same states "
                      f"{ms_g:.6g} ms ({ms_g / ms:.3g}x)")
         log(line)
-        nums[where] = {"ms": ms, "block_ms": block_ms, "device_ms": dev,
+        nums[where] = {"ms": ms, "ms_by_groups": group_ms,
+                       "launch": geo._asdict(),
+                       "warps_per_sm": lane_env.ant_resident_warps(ks),
+                       "device_ms": dev,
                        "plain_ms": ms_plain, "bound_ms": b[0],
                        "bound_by": b[1], "fp32_ops_per_env_step": flops,
                        "active_contacts_per_eval": per_eval}
         if where == "ball states":
             nums[where]["engine_step_ms"] = ms_g
-    kstep.block = lane_env.ANT_BLOCK
     roll8 = make_fast_rollout(env, ANT_ROLL_STEPS)
     ms_roll = cuda_ms(lambda: roll8(st.qpos, st.qvel, st.t, 19), 5)
     dev_roll = device_ms_events(lambda: roll8(st.qpos, st.qvel, st.t, 19), 3)
@@ -3492,6 +3526,8 @@ def ant_ball_main_path():
                  "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                  "bound_by": main["bound_by"],
                  "fp32_ops_per_env_step": main["fp32_ops_per_env_step"],
+                 "launch": main["launch"], "warps_per_sm": main["warps_per_sm"],
+                 "ms_by_groups": main["ms_by_groups"],
                  "ball_states": nums["ball states"]},
         "rollout": {"name": "ant_balls_rollout",
                     "launches": run["fused_launches"], "ms": ms_roll,
@@ -3843,46 +3879,390 @@ def registry_sweep(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# a one-off probe: the Ant kernels' object-free and block-world
-# instantiations of this tree against another tree's on the same inputs
+# the Ant kernels of this tree against another tree's on one card: both
+# held to the plain version and to each other at phases 5/9/24's rule,
+# timed in turns
 # ---------------------------------------------------------------------------
 PROBE_FLAG = "--ant-parent-probe"       # PARENT_DIR
-PROBE_OUT_FLAG = "--ant-probe-out"      # PATH (.npz), in the probed tree
-PROBE_WORLDS = ("AntUMaze-v0", "AntPush-v0", "AntFall-v0")
+PROBE_OUT_FLAG = "--ant-probe-out"      # IN OUT [--time], in the probed tree
+PROBE_WORLDS = ("AntUMaze-v0", "AntPush-v0", "AntFall-v0",
+                "AntSmallBilliard-v0")
+PROBE_STEP_REPS, PROBE_ROLL_REPS = 20, 5
+# the rollout's seeds: phases 6, 10 and 25's for these IDs
+PROBE_ROLL_SEEDS = {"AntUMaze-v0": 41, "AntPush-v0": 61, "AntFall-v0": 62,
+                    "AntSmallBilliard-v0": 151}
 
 
-def probe_outputs(path: str) -> int:
-    """Every output of one Ant step launch (with its active counts and
-    traces) and of one ANT_ROLL_STEPS-step rollout launch on PROBE_WORLDS
-    at B envs, from ``contact_states`` / ``block_states`` and seeded
-    actions, saved to ``path``: run from the tree whose kernels are
-    probed."""
+def probe_inputs(path: str) -> None:
+    """The probe's inputs on PROBE_WORLDS at B envs, saved to ``path``: a
+    step from the family's contact-rich states (``contact_states``,
+    ``block_states``, ``ball_states``) with seeded actions, and an
+    ANT_ROLL_STEPS-step rollout from t spread over the episode's end (the
+    object worlds' reset states, the mazes' contact states) with the seed
+    of phases 6, 10 and 25, as those phases draw them."""
     import numpy as np
 
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
-    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
-    from mujoco_maze_tpu_torch.ops.ant_kernel import (block_states,
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (ball_states,
+                                                      block_states,
                                                       contact_states)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for env_id in PROBE_WORLDS:
         env = mmt.make_batched(env_id, B)
-        draw = block_states if env.spec.block_runtimes else contact_states
+        spec = env.spec
+        draw = (ball_states if spec.ball_runtimes else block_states
+                if spec.block_runtimes else contact_states)
+        q, v, t = (np.asarray(x) for x in draw(spec, B, 5))
+        act = np.random.RandomState(5).uniform(-30, 30, (B, 8)).astype(
+            np.float32)
+        seed = PROBE_ROLL_SEEDS[env_id]
+        if spec.ball_runtimes or spec.block_runtimes:
+            st, _ = env.reset(seed)
+            qr, vr = st.qpos.cpu().numpy(), st.qvel.cpu().numpy()
+        else:
+            qr, vr, _ = (np.asarray(x) for x in contact_states(spec, B, seed))
+        t_end = (EPISODE_LIMIT - ANT_ROLL_STEPS
+                 + np.arange(B) % ANT_ROLL_STEPS).astype(np.int32)
+        for k, x in (("q", q), ("v", v), ("t", t), ("a", act), ("qr", qr),
+                     ("vr", vr), ("tr", t_end)):
+            out[f"{env_id}/{k}"] = x
+    np.savez(path, **out)
+
+
+def probe_outputs(args) -> int:
+    """``--ant-probe-out IN OUT [--time]``, run from the probed tree: every
+    output of one Ant step launch (with its active counts and traces) and
+    of one rollout launch on the inputs at IN, saved to OUT; with
+    ``--time``, each world's step and rollout times instead (CUDA events
+    over back-to-back launches, and around single launches for the
+    device time), the launch shape, and what ``ptxas -v`` says of the Ant
+    kernels."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import _build, lane_env
+    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    ins = np.load(args[0])
+    timed = "--time" in args
+    out = {}
+    for env_id in PROBE_WORLDS:
+        env = mmt.make_batched(env_id, B)
+        x = {k: torch.as_tensor(ins[f"{env_id}/{k}"], device="cuda")
+             for k in ("q", "v", "t", "a", "qr", "vr", "tr")}
+        kstep = make_fast_step(env)
+        roll = make_fast_rollout(env, ANT_ROLL_STEPS)
+        step = lambda: kstep(x["q"], x["v"], x["t"], x["a"])
+        seed = PROBE_ROLL_SEEDS[env_id]
+        rollout = lambda: roll.per_env(x["qr"], x["vr"], x["tr"], seed)
+        if not timed:
+            res = kstep(x["q"], x["v"], x["t"], x["a"], count_active=True,
+                        trace=True)
+            rolled = roll.per_env(x["qr"], x["vr"], x["tr"], seed,
+                                  count_active=True)
+            for kind, outs in (("step", res), ("rollout", rolled)):
+                for i, y in enumerate(outs):
+                    out[f"{env_id}/{kind}/{i}"] = y.cpu().numpy()
+            continue
+        step()
+        rollout()
+        geo = (lane_env.ant_geometry(kstep.ks)._asdict()
+               if hasattr(lane_env, "ant_geometry")
+               else {"threads": kstep.block, "groups": kstep.block})
+        nums = {"step_ms": cuda_ms(step, PROBE_STEP_REPS),
+                "step_device_ms": device_ms_events(step, 5),
+                "rollout_ms": cuda_ms(rollout, PROBE_ROLL_REPS),
+                "rollout_device_ms": device_ms_events(rollout, 2), **geo}
+        out[f"{env_id}/times"] = np.asarray(json.dumps(nums))
+    if timed:
+        report = _build.ptxas_report()
+        keep, prev = [], None
+        for ln in report.splitlines():
+            if "Compiling entry function" in ln:
+                prev = ln if "ant_step_kernel" in ln or "ant_rollout_kernel" in ln else None
+                if prev:
+                    keep.append(ln.strip())
+            elif prev and ("Used" in ln or "stack frame" in ln):
+                keep.append(ln.strip())
+        out["ptxas"] = np.asarray("\n".join(keep))
+    np.savez(args[1], **out)
+    return 0
+
+
+def probe_hold(ks, spec, ins, kern, ref):
+    """One Ant step launch ``kern`` (its outputs with active counts and
+    traces) held against ``ref`` (the plain version's outputs, or another
+    kernel's with its traces) on the inputs ``ins``, at phases 5/9/24's
+    rule: qpos 5e-3 and reward 1e-3 (in the block and ball worlds an
+    env-step beyond them passes at a knife edge that the two traces name,
+    or in the ball worlds within twice the plain version's own float32
+    spread, in at most KNIFE_SHARE of them), qvel 5e-2 in 99.9 %, t
+    exact, terminated exact but at a goal knife edge, blow-ups in both
+    (ball worlds: at most BALL_BLOWN_SHARE of the envs; none in the
+    mazes).  Returns (passed, numbers)."""
+    from mujoco_maze_tpu_torch.envs.env import EnvState
+    from mujoco_maze_tpu_torch.ops.ant_kernel import active_trace
+
+    q, v, t, a = ins
+    balls = bool(spec.ball_runtimes)
+    objects = balls or bool(spec.block_runtimes)
+    qk, vk, tk, rk, mk = kern[:5]
+    qp, vp, tp, rp, mp = ref[:5]
+    bk, bp = blown(spec, qk, vk), blown(spec, qp, vp)
+    ok = ~(bk | bp)
+    zero = torch.zeros_like(rk)
+    eq = torch.where(ok, (qk - qp).abs().max(dim=1).values, zero)
+    er = torch.where(ok, (rk - rp).abs(), zero)
+    ev = torch.where(ok, (vk - vp).abs().max(dim=1).values, zero)
+    raw = float(eq.max())
+    knife = cond = 0
+    over = torch.nonzero((eq > ANT_QPOS_TOL) | (er > ANT_REWARD_TOL))[:, 0]
+    if objects and len(over):
+        tr_ref = (ref[6][over] if len(ref) > 6
+                  else active_trace(ks, q[over], v[over], a[over]))
+        switch = (kern[6][over] != tr_ref).flatten(1).any(dim=1)
+        knife = int(switch.sum())
+        eq[over[switch]] = 0.0
+        er[over[switch]] = 0.0
+        rest = over[~switch]
+        if balls and len(rest):
+            ratio = ant_rounding_ratio(ks, (qk, rk), (qp, rp), q, v, t, a,
+                                       rest)
+            c = rest[ratio <= ROUNDING_FACTOR]
+            cond = len(c)
+            eq[c] = 0.0
+            er[c] = 0.0
+    edge = knife_edges(ks, EnvState(qpos=qp, qvel=vp, t=tp))
+    nums = {"qpos": float(eq.max()), "qpos_raw": raw,
+            "reward": float(er.max()),
+            "qvel_quantile": float(torch.quantile(ev, ANT_QVEL_QUANTILE)),
+            "qvel_max": float(ev.max()),
+            "t_mismatches": int((tk != tp).sum()),
+            "terminated_mismatches": int(((mk != mp) & ~edge & ok).sum()),
+            "blown": int(bp.sum()), "blow_mismatches": int((bk != bp).sum()),
+            "knife_edges": knife, "conditioned": cond,
+            "bit_equal_envs": int(((qk == qp).all(dim=1) & (vk == vp).all(dim=1)
+                                   & (rk == rp) & (mk == mp)).sum())}
+    passed = (nums["qpos"] <= ANT_QPOS_TOL and nums["reward"] <= ANT_REWARD_TOL
+              and nums["qvel_quantile"] <= ANT_QVEL_TOL
+              and nums["qvel_max"] < 1e3 and not nums["t_mismatches"]
+              and not nums["terminated_mismatches"]
+              and not nums["blow_mismatches"]
+              and knife + cond <= KNIFE_SHARE * B
+              and (objects or not nums["blown"])
+              and (not balls or nums["blown"] <= BALL_BLOWN_SHARE * B))
+    return passed, nums
+
+
+def ant_parent_probe(args) -> int:
+    """``python3 chip_smoke.py --ant-parent-probe PARENT_DIR``: the Ant
+    kernels (all three instantiations) of the tree at PARENT_DIR (a
+    checkout with its own ``mujoco_maze_tpu_torch``) and of this one, each
+    built from its own sources and run in a process of its own, on the
+    same inputs (``probe_inputs``): each tree's step held against the
+    plain version and the two against each other at phases 5/9/24's rule
+    (``probe_hold``), each rollout against the plain version as phases
+    6/10/25 hold it (equal episode counts, qpos 5e-3); then both trees'
+    kernels timed in turns, parent, this, this, parent, and the ptxas
+    lines of both trees' Ant kernels.  Prints one ``ANT_PROBE {json}``
+    line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import make_fast_step
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (ant_rollout_plain,
+                                                      ant_step_plain)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parent = os.path.abspath(args[0])
+    work = tempfile.mkdtemp()
+    copy = os.path.join(parent, "_probe_chip_smoke.py")
+    shutil.copy(__file__, copy)
+    inputs = os.path.join(work, "inputs.npz")
+    probe_inputs(inputs)
+    ins = np.load(inputs)
+    trees = {"parent": copy, "this": os.path.abspath(__file__)}
+    got, times = {}, {"parent": [], "this": []}
+    for k, tree in enumerate(("parent", "this", "this", "parent")):
+        for timed in ((False, True) if k < 2 else (True,)):
+            path = os.path.join(work, f"{tree}{k}{int(timed)}.npz")
+            script = trees[tree]
+            subprocess.run([sys.executable, script, PROBE_OUT_FLAG, inputs,
+                            path] + (["--time"] if timed else []),
+                           check=True, cwd=os.path.dirname(script))
+            res = np.load(path)
+            if timed:
+                times[tree].append(res)
+            else:
+                got[tree] = res
+    os.remove(copy)
+    ok, result = True, {"worlds": {}}
+    for env_id in PROBE_WORLDS:
+        env = mmt.make_batched(env_id, B)
+        spec = env.spec
+        ks = make_fast_step(env).ks
+        x = {k: torch.as_tensor(ins[f"{env_id}/{k}"], device="cuda")
+             for k in ("q", "v", "t", "a", "qr", "vr", "tr")}
+        step_in = (x["q"], x["v"], x["t"], x["a"])
+        plain = ant_step_plain(ks, *step_in)
+        roll_plain = ant_rollout_plain(ks, x["qr"], x["vr"], x["tr"],
+                                       PROBE_ROLL_SEEDS[env_id],
+                                       ANT_ROLL_STEPS)
+        outs = {tree: [torch.as_tensor(got[tree][f"{env_id}/step/{i}"],
+                                       device="cuda") for i in range(7)]
+                for tree in got}
+        rolls = {tree: [torch.as_tensor(got[tree][f"{env_id}/rollout/{i}"],
+                                        device="cuda") for i in range(6)]
+                 for tree in got}
+        world = {}
+        for name, kern, ref in (("parent vs plain", outs["parent"], plain),
+                                ("this vs plain", outs["this"], plain),
+                                ("this vs parent", outs["this"],
+                                 outs["parent"])):
+            passed, nums = probe_hold(ks, spec, step_in, kern, ref)
+            ok = ok and passed
+            world[name] = {"passed": passed, **nums}
+        for tree in ("parent", "this"):
+            rk = rolls[tree]
+            eps_diff = int((rk[4] != roll_plain[4]).sum())
+            q_err = float((rk[0] - roll_plain[0]).abs().max())
+            passed = eps_diff == 0 and q_err <= ANT_QPOS_TOL
+            ok = ok and passed
+            world[f"{tree} rollout vs plain"] = {
+                "passed": passed, "episode_mismatches": eps_diff,
+                "qpos": q_err}
+        world["outputs equal to the bit, this vs parent"] = sum(
+            bool(np.array_equal(got["parent"][f"{env_id}/{kind}/{i}"],
+                                got["this"][f"{env_id}/{kind}/{i}"],
+                                equal_nan=True))
+            for kind, n in (("step", 7), ("rollout", 6)) for i in range(n))
+        world["active contacts of the step"] = int(outs["this"][5].sum())
+        for tree in ("parent", "this"):
+            runs = [json.loads(str(r[f"{env_id}/times"])) for r in times[tree]]
+            world[f"{tree} times"] = {
+                k: [r[k] for r in runs] for k in runs[0]}
+        p_ms = np.mean(world["parent times"]["step_device_ms"])
+        t_ms = np.mean(world["this times"]["step_device_ms"])
+        pr_ms = np.mean(world["parent times"]["rollout_device_ms"])
+        tr_ms = np.mean(world["this times"]["rollout_device_ms"])
+        world["step device ms parent / this"] = float(p_ms / t_ms)
+        world["rollout device ms parent / this"] = float(pr_ms / tr_ms)
+        log(f"probe: {env_id}: " + json.dumps(world))
+        result["worlds"][env_id] = world
+    for tree in ("parent", "this"):
+        result[f"{tree} ptxas"] = str(times[tree][0]["ptxas"]).splitlines()
+        log(f"probe: {tree} tree's Ant kernels, ptxas -v:\n  "
+            + "\n  ".join(result[f"{tree} ptxas"]))
+    result["passed"] = ok
+    result["device"] = torch.cuda.get_device_name(0)
+    result["nvidia_smi"] = nvidia_smi()
+    shutil.rmtree(work, ignore_errors=True)
+    print("ANT_PROBE " + json.dumps(result), flush=True)
+    return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# where an Ant forward evaluation's time goes: the phase counters of a
+# profiling build of the Ant kernels
+# ---------------------------------------------------------------------------
+PHASES_FLAG = "--ant-phases"
+ANT_PHASES = ("kinematics", "mass matrix", "bias: RNE, actuation, the ball",
+              "factor and inverse", "qacc0", "limits and block boxes",
+              "contact detection", "compaction and trace", "contact rows",
+              "Jacobi sweeps", "falling support", "qacc")   # enum AntPhase
+
+
+def ant_phases() -> int:
+    """``python3 chip_smoke.py --ant-phases``: the Ant kernels built with
+    their phase counters (``-DMMT_ANT_PHASES``, into a library of its own:
+    the name hashes the flags) on PROBE_WORLDS at B envs, on the main
+    path's state (three public-API steps from reset, as phases 7, 12 and
+    26 time the kernel) and on the family's contact-rich states: the step
+    kernel's ms per launch with the counters on, and per forward
+    evaluation the SM cycles (clock64) of each phase in lane 0 of each
+    group, the mean over every group and evaluation of five launches.
+    Prints one ``ANT_PHASES {json}`` line."""
+    import ctypes
+
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import _build, lane_env, make_fast_step
+    from mujoco_maze_tpu_torch.ops.ant_kernel import (ball_states,
+                                                      block_states,
+                                                      contact_states)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DMMT_ANT_PHASES",)
+    t0 = time.perf_counter()
+    lib = lane_env._lib()
+    log(f"phases: built {_build.library_path().name} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = (ctypes.c_ulonglong * (len(ANT_PHASES) + 1))()
+    out = {"device": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi(), "worlds": {}}
+    for env_id in PROBE_WORLDS:
+        env = mmt.make_batched(env_id, B)
+        spec = env.spec
+        kstep = make_fast_step(env)
+        ks = kstep.ks
+        world = "_balls" if ks.n_ball else "_blocks" if ks.n_w else ""
+        read = getattr(lib, f"mmt_ant{world}_phases")
+        read.argtypes = [ctypes.c_void_p]
+        policy = env.random_policy()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        st, obs = env.reset(5)
+        for _ in range(3):
+            res = env.step(st, policy(obs, gen))
+            st, obs = res.state, res.obs
+        draw = (ball_states if spec.ball_runtimes else block_states
+                if spec.block_runtimes else contact_states)
         q, v, t = (torch.as_tensor(x, device="cuda")
-                   for x in draw(env.spec, B, 5))
+                   for x in draw(spec, B, 5))
         act = torch.as_tensor(np.random.RandomState(5).uniform(
             -30, 30, (B, 8)), dtype=torch.float32, device="cuda")
-        res = make_fast_step(env)(q, v, t, act, count_active=True, trace=True)
-        t_end = (EPISODE_LIMIT - ANT_ROLL_STEPS
-                 + torch.arange(B, device="cuda") % ANT_ROLL_STEPS).int()
-        roll = make_fast_rollout(env, ANT_ROLL_STEPS).per_env(
-            q, v, t_end, 7, count_active=True)
-        for kind, outs in (("step", res), ("rollout", roll)):
-            for i, x in enumerate(outs):
-                out[f"{env_id}/{kind}/{i}"] = x.cpu().numpy()
-    np.savez(path, **out)
+        rows = {}
+        for where, args in (("main path state", (st.qpos, st.qvel, st.t,
+                                                 policy(obs, gen))),
+                            ("contact-rich states", (q, v, t, act))):
+            kstep(*args)
+            torch.cuda.synchronize()
+            if read(None):
+                raise SystemExit("the phase counters could not be zeroed")
+            ms = cuda_ms(lambda: kstep(*args), 5)
+            if read(ctypes.addressof(counters)):
+                raise SystemExit("the phase counters could not be read")
+            n = counters[len(ANT_PHASES)]
+            cycles = {name: counters[i] / n for i, name in enumerate(ANT_PHASES)}
+            active = int(kstep(*args, count_active=True)[5].sum())
+            rows[where] = {"ms": ms, "forward_evaluations": n,
+                           "cycles_per_evaluation": sum(cycles.values()),
+                           "active_contacts_per_evaluation":
+                               active / (B * 4 * ks.frame_skip),
+                           "cycles": cycles}
+            log(f"phases: {env_id} on the {where}: {ms:.6g} ms/launch with "
+                f"the counters on; {sum(cycles.values()):.6g} SM cycles a "
+                f"forward evaluation in lane 0 of a group at "
+                f"{rows[where]['active_contacts_per_evaluation']:.4g} active "
+                f"contacts: " + ", ".join(f"{k} {x:.5g}"
+                                         for k, x in cycles.items()))
+        out["worlds"][env_id] = rows
+    print("ANT_PHASES " + json.dumps(out), flush=True)
     return 0
 
 
@@ -3931,16 +4311,13 @@ def point_probe_outputs(path: str) -> int:
     return 0
 
 
-def ant_parent_probe(args, out_flag: str = PROBE_OUT_FLAG,
-                     what: str = "Ant") -> int:
-    """``python3 chip_smoke.py --ant-parent-probe PARENT_DIR``: the Ant
-    kernels' <0,0> (AntUMaze-v0) and <6,3> (AntPush-v0, AntFall-v0)
-    instantiations of the tree at PARENT_DIR (a checkout with its own
-    ``mujoco_maze_tpu_torch``) and of this one, each built from its own
-    sources in a process of its own, on the same states and actions; every
-    output must be equal to the bit.  ``--point-parent-probe PARENT_DIR``
-    does the same for the Point kernels' plain-maze and object-solve
-    modes (``point_step``, ``point_obj_step`` and their rollouts)."""
+def point_parent_probe(args) -> int:
+    """``python3 chip_smoke.py --point-parent-probe PARENT_DIR``: the Point
+    kernels' plain-maze and object-solve modes (``point_step``,
+    ``point_obj_step`` and their rollouts) of the tree at PARENT_DIR (a
+    checkout with its own ``mujoco_maze_tpu_torch``) and of this one, each
+    built from its own sources in a process of its own, on the same states
+    and actions; every output must be equal to the bit."""
     import shutil
     import tempfile
 
@@ -3957,15 +4334,14 @@ def ant_parent_probe(args, out_flag: str = PROBE_OUT_FLAG,
     got = {}
     for tree, script in (("parent", copy), ("this", __file__)):
         path = os.path.join(work, f"{tree}.npz")
-        subprocess.run([sys.executable, script, out_flag, path],
+        subprocess.run([sys.executable, script, POINT_PROBE_OUT_FLAG, path],
                        check=True, cwd=os.path.dirname(script))
         got[tree] = np.load(path)
     keys = sorted(got["parent"].files)
     same = {k: bool(np.array_equal(got["parent"][k], got["this"][k],
                                    equal_nan=True)) for k in keys}
-    worlds = PROBE_WORLDS if what == "Ant" else POINT_PROBE_WORLDS
-    steps = ANT_ROLL_STEPS if what == "Ant" else ROLLOUT_STEPS
-    log(f"probe: the parent's and this tree's {what} kernels on {worlds} "
+    worlds, steps = POINT_PROBE_WORLDS, ROLLOUT_STEPS
+    log(f"probe: the parent's and this tree's Point kernels on {worlds} "
         f"at {B} envs, one step (qpos, qvel, t, reward, terminated, and the "
         f"traces where there are) and one {steps}-step rollout: "
         f"{sum(same.values())} of {len(same)} outputs equal to the bit; "
@@ -5054,8 +5430,9 @@ if __name__ == "__main__":
              else ant_balls_phases() if BALLS_FLAG in ARGS
              else registry_sweep(ARGS) if ARGS[:1] == [SWEEP_FLAG]
              else ant_parent_probe(ARGS[1:]) if ARGS[:1] == [PROBE_FLAG]
-             else probe_outputs(ARGS[1]) if ARGS[:1] == [PROBE_OUT_FLAG]
-             else ant_parent_probe(ARGS[1:], POINT_PROBE_OUT_FLAG, "Point")
+             else ant_phases() if ARGS[:1] == [PHASES_FLAG]
+             else probe_outputs(ARGS[1:]) if ARGS[:1] == [PROBE_OUT_FLAG]
+             else point_parent_probe(ARGS[1:])
              if ARGS[:1] == [POINT_PROBE_FLAG]
              else point_probe_outputs(ARGS[1])
              if ARGS[:1] == [POINT_PROBE_OUT_FLAG]

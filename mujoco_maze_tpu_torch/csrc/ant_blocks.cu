@@ -10,11 +10,12 @@ int launch_ant_blocks_step(const float* qpos, const float* qvel, const int* t,
                            int a_stride, float* qpos_out, float* qvel_out,
                            int* t_out, float* reward, bool* term,
                            int* active_out, int* trace_out,
-                           const float* tables, AntParams p, int n, int block,
-                           void* stream) {
+                           const float* tables, AntParams p, int n,
+                           int groups, int smem, void* stream) {
   return launch_ant_step<kBlockWorldDofs, kBlockWorldBlocks>(
       qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
-      t_out, reward, term, active_out, trace_out, tables, p, n, block, stream);
+      t_out, reward, term, active_out, trace_out, tables, p, n, groups, smem,
+      stream);
 }
 
 int launch_ant_blocks_rollout(const float* qpos, const float* qvel,
@@ -23,9 +24,17 @@ int launch_ant_blocks_rollout(const float* qpos, const float* qvel,
                               float* reward_sum, int* episodes,
                               int* active_out, const float* tables,
                               AntParams p, int n, int num_steps,
-                              unsigned int seed, int block, void* stream) {
+                              unsigned int seed, int groups, int smem,
+                              void* stream) {
   return launch_ant_rollout<kBlockWorldDofs, kBlockWorldBlocks>(
       qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
-      reward_sum, episodes, active_out, tables, p, n, num_steps, seed, block,
-      stream);
+      reward_sum, episodes, active_out, tables, p, n, num_steps, seed, groups,
+      smem, stream);
 }
+
+int ant_blocks_blocks_per_sm(int groups, int smem, int rollout) {
+  return ant_blocks_per_sm<kBlockWorldDofs, kBlockWorldBlocks>(groups, smem, rollout);
+}
+
+// The phase counters of a profiling build (-DMMT_ANT_PHASES), or nothing.
+ANT_PHASES_READER(mmt_ant_blocks_phases)

@@ -60,41 +60,78 @@
 // (planar torso speed minus 1e-4 |ctrl|^2, scaled) plus the goal/dist
 // head, first hit wins.
 //
-// Design.  One thread is one env.  The public (B, nq) / (B, nv) row-major
-// tensors are read in place with their row strides.  The per-spec data
-// are runtime tables, packed into one float32 buffer that each block
-// stages into shared memory: the bodies, the dofs, the actuators, the test
-// spheres, the static boxes, the goals, the reset pose, for the block
-// worlds the world dofs, the blocks, the platforms under falling blocks
-// and the pair-mixed constants of every sphere-vs-block pair, and for the
-// ball worlds the ball and the pair-mixed constants of every sphere-vs-ball
-// pair.  So one build of each instantiation serves every Ant maze of its
-// kind: the counts (blocks, world dofs, spheres, boxes) arrive at run time
-// and only their maxima are compile-time.  The scalars come by value in
-// AntParams.  Per-thread state that does not fit in registers (the 13 body
-// poses, the 14x14 factor and inverse, the contact rows) lives in local
-// memory.  Only ACTIVE contacts are kept, in a compacted list sized for
-// every candidate (kMaxSph x (3 + blocks), and 3 + kMaxSph more with a
-// ball): an inactive contact's force is exactly 0 after the projection
-// (contact.py project), so it adds nothing to any sum.  The static boxes a
-// sphere is tested against are those whose box lies within the ant's reach
-// of the torso (P.reach2, a sound bound from the model: a box farther away
-// can neither touch a sphere nor rank above a box that does), so the picks
-// equal the nearest two of ALL boxes, as the plain version takes them.
-// The row and sweep loops stay rolled (#pragma unroll 1) to keep the
-// compile short.  All of the ball's code sits behind `if constexpr (NBALL
-// > 0)`: the two other instantiations compile to the arithmetic they had.
+// Design.  One warp steps one env: a group of kLanes lanes, the env index
+// the group's, `groups` groups a block (ops/lane_env.py ant_geometry picks
+// the count from the spec's counts).  The public (B, nq) / (B, nv)
+// row-major tensors are read in place with their row strides.  The
+// per-spec data are runtime tables, packed into one float32 buffer that
+// each block stages into shared memory: the bodies, the dofs, the
+// actuators, the test spheres, the static boxes, the goals, the reset
+// pose, for the block worlds the world dofs, the blocks, the platforms
+// under falling blocks and the pair-mixed constants of every sphere-vs-
+// block pair, and for the ball worlds the ball and the pair-mixed
+// constants of every sphere-vs-ball pair.  So one build of each
+// instantiation serves every Ant maze of its kind: the counts (blocks,
+// world dofs, spheres, boxes) arrive at run time and only their maxima are
+// compile-time.  The scalars come by value in AntParams.  Each group's
+// state lives in shared memory after the tables (struct Group: the pose
+// and velocity, the RK4 stages, the body poses, M and its inverse, the
+// ball's block, the force vectors), followed by its contact region: a slot
+// of kConStride floats for every candidate contact of the spec (S x (3 +
+// blocks + balls) + 3 balls; a slot keeps the contact's bodies, point,
+// frame, constants and forces, not its Jacobian), the list of the active
+// ones, and a row T of nv + 1 floats for each lane.  The lanes share the
+// work:
+//   * the spheres: lane s tests sphere s (s + 32, ...) against the floor,
+//     its two nearest boxes within reach (by distance alone; the two
+//     winners' point and normal come after), the blocks and the ball, and
+//     writes each candidate's slot; a ballot over the slots and a prefix
+//     count list the active ones in slot order, sphere by sphere; the trace
+//     words are ballots over the candidates' bits;
+//   * the mass matrix: lanes over its 105 entries (the free joint's 21,
+//     on all 13 bodies, first), each summing in body order over the bodies
+//     whose root paths hold both dofs, from per (body, dof) vectors J, W and
+//     Iw W that the lanes computed before; the Cholesky factor with lane i
+//     holding row i in registers (each column's pivot broadcast by a
+//     shuffle), the inverse with lane c holding column c in registers;
+//   * the kinematics and the RNE recursions level by level down the legs
+//     (lanes over bodies), the subtree sums with lanes over the six
+//     spatial components;
+//   * the rows: lane c builds active contact c's tangent frame, its
+//     Jacobian (three rows on its entries: the sphere body's root-path
+//     dofs, the block's slides or the ball's six) and A = J Minv J^T over
+//     the blocks of Minv that couple them, and keeps J (and, but in the
+//     ball worlds, the entries' dofs) in registers through the sweeps
+//     (with more contacts than lanes, it recomputes them where it needs
+//     them);
+//   * the projected Jacobi sweeps: each lane writes its contact's J^T f
+//     over its row of T (+0 where the contact has no entry), lane d sums
+//     column d over the contacts in list order, lanes over rows take y =
+//     Minv x, and lane c updates and projects contact c's forces;
+//   * the RK4 stages and the integration with lanes over dofs; the
+//     rollout's Philox blocks with lanes over blocks.
+// Every sum keeps the order of the one-thread-per-env version of this
+// kernel that preceded it (its per-thread loops are the lanes' loops
+// here; an added +0 leaves a sum that is never -0 as it is, and a product
+// with an entry Minv does not couple is an exact 0 left out), so the two
+// compute the same float32 operations in the same order.  A group leaves
+// together: a ragged last block's spare groups return after the tables
+// are staged, and no block-wide barrier follows.  All of the ball's code
+// sits behind `if constexpr (NBALL > 0)`.  A group of 16 lanes (two envs
+// a warp) also builds (every lane loop strides by kLanes; barriers,
+// ballots and shuffles take the group's mask), but measured slower on the
+// card, as did a cap of 168 registers (spills); see PERF.md.
 //
 // What bounds it on an H100.  About 270 bytes per env and step move
 // (1.1 MB at B = 4096), against some 7 x 10^5 fp32 operations per
-// env-step (ant_step_flops in chip_smoke.py counts them from this source,
-// with the active contacts the kernel counts): the kernel is bound by
-// fp32 operations, and at one thread per env it runs 4096 threads, 32 to
-// 128 per block, so each SM holds one to four warps of a long serial
-// dependence chain with local-memory traffic.  It is far from that bound;
-// the design choice of this version is to be right and simple.  Spreading
-// an env over a warp (the 14x14 factor, the contact rows) is the first
-// thing to try to make it fast.
+// env-step (ant_step_flops in chip_smoke.py): the work is bound by fp32
+// operations, and the kernel is far from that bound.  Each warp runs a
+// chain of dependent steps through shared memory and warp barriers (the
+// factor's 14 columns and the two substitutions' 28 divisions, the level
+// by level recursions, each contact's rows and the four sweeps), and an SM
+// holds 8 warps (the registers, 230-255 a lane; shared memory would take
+// 8-10), so 4096 envs run in four waves of warps that each wait on their
+// own chain.
 //
 // Arithmetic.  The plain version (ops/ant_kernel.py ant_step_plain) is
 // the batched engine (physics/engine.py, physics/contact.py), which
@@ -118,6 +155,45 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+
+// Phase counters of a profiling build (nvcc -DMMT_ANT_PHASES; chip_smoke.py
+// --ant-phases): lane 0 of each group adds the clock64() cycles of each
+// phase of a forward evaluation into g_ant_phases[phase], and counts the
+// evaluations in g_ant_phases[kPhaseCount]; each .cu file reads its own
+// counters through ANT_PHASES_READER.  Without the macro they compile to
+// nothing.
+enum AntPhase {
+  kPhaseKinematics, kPhaseMassMatrix, kPhaseBias, kPhaseFactor, kPhaseQacc0,
+  kPhaseLimits, kPhaseDetect, kPhaseCompact, kPhaseRows, kPhaseSweeps,
+  kPhaseSupport, kPhaseQacc, kPhaseCount
+};
+#ifdef MMT_ANT_PHASES
+static __device__ unsigned long long g_ant_phases[kPhaseCount + 1];
+#define ANT_PHASE_START long long phase_t0_ = clock64();
+#define ANT_PHASE(i)                                                   \
+  {                                                                    \
+    const long long phase_t1_ = clock64();                             \
+    if (cx.lane == 0)                                                  \
+      atomicAdd(&g_ant_phases[i],                                      \
+                (unsigned long long)(phase_t1_ - phase_t0_));          \
+    phase_t0_ = phase_t1_;                                             \
+  }
+#define ANT_PHASE_RESTART phase_t0_ = clock64();
+static const unsigned long long kAntPhasesZero[kPhaseCount + 1] = {};
+// name(out) copies the counters to out, or zeroes them where out is null
+#define ANT_PHASES_READER(name)                                        \
+  extern "C" int name(unsigned long long* out) {                       \
+    return out ? (int)cudaMemcpyFromSymbol(out, g_ant_phases,          \
+                                           sizeof(g_ant_phases))       \
+               : (int)cudaMemcpyToSymbol(g_ant_phases, kAntPhasesZero, \
+                                         sizeof(g_ant_phases));        \
+  }
+#else
+#define ANT_PHASE_START
+#define ANT_PHASE(i)
+#define ANT_PHASE_RESTART
+#define ANT_PHASES_READER(name)
+#endif
 
 struct AntParams {
   // offsets of the tables in the packed buffer (floats) and their sizes
@@ -171,6 +247,39 @@ constexpr int kBallCols = 16;  // qadr, vadr, radius, mass, com3, inertia,
                                // tc (clamped), dampr
 constexpr int kBallPar = 10;   // the ball's (mu, d0, .., dampr) in its row
 
+// Lanes of the group that steps one env: a full warp (ops/lane_env.py
+// ANT_LANES).  16 would also do: every lane loop strides by kLanes, and a
+// group's barriers, ballots and shuffles take its own lane mask; the
+// factor needs a lane for each of the 14 rows.
+constexpr int kLanes = 32;
+static_assert(kLanes == 32 || kLanes == 16, "a warp or half of one");
+constexpr int kMaxThreads = 256;   // 8 groups a block at most
+
+// A contact slot (kConStride floats; ints stored as their bits).  Odd, so
+// that lanes reading one field of consecutive slots hit distinct banks.
+constexpr int kCFlags = 0;    // bit 0 active, 1 the sphere centre inside its
+                              // box, 2 the ball the contact's first body,
+                              // 3 its second
+constexpr int kCBody = 1;     // the ant body of the sphere, or -1
+constexpr int kCBlk = 2;      // the pair's block, or -1
+constexpr int kCPar = 3;      // (mu, d0, dmax, width, tc, dampr): its offset
+                              // in the tables
+constexpr int kCPos = 4;      // contact point (3)
+constexpr int kCDir = 7;      // normal, tangent 1, tangent 2 (9)
+constexpr int kCMu = 16;
+constexpr int kCRhs = 17;     // aref - a0 (3)
+constexpr int kCReg = 20;     // R (3)
+constexpr int kCDen = 23;     // A + R + 1e-9 (3)
+constexpr int kCF = 26;       // the forces (3); until the rows are built,
+                              // dist and margin
+constexpr int kConStride = 29;
+// The scratch that the contact region lends to the mass matrix (a J, W and
+// Iw W vector for each body and root-path dof) and to the RNE recursions
+// (the bodies' spatial velocity, acceleration and force), both dead before
+// the spheres are tested.
+constexpr int kRecFloats = kNb * kBodyDofs * 9;
+constexpr int kScratchFloats = kRecFloats + kNb * 18;
+
 // A contact's row entries: the sphere body's root-path dofs, then a
 // block's slide dofs (with blocks), then the ball's 6 dofs (with a ball).
 template <int NBLK, int NBALL>
@@ -188,8 +297,8 @@ struct Dims {
   static constexpr int kNv = kNa + W + 6 * NBALL;
   static constexpr int kNq = kNv + 1 + NBALL;   // a quaternion per free joint
   static constexpr int kRowDofs = Rows<NBLK, NBALL>::kR;
-  static constexpr int kMaxCon = kMaxSph * (3 + NBLK) + NBALL * (3 + kMaxSph);
-  static_assert(kMaxCon <= 32 * 8, "trace bits");
+  static_assert(kMaxSph * (3 + NBLK) + NBALL * (3 + kMaxSph) <= 32 * 8,
+                "trace bits");
   static_assert(kNv <= 24 && NBLK <= 4, "limit and support bits");
 };
 
@@ -215,23 +324,66 @@ struct Ball {
   float Minv[6][6];
 };
 
-template <int R>
-struct Contact {         // one active contact: 3 rows (n, t1, t2)
-  int body;              // the ant body of the sphere, or -1 (the ball
-                         // against the static world)
-  int blk;               // the moving block of the pair, or -1
-  int ball;              // +1: the ball is the first body, -1: the second,
-                         // 0: not in the contact
-  float mu;
-  float J[3][R];         // row entries on the body's dof list, then the
-                         // block's dofs, then the ball's
-  float rhs[3];          // aref - a0
-  float rreg[3];
-  float denom[3];
-  float f[3];
+// The ball's tree and its 6x6 block before the factor, or a stand-in.
+template <int NBALL>
+struct BallSlot {
+  float unused;
+};
+template <>
+struct BallSlot<1> {
+  Ball b;
+  float M[6][6];
 };
 
+// One group's state in shared memory (every member 4 bytes: its size is
+// group_floats() floats, which ops/lane_env.py ant_group_floats mirrors).
+template <int W, int NBLK, int NBALL>
+struct Group {
+  static constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+  static constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
+  float q[kNq], qs[kNq];                  // the state, an RK4 stage's pose
+  float v[kNv], vs[kNv], as[kNv];         // the velocity, a stage's v, qacc
+  float prev_v[kNv], prev_a[kNv], acc_v[kNv], acc_a[kNv];
+  float bias[kNv], tau[kNv], rhs[kNv], qacc0[kNv], fcon[kNv], x[kNv],
+      y[kNv];
+  float ctrl[kNu];
+  Kin k;
+  float M[kNa][kNa], Minv[kNa][kNa];      // M, then its factor; M^-1
+  float Iw[kNb][9];                       // the bodies' world inertias
+  float bc[NBLK > 0 ? NBLK : 1][6];       // the blocks' boxes
+  BallSlot<NBALL> ball;
+  uint32_t words[44];                     // the rollout's reset draws
+};
+
+template <int W, int NBLK, int NBALL>
+__host__ __device__ constexpr int group_floats() {
+  return 2 * Dims<W, NBLK, NBALL>::kNq + 14 * Dims<W, NBLK, NBALL>::kNv +
+         kNu + (kNb * 9 + 2 * kNb * 3 + 2 * kNa * 3) + 2 * kNa * kNa +
+         kNb * 9 + 6 * (NBLK > 0 ? NBLK : 1) + (NBALL > 0 ? 89 + 36 : 1) + 44;
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Candidate contacts of a spec: each sphere's floor, two box picks, blocks
+// and ball, then the ball's floor and two box picks.
+__host__ __device__ inline int ant_slots(const AntParams& P) {
+  return P.n_sph * (3 + P.n_blk + P.n_ball) + 3 * P.n_ball;
+}
+
+// Floats of one group: its Group, then its contact region (the slots, the
+// list of active ones and a J^T f row T for each lane, or the scratch
+// where that is larger).
+template <int W, int NBLK, int NBALL>
+__host__ __device__ inline int group_stride(const AntParams& P) {
+  const int s = ant_slots(P);
+  const int con = s * kConStride + s +
+                  kLanes * (Dims<W, NBLK, NBALL>::kNv + 1);
+  return round4(group_floats<W, NBLK, NBALL>()) +
+         round4(con > kScratchFloats ? con : kScratchFloats);
+}
+
 struct Tables {
+  const float* base;     // the staged buffer (a slot's kCPar counts from it)
   const float* body;
   const float* dof;
   const float* act;
@@ -246,6 +398,42 @@ struct Tables {
   const float* ball;
   const float* bpair;
 };
+
+// Dofs a lane sums J^T f over (nv <= 24).
+constexpr int kDofSlots = (24 + kLanes - 1) / kLanes;
+
+// Entries of the 14x14 mass matrix's upper triangle, and a lane's share.
+constexpr int kMmEntries = kNa * (kNa + 1) / 2;
+constexpr int kMmPerLane = (kMmEntries + kLanes - 1) / kLanes;
+
+// A lane's place in its group, and what it computes of the ant's tree.
+struct Ctx {
+  int lane;              // 0 .. kLanes - 1
+  unsigned mask;         // the group's lanes in its warp
+  int shift;             // the group's first lane in its warp
+  int depth;             // depth of body `lane` (0: the torso, or none)
+  int max_depth;         // of the tree
+  int hbody;             // the body whose hinge is dof `lane`, or -1
+  // the mass-matrix entries lane + k kLanes: lo | hi << 4 | the two dofs'
+  // places in a root-path list << 8, << 12 (a dof's place is the same in
+  // every body below it), and the bodies whose lists hold both
+  int mm_entry[kMmPerLane];
+  uint32_t mm_bodies[kMmPerLane];
+};
+
+__device__ __forceinline__ void gsync(const Ctx& cx) { __syncwarp(cx.mask); }
+
+__device__ __forceinline__ unsigned gballot(const Ctx& cx, bool p) {
+  return (__ballot_sync(cx.mask, p) & cx.mask) >> cx.shift;
+}
+
+__device__ __forceinline__ int geti(const float* ct, int f) {
+  return __float_as_int(ct[f]);
+}
+
+__device__ __forceinline__ void seti(float* ct, int f, int x) {
+  ct[f] = __int_as_float(x);
+}
 
 __device__ __forceinline__ float dot3(const float* a, const float* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
@@ -275,11 +463,62 @@ __device__ __forceinline__ int row_dof(const float* body, int e) {
   return e < 6 ? e : (int)body[2 + (e - 6)];
 }
 
+// The entry of dof d (>= 0) in a body's row list, or -1.
+__device__ __forceinline__ int dof_pos(const float* body, int d) {
+  if (d < 6) return d;
+  if ((int)body[2] == d) return 6;
+  if ((int)body[3] == d) return 7;
+  return -1;
+}
+
 // ---------------------------------------------------------------------------
-// kinematics (engine.fk): torso from the free joint, hinges pre-multiply
+// kinematics (engine.fk): torso from the free joint, hinges pre-multiply;
+// the bodies of one depth at once
 // ---------------------------------------------------------------------------
-__device__ void fk(const Tables& tb, const float* q, Kin& k) {
-  {
+__device__ void body_pose(const Tables& tb, const float* q, Kin& k, int b) {
+  const float* row = tb.body + b * kBodyCols;
+  const int par = (int)row[0];
+  const int hd = (int)row[1];
+  float* R = k.R[b];
+  float* p = k.p[b];
+  const float* Rp = k.R[par];
+  float off[3];
+  mat_vec3(Rp, row + 4, off);
+  for (int i = 0; i < 3; ++i) p[i] = k.p[par][i] + off[i];
+  if (hd >= 0) {
+    float a[3];
+    mat_vec3(Rp, row + 7, a);
+    // Rj = I + s K + (1 - c) K K, K = skew(a)
+    const float ang = q[hd + 1];
+    const float s = sinf(ang), cm = 1.f - cosf(ang);
+    const float K[9] = {0.f, -a[2], a[1], a[2], 0.f, -a[0], -a[1], a[0], 0.f};
+    float Rj[9];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) {
+        const float kk = K[r * 3] * K[cc] + K[r * 3 + 1] * K[3 + cc] +
+                         K[r * 3 + 2] * K[6 + cc];
+        Rj[r * 3 + cc] = (r == cc ? 1.f : 0.f) + s * K[r * 3 + cc] + cm * kk;
+      }
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc)
+        R[r * 3 + cc] = Rj[r * 3] * Rp[cc] + Rj[r * 3 + 1] * Rp[3 + cc] +
+                        Rj[r * 3 + 2] * Rp[6 + cc];
+    for (int i = 0; i < 3; ++i) {
+      k.w[hd][i] = a[i];
+      k.anc[hd][i] = p[i];  // the joint sits at the body origin
+    }
+  } else {
+    for (int i = 0; i < 9; ++i) R[i] = Rp[i];
+  }
+}
+
+__device__ void fk_group(const Ctx& cx, const Tables& tb, const float* q,
+                         Kin& k) {
+  if (cx.lane == 0) {
     const float qw = q[3], qx = q[4], qy = q[5], qz = q[6];
     float* R = k.R[0];
     R[0] = 1 - 2 * (qy * qy + qz * qz);
@@ -297,48 +536,18 @@ __device__ void fk(const Tables& tb, const float* q, Kin& k) {
       k.anc[3 + j][0] = q[0]; k.anc[3 + j][1] = q[1]; k.anc[3 + j][2] = q[2];
     }
   }
-#pragma unroll 1
-  for (int b = 1; b < kNb; ++b) {
-    const float* row = tb.body + b * kBodyCols;
-    const int par = (int)row[0];
-    const int hd = (int)row[1];
-    float* R = k.R[b];
-    float* p = k.p[b];
-    const float* Rp = k.R[par];
-    float off[3];
-    mat_vec3(Rp, row + 4, off);
-    for (int i = 0; i < 3; ++i) p[i] = k.p[par][i] + off[i];
-    for (int i = 0; i < 9; ++i) R[i] = Rp[i];
-    if (hd >= 0) {
-      float a[3];
-      mat_vec3(Rp, row + 7, a);
-      // Rj = I + s K + (1 - c) K K, K = skew(a)
-      const float ang = q[hd + 1];
-      const float s = sinf(ang), cm = 1.f - cosf(ang);
-      const float K[9] = {0.f, -a[2], a[1], a[2], 0.f, -a[0], -a[1], a[0], 0.f};
-      float Rj[9];
-      for (int r = 0; r < 3; ++r)
-        for (int cc = 0; cc < 3; ++cc) {
-          const float kk = K[r * 3] * K[cc] + K[r * 3 + 1] * K[3 + cc] +
-                           K[r * 3 + 2] * K[6 + cc];
-          Rj[r * 3 + cc] = (r == cc ? 1.f : 0.f) + s * K[r * 3 + cc] + cm * kk;
-        }
-      for (int r = 0; r < 3; ++r)
-        for (int cc = 0; cc < 3; ++cc)
-          R[r * 3 + cc] = Rj[r * 3] * Rp[cc] + Rj[r * 3 + 1] * Rp[3 + cc] +
-                          Rj[r * 3 + 2] * Rp[6 + cc];
-      for (int i = 0; i < 3; ++i) {
-        k.w[hd][i] = a[i];
-        k.anc[hd][i] = p[i];  // the joint sits at the body origin
-      }
-    }
+  gsync(cx);
+  for (int lvl = 1; lvl <= cx.max_depth; ++lvl) {
+    if (cx.depth == lvl) body_pose(tb, q, k, cx.lane);
+    gsync(cx);
   }
-#pragma unroll 1
-  for (int b = 0; b < kNb; ++b) {
+  if (cx.lane < kNb) {
+    const int b = cx.lane;
     float cw[3];
     mat_vec3(k.R[b], tb.body + b * kBodyCols + 11, cw);
     for (int i = 0; i < 3; ++i) k.c[b][i] = k.p[b][i] + cw[i];
   }
+  gsync(cx);
 }
 
 // Linear (J) and angular (W) velocity basis of dof d for a point x moving
@@ -362,7 +571,9 @@ __device__ void world_inertia(const float* R, const float* row, float* Iw) {
   const float Ic[9] = {row[14], row[17], row[18], row[17], row[15], row[19],
                        row[18], row[19], row[16]};
   float T[9];
+#pragma unroll
   for (int r = 0; r < 3; ++r)
+#pragma unroll
     for (int cc = 0; cc < 3; ++cc)
       T[r * 3 + cc] = R[r * 3] * Ic[cc] + R[r * 3 + 1] * Ic[3 + cc] +
                       R[r * 3 + 2] * Ic[6 + cc];
@@ -372,40 +583,111 @@ __device__ void world_inertia(const float* R, const float* row, float* Iw) {
                        T[r * 3 + 2] * R[cc * 3 + 2];
 }
 
-// Mass matrix in Jacobian form (ant_math.mass_matrix), plus armature.
-__device__ void mass_matrix(const Tables& tb, const Kin& k, float M[kNa][kNa]) {
-  for (int i = 0; i < kNa; ++i)
-    for (int j = 0; j < kNa; ++j) M[i][j] = 0.f;
-#pragma unroll 1
-  for (int b = 0; b < kNb; ++b) {
-    const float* row = tb.body + b * kBodyCols;
-    const float m = row[10];
-    float Iw[9];
-    world_inertia(k.R[b], row, Iw);
-    float J[kBodyDofs][3], W[kBodyDofs][3], IW[kBodyDofs][3];
-    int dof[kBodyDofs];
-    int n = 0;
-#pragma unroll 1
-    for (int e = 0; e < kBodyDofs; ++e) {
-      const int d = row_dof(row, e);
-      if (d < 0) continue;
-      dof[n] = d;
-      dof_basis(k, d, k.c[b], J[n], W[n]);
-      mat_vec3(Iw, W[n], IW[n]);
-      ++n;
+// (lo, hi) of entry idx of the upper triangle of the 14x14 mass matrix:
+// the 21 entries of the free joint (13 bodies each) first, then the rows
+// of the rest.
+__device__ __forceinline__ void mm_entry(int idx, int* lo, int* hi) {
+  int r = 0;
+  if (idx < 21) {
+    while (idx >= 6 - r) {
+      idx -= 6 - r;
+      ++r;
     }
-#pragma unroll 1
-    for (int i = 0; i < n; ++i)
-      for (int j = i; j < n; ++j) {
-        const float term = dot3(J[i], J[j]) * m + dot3(W[j], IW[i]);
-        const int lo = min(dof[i], dof[j]), hi = max(dof[i], dof[j]);
-        M[lo][hi] = M[lo][hi] + term;
+    *lo = r;
+    *hi = r + idx;
+    return;
+  }
+  idx -= 21;
+  for (;;) {
+    const int c0 = r < 6 ? 6 : r;
+    if (idx < kNa - c0) {
+      *lo = r;
+      *hi = c0 + idx;
+      return;
+    }
+    idx -= kNa - c0;
+    ++r;
+  }
+}
+
+__device__ Ctx make_ctx(const Tables& tb) {
+  Ctx cx;
+  cx.lane = (int)(threadIdx.x % kLanes);
+  cx.shift = (int)(threadIdx.x % 32) & ~(kLanes - 1);
+  cx.mask = kLanes == 32 ? 0xffffffffu : ((1u << kLanes) - 1u) << cx.shift;
+  cx.depth = 0;
+  cx.max_depth = 0;
+  cx.hbody = -1;
+  for (int b = 1; b < kNb; ++b) {
+    int dep = 0;
+    for (int x = b; x > 0; x = (int)tb.body[x * kBodyCols]) ++dep;
+    cx.max_depth = max(cx.max_depth, dep);
+    if (b == cx.lane) cx.depth = dep;
+    if ((int)tb.body[b * kBodyCols + 1] == cx.lane) cx.hbody = b;
+  }
+#pragma unroll
+  for (int k = 0; k < kMmPerLane; ++k) {
+    const int idx = cx.lane + k * kLanes;
+    int lo = 0, hi = 0, pi = 0, pj = 0;
+    uint32_t bodies = 0u;
+    if (idx < kMmEntries) {
+      mm_entry(idx, &lo, &hi);
+      for (int b = 0; b < kNb; ++b) {
+        const float* row = tb.body + b * kBodyCols;
+        const int pl = dof_pos(row, lo), ph = dof_pos(row, hi);
+        if (pl < 0 || ph < 0) continue;
+        bodies |= 1u << b;
+        pi = min(pl, ph);
+        pj = max(pl, ph);
       }
+    }
+    cx.mm_entry[k] = lo | hi << 4 | pi << 8 | pj << 12;
+    cx.mm_bodies[k] = bodies;
   }
-  for (int i = 0; i < kNa; ++i) {
-    M[i][i] = M[i][i] + tb.dof[i * kDofCols];
-    for (int j = 0; j < i; ++j) M[i][j] = M[j][i];
+  return cx;
+}
+
+// Mass matrix in Jacobian form (ant_math.mass_matrix), plus armature:
+// M[lo][hi] sums m J_i . J_j + W_j . Iw W_i (i before j in the body's list)
+// over the bodies whose lists hold both dofs, in body order.
+__device__ void mass_matrix_group(const Ctx& cx, const Tables& tb,
+                                  const Kin& k, float (*Iw)[9],
+                                  float (*M)[kNa], float* rec) {
+  if (cx.lane < kNb)
+    world_inertia(k.R[cx.lane], tb.body + cx.lane * kBodyCols, Iw[cx.lane]);
+  gsync(cx);
+  for (int t = cx.lane; t < kNb * kBodyDofs; t += kLanes) {
+    const int b = t / kBodyDofs;
+    const int d = row_dof(tb.body + b * kBodyCols, t % kBodyDofs);
+    if (d < 0) continue;
+    float* r = rec + 9 * t;  // J, W, Iw W
+    dof_basis(k, d, k.c[b], r, r + 3);
+    mat_vec3(Iw[b], r + 3, r + 6);
   }
+  gsync(cx);
+#pragma unroll
+  for (int k = 0; k < kMmPerLane; ++k) {
+    if (cx.lane + k * kLanes >= kMmEntries) continue;
+    const int e = cx.mm_entry[k];
+    const int lo = e & 15, hi = (e >> 4) & 15;
+    const int pi = (e >> 8) & 15, pj = (e >> 12) & 15;
+    float s = 0.f;
+    uint32_t m = cx.mm_bodies[k];
+#pragma unroll 1
+    while (m) {
+      const int b = __ffs(m) - 1;
+      m &= m - 1u;
+      const float* ri = rec + 9 * (b * kBodyDofs + pi);
+      const float* rj = rec + 9 * (b * kBodyDofs + pj);
+      const float term =
+          dot3(ri, rj) * tb.body[b * kBodyCols + 10] + dot3(rj + 3, ri + 6);
+      s = s + term;
+    }
+    if (lo == hi) s = s + tb.dof[lo * kDofCols];
+    M[lo][hi] = s;
+    M[hi][lo] = s;
+  }
+  gsync(cx);
 }
 
 // Spatial motion / force algebra in world axes about the torso origin
@@ -450,12 +732,18 @@ __device__ __forceinline__ void cdof(const Kin& k, int d, float* s) {
 }
 
 // qfrc_bias = C(q, v) v + gravity by RNE in world axes about the torso
-// origin p0 (engine.rne_bias, which takes the same reference point).
-__device__ void rne_bias(const Tables& tb, const AntParams& P, const Kin& k,
-                         const float* v, float* bias) {
-  float vel[kNb][6], acc[kNb][6], frc[kNb][6];
+// origin p0 (engine.rne_bias, which takes the same reference point): the
+// recursions level by level, the bodies' forces one a lane, the subtree
+// sums one spatial component a lane.
+__device__ void rne_bias_group(const Ctx& cx, const Tables& tb,
+                               const AntParams& P, const Kin& k,
+                               const float* v, const float (*Iw)[9],
+                               float* bias, float* scratch) {
+  float (*vel)[6] = reinterpret_cast<float (*)[6]>(scratch);
+  float (*acc)[6] = vel + kNb;
+  float (*frc)[6] = acc + kNb;
   // torso: free dofs in order; angular cdofdot uses the full torso velocity
-  {
+  if (cx.lane == 0) {
     float s[6];
     for (int i = 0; i < 6; ++i) vel[0][i] = 0.f;
     for (int d = 0; d < 6; ++d) {
@@ -471,34 +759,37 @@ __device__ void rne_bias(const Tables& tb, const AntParams& P, const Kin& k,
       for (int i = 0; i < 6; ++i) acc[0][i] = acc[0][i] + sd[i] * v[d];
     }
   }
-#pragma unroll 1
-  for (int b = 1; b < kNb; ++b) {
-    const float* row = tb.body + b * kBodyCols;
-    const int par = (int)row[0];
-    const int hd = (int)row[1];
-    for (int i = 0; i < 6; ++i) {
-      vel[b][i] = vel[par][i];
-      acc[b][i] = acc[par][i];
-    }
-    if (hd >= 0) {
-      float s[6], sd[6];
-      cdof(k, hd, s);
-      motion_cross(vel[par], s, sd);  // velocity before the joint
+  gsync(cx);
+  for (int lvl = 1; lvl <= cx.max_depth; ++lvl) {
+    if (cx.depth == lvl) {
+      const int b = cx.lane;
+      const float* row = tb.body + b * kBodyCols;
+      const int par = (int)row[0];
+      const int hd = (int)row[1];
       for (int i = 0; i < 6; ++i) {
-        acc[b][i] = acc[b][i] + sd[i] * v[hd];
-        vel[b][i] = vel[b][i] + s[i] * v[hd];
+        vel[b][i] = vel[par][i];
+        acc[b][i] = acc[par][i];
+      }
+      if (hd >= 0) {
+        float s[6], sd[6];
+        cdof(k, hd, s);
+        motion_cross(vel[par], s, sd);  // velocity before the joint
+        for (int i = 0; i < 6; ++i) {
+          acc[b][i] = acc[b][i] + sd[i] * v[hd];
+          vel[b][i] = vel[b][i] + s[i] * v[hd];
+        }
       }
     }
+    gsync(cx);
   }
-#pragma unroll 1
-  for (int b = 0; b < kNb; ++b) {
+  if (cx.lane < kNb) {
+    const int b = cx.lane;
     const float* row = tb.body + b * kBodyCols;
     const float crel[3] = {k.c[b][0] - k.p[0][0], k.c[b][1] - k.p[0][1],
                            k.c[b][2] - k.p[0][2]};
-    float Iw[9], Ia[6], Iv[6], t[3];
-    world_inertia(k.R[b], row, Iw);
-    inertia_mul(Iw, row[10], crel, acc[b], Ia);
-    inertia_mul(Iw, row[10], crel, vel[b], Iv);
+    float Ia[6], Iv[6], t[3];
+    inertia_mul(Iw[b], row[10], crel, acc[b], Ia);
+    inertia_mul(Iw[b], row[10], crel, vel[b], Iv);
     // v x* (I v) = [w x m + v x f; w x f]
     float fx[6];
     cross3(vel[b], Iv, fx);
@@ -507,63 +798,80 @@ __device__ void rne_bias(const Tables& tb, const AntParams& P, const Kin& k,
     cross3(vel[b], Iv + 3, fx + 3);
     for (int i = 0; i < 6; ++i) frc[b][i] = Ia[i] + fx[i];
   }
+  gsync(cx);
   // subtree sums: children come after their parents in the body order
-#pragma unroll 1
-  for (int b = kNb - 1; b >= 1; --b) {
-    const int par = (int)tb.body[b * kBodyCols];
-    for (int i = 0; i < 6; ++i) frc[par][i] = frc[par][i] + frc[b][i];
+  if (cx.lane < 6) {
+    const int i = cx.lane;
+    for (int b = kNb - 1; b >= 1; --b) {
+      const int par = (int)tb.body[b * kBodyCols];
+      frc[par][i] = frc[par][i] + frc[b][i];
+    }
   }
-  float s[6];
-  for (int d = 0; d < 6; ++d) {
-    cdof(k, d, s);
-    bias[d] = dot3(s, frc[0]) + dot3(s + 3, frc[0] + 3);
-  }
-#pragma unroll 1
-  for (int b = 1; b < kNb; ++b) {
-    const int hd = (int)tb.body[b * kBodyCols + 1];
-    if (hd < 0) continue;
-    cdof(k, hd, s);
-    bias[hd] = dot3(s, frc[b]) + dot3(s + 3, frc[b] + 3);
+  gsync(cx);
+  if (cx.lane < kNa) {
+    const int d = cx.lane;
+    const int b = d < 6 ? 0 : cx.hbody;
+    if (b >= 0) {
+      float s[6];
+      cdof(k, d, s);
+      bias[d] = dot3(s, frc[b]) + dot3(s + 3, frc[b] + 3);
+    }
   }
 }
 
 // Minv = M^-1 by the Cholesky factor (linalg.spd_inverse): M is
-// overwritten with L.  N = 14 for the ant, 6 for the ball.
+// overwritten with L.  N = 14 for the ant, 6 for the ball.  Lane i keeps
+// row i in registers and factors it column by column (the pivot's sum
+// broadcast by a shuffle, the other rows' L read from shared memory), then
+// lane c keeps column c of the inverse in registers through the two
+// substitutions.
 template <int N>
-__device__ void spd_inverse(float M[N][N], float Minv[N][N]) {
-#pragma unroll 1
+__device__ void spd_inverse_group(const Ctx& cx, float (*M)[N],
+                                  float (*Minv)[N]) {
+  static_assert(N <= kLanes, "a lane for each row");
+  const int i = cx.lane;
+  const bool row = i < N;
+  float a[N];
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk) a[kk] = row ? M[i][kk] : 0.f;
+#pragma unroll
   for (int j = 0; j < N; ++j) {
-    for (int i = j; i < N; ++i) {
-      float s = M[i][j];
-      for (int kk = 0; kk < j; ++kk) s = s - M[i][kk] * M[j][kk];
-      M[i][j] = s;  // provisional: divided by the pivot below
+    float s = 0.f;
+    if (row && i >= j) {
+      s = a[j];
+#pragma unroll
+      for (int kk = 0; kk < j; ++kk) s = s - a[kk] * M[j][kk];
     }
-    const float d = sqrtf(fmaxf(M[j][j], 1e-12f));
-    for (int i = j; i < N; ++i) M[i][j] = M[i][j] / d;
+    const float sj = __shfl_sync(cx.mask, s, j, kLanes);
+    const float d = sqrtf(fmaxf(sj, 1e-12f));
+    if (row && i >= j) {
+      a[j] = s / d;
+      M[i][j] = a[j];
+    }
+    gsync(cx);
   }
   // forward substitution L Y = I, then back substitution L^T X = Y
-#pragma unroll 1
-  for (int c = 0; c < N; ++c) {
-    for (int i = 0; i < N; ++i) {
-      float acc = i == c ? 1.f : 0.f;
-      for (int kk = 0; kk < i; ++kk) acc = acc - M[i][kk] * Minv[kk][c];
-      Minv[i][c] = acc / M[i][i];
+  if (row) {
+    const int c = i;
+    float x[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      float acc = r == c ? 1.f : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < r; ++kk) acc = acc - M[r][kk] * x[kk];
+      x[r] = acc / M[r][r];
     }
-    for (int i = N - 1; i >= 0; --i) {
-      float acc = Minv[i][c];
-      for (int kk = i + 1; kk < N; ++kk) acc = acc - M[kk][i] * Minv[kk][c];
-      Minv[i][c] = acc / M[i][i];
+#pragma unroll
+    for (int r = N - 1; r >= 0; --r) {
+      float acc = x[r];
+#pragma unroll
+      for (int kk = r + 1; kk < N; ++kk) acc = acc - M[kk][r] * x[kk];
+      x[r] = acc / M[r][r];
     }
+#pragma unroll
+    for (int r = 0; r < N; ++r) Minv[r][c] = x[r];
   }
-}
-
-__device__ __forceinline__ void minv_mul(const float Minv[kNa][kNa],
-                                         const float* x, float* y) {
-  for (int i = 0; i < kNa; ++i) {
-    float s = 0.f;
-    for (int j = 0; j < kNa; ++j) s = s + Minv[i][j] * x[j];
-    y[i] = s;
-  }
+  gsync(cx);
 }
 
 // ---------------------------------------------------------------------------
@@ -607,72 +915,79 @@ __device__ __forceinline__ void ball_inertia_mul(const Ball& bl,
 // o, its bias (gravity and velocity products, into bias[va..va + 5]) and
 // the inverse of its 6x6 mass block.  Its free joint's linear dofs move
 // along the world axes, its angular dofs turn about the body axes through
-// o; the sphere sits at the body-frame com.
-__device__ void ball_dynamics(const Tables& tb, const AntParams& P,
-                              const float* q, const float* v, Ball& bl,
-                              float* bias) {
-  const float* row = tb.ball;
-  const int qa = (int)row[0];
-  const int va = (int)row[1];
-  bl.va = va;
-  for (int i = 0; i < 3; ++i) bl.o[i] = q[qa + i];
-  float R[9], off[3];
-  quat_to_mat(q + qa + 3, R);
-  mat_vec3(R, row + 4, off);
-  for (int i = 0; i < 3; ++i) bl.c[i] = bl.o[i] + off[i];
-  for (int kk = 0; kk < 3; ++kk) {
-    for (int i = 0; i < 6; ++i) {
-      bl.cdof[kk][i] = 0.f;
-      bl.cdof[3 + kk][i] = 0.f;
+// o; the sphere sits at the body-frame com.  One lane computes the tree
+// and its bias, the lanes the 21 entries of the block and its inverse.
+__device__ void ball_dynamics_group(const Ctx& cx, const Tables& tb,
+                                    const AntParams& P, const float* q,
+                                    const float* v, Ball& bl, float (*Mb)[6],
+                                    float* bias) {
+  if (cx.lane == 0) {
+    const float* row = tb.ball;
+    const int qa = (int)row[0];
+    const int va = (int)row[1];
+    bl.va = va;
+    for (int i = 0; i < 3; ++i) bl.o[i] = q[qa + i];
+    float R[9], off[3];
+    quat_to_mat(q + qa + 3, R);
+    mat_vec3(R, row + 4, off);
+    for (int i = 0; i < 3; ++i) bl.c[i] = bl.o[i] + off[i];
+    for (int kk = 0; kk < 3; ++kk) {
+      for (int i = 0; i < 6; ++i) {
+        bl.cdof[kk][i] = 0.f;
+        bl.cdof[3 + kk][i] = 0.f;
+      }
+      bl.cdof[kk][3 + kk] = 1.f;
+      for (int i = 0; i < 3; ++i) bl.cdof[3 + kk][i] = R[i * 3 + kk];
     }
-    bl.cdof[kk][3 + kk] = 1.f;
-    for (int i = 0; i < 3; ++i) bl.cdof[3 + kk][i] = R[i * 3 + kk];
+    // the isotropic inertia about the com, moved to o: Ic + m (|c|^2 1 - c c^T)
+    const float m = row[3], Ic = row[7];
+    const float c[3] = {bl.c[0] - bl.o[0], bl.c[1] - bl.o[1],
+                        bl.c[2] - bl.o[2]};
+    bl.m = m;
+    for (int i = 0; i < 3; ++i) bl.h[i] = m * c[i];
+    bl.I[0] = Ic + m * (c[1] * c[1] + c[2] * c[2]);
+    bl.I[1] = Ic + m * (c[0] * c[0] + c[2] * c[2]);
+    bl.I[2] = Ic + m * (c[0] * c[0] + c[1] * c[1]);
+    bl.I[3] = -(m * (c[0] * c[1]));
+    bl.I[4] = -(m * (c[0] * c[2]));
+    bl.I[5] = -(m * (c[1] * c[2]));
+    // its velocity; the body axes turn with the full velocity (cdof_dot)
+    float vel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < 6; ++d)
+      for (int i = 0; i < 6; ++i) vel[i] = vel[i] + bl.cdof[d][i] * v[va + d];
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, P.gravity};
+    for (int d = 3; d < 6; ++d) {
+      float sd[6];
+      motion_cross(vel, bl.cdof[d], sd);
+      for (int i = 0; i < 6; ++i) acc[i] = acc[i] + sd[i] * v[va + d];
+    }
+    // f = I a + v x* (I v); bias = cdof . f
+    float Ia[6], Iv[6], fx[6], t[3], f[6];
+    ball_inertia_mul(bl, acc, Ia);
+    ball_inertia_mul(bl, vel, Iv);
+    cross3(vel, Iv, fx);
+    cross3(vel + 3, Iv + 3, t);
+    for (int i = 0; i < 3; ++i) fx[i] = fx[i] + t[i];
+    cross3(vel, Iv + 3, fx + 3);
+    for (int i = 0; i < 6; ++i) f[i] = Ia[i] + fx[i];
+    for (int d = 0; d < 6; ++d) bias[va + d] = dot6(bl.cdof[d], f);
   }
-  // the isotropic inertia about the com, moved to o: Ic + m (|c|^2 1 - c c^T)
-  const float m = row[3], Ic = row[7];
-  const float c[3] = {bl.c[0] - bl.o[0], bl.c[1] - bl.o[1],
-                      bl.c[2] - bl.o[2]};
-  bl.m = m;
-  for (int i = 0; i < 3; ++i) bl.h[i] = m * c[i];
-  bl.I[0] = Ic + m * (c[1] * c[1] + c[2] * c[2]);
-  bl.I[1] = Ic + m * (c[0] * c[0] + c[2] * c[2]);
-  bl.I[2] = Ic + m * (c[0] * c[0] + c[1] * c[1]);
-  bl.I[3] = -(m * (c[0] * c[1]));
-  bl.I[4] = -(m * (c[0] * c[2]));
-  bl.I[5] = -(m * (c[1] * c[2]));
-  // its velocity; the body axes turn with the full velocity (cdof_dot)
-  float vel[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int d = 0; d < 6; ++d)
-    for (int i = 0; i < 6; ++i) vel[i] = vel[i] + bl.cdof[d][i] * v[va + d];
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, P.gravity};
-  for (int d = 3; d < 6; ++d) {
-    float sd[6];
-    motion_cross(vel, bl.cdof[d], sd);
-    for (int i = 0; i < 6; ++i) acc[i] = acc[i] + sd[i] * v[va + d];
-  }
-  // f = I a + v x* (I v); bias = cdof . f
-  float Ia[6], Iv[6], fx[6], t[3], f[6];
-  ball_inertia_mul(bl, acc, Ia);
-  ball_inertia_mul(bl, vel, Iv);
-  cross3(vel, Iv, fx);
-  cross3(vel + 3, Iv + 3, t);
-  for (int i = 0; i < 3; ++i) fx[i] = fx[i] + t[i];
-  cross3(vel, Iv + 3, fx + 3);
-  for (int i = 0; i < 6; ++i) f[i] = Ia[i] + fx[i];
-  for (int d = 0; d < 6; ++d) bias[va + d] = dot6(bl.cdof[d], f);
-  // M = (I s_a) . s_b over the tree, then its inverse
-  float M[6][6];
-#pragma unroll 1
-  for (int a = 0; a < 6; ++a) {
+  gsync(cx);
+  // M = (I s_a) . s_b over the tree (b <= a), then its inverse
+  for (int t = cx.lane; t < 21; t += kLanes) {
+    int a = 0, b = t;
+    while (b > a) {
+      b -= a + 1;
+      ++a;
+    }
     float F[6];
     ball_inertia_mul(bl, bl.cdof[a], F);
-    for (int b = 0; b <= a; ++b) {
-      const float x = dot6(F, bl.cdof[b]);
-      M[a][b] = x;
-      M[b][a] = x;
-    }
+    const float x = dot6(F, bl.cdof[b]);
+    Mb[a][b] = x;
+    Mb[b][a] = x;
   }
-  spd_inverse<6>(M, bl.Minv);
+  gsync(cx);
+  spd_inverse_group<6>(cx, Mb, bl.Minv);
 }
 
 // Sphere vs an axis-aligned box bx = (center3, half3) (contact.py
@@ -707,126 +1022,305 @@ __device__ void sphere_box(const float* c, float r, const float* bx,
   }
 }
 
+// sphere_box's signed distance alone (the same operations).
+__device__ __forceinline__ float sphere_box_dist(const float* c, float r,
+                                                 const float* bx) {
+  float local[3], delta[3];
+  for (int i = 0; i < 3; ++i) {
+    local[i] = c[i] - bx[i];
+    delta[i] = local[i] - fmaxf(fminf(local[i], bx[3 + i]), -bx[3 + i]);
+  }
+  const float d_out = sqrtf(delta[0] * delta[0] + delta[1] * delta[1] +
+                            delta[2] * delta[2] + 1e-12f);
+  const float ex = bx[3] - fabsf(local[0]);
+  const float ey = bx[4] - fabsf(local[1]);
+  const float ez = bx[5] - fabsf(local[2]);
+  const float pen_in = -fminf(fminf(ex, ey), ez);
+  return d_out > 1e-6f ? d_out - r : pen_in - r;
+}
+
 // The two nearest static boxes of a sphere by dist - box margin (strict
 // <: the first of equal keys wins); a pick no box filled stays at an
-// infinite distance, never active.
+// infinite distance, never active.  Only the distances decide: a pick's
+// point and normal come from sphere_box on its box afterwards.
 struct Nearest2 {
   float e[2] = {INFINITY, INFINITY}, d[2] = {INFINITY, INFINITY};
-  float p[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
-  float n[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
   float m[2] = {0.f, 0.f};
-  bool in[2] = {false, false};
+  int box[2] = {0, 0};
 
   __device__ __forceinline__ void test(const float* c, float r,
-                                       const float* bx) {
-    float dist, pos[3], nn[3];
-    bool inside;
-    sphere_box(c, r, bx, &dist, pos, nn, &inside);
+                                       const float* boxes, int b) {
+    const float* bx = boxes + b * kBoxCols;
+    const float dist = sphere_box_dist(c, r, bx);
     const float ee = dist - bx[6];
     const bool b1 = ee < e[0];
     const bool b2 = !b1 && ee < e[1];
     if (b1) {
-      e[1] = e[0]; d[1] = d[0]; m[1] = m[0];
-      in[1] = in[0];
-      for (int i = 0; i < 3; ++i) {
-        p[1][i] = p[0][i];
-        n[1][i] = n[0][i];
-      }
-      e[0] = ee; d[0] = dist; m[0] = bx[6];
-      in[0] = inside;
-      for (int i = 0; i < 3; ++i) {
-        p[0][i] = pos[i];
-        n[0][i] = nn[i];
-      }
+      e[1] = e[0]; d[1] = d[0]; m[1] = m[0]; box[1] = box[0];
+      e[0] = ee; d[0] = dist; m[0] = bx[6]; box[0] = b;
     } else if (b2) {
-      e[1] = ee; d[1] = dist; m[1] = bx[6];
-      in[1] = inside;
-      for (int i = 0; i < 3; ++i) {
-        p[1][i] = pos[i];
-        n[1][i] = nn[i];
-      }
+      e[1] = ee; d[1] = dist; m[1] = bx[6]; box[1] = b;
     }
   }
 };
 
-// Minv[i][j] over the block-diagonal structure: the ant's 14x14 inverse,
-// then the diagonal 1/mass of the slide dofs, or the ball's 6x6 inverse.
+// Row i of y = Minv x over the ant's and the slides' ns dofs and the
+// ball's six.
 template <int NBALL>
-__device__ __forceinline__ float minv_at(const Tables& tb,
-                                         const float Minv[kNa][kNa],
-                                         const Ball* bl, int i, int j) {
-  if (i < kNa && j < kNa) return Minv[i][j];
+__device__ __forceinline__ float minv_row(const Tables& tb,
+                                          const float (*Minv)[kNa],
+                                          const Ball* bl, int ns,
+                                          const float* x, int i) {
+  if (i < kNa) {
+    float s = 0.f;
+    for (int j = 0; j < kNa; ++j) s = s + Minv[i][j] * x[j];
+    return s;
+  }
+  if (i < ns) return tb.wdof[(i - kNa) * kWdofCols + 6] * x[i];
+  float s = 0.f;
   if constexpr (NBALL > 0) {
     const int va = bl->va;
-    return i >= va && j >= va ? bl->Minv[i - va][j - va] : 0.f;
-  } else {
-    if (i == j) return tb.wdof[(i - kNa) * kWdofCols + 6];
-    return 0.f;
+    for (int j = 0; j < 6; ++j) s = s + bl->Minv[i - va][j] * x[va + j];
   }
-}
-
-// y = Minv x over the ant's and the slides' ns dofs, and the ball's six.
-template <int NBALL>
-__device__ void minv_mul_all(const Tables& tb, const float Minv[kNa][kNa],
-                             const Ball* bl, int ns, const float* x,
-                             float* y) {
-  minv_mul(Minv, x, y);
-  for (int d = kNa; d < ns; ++d) y[d] = tb.wdof[(d - kNa) * kWdofCols + 6] * x[d];
-  if constexpr (NBALL > 0) {
-    const int va = bl->va;
-    for (int i = 0; i < 6; ++i) {
-      float s = 0.f;
-      for (int j = 0; j < 6; ++j) s = s + bl->Minv[i][j] * x[va + j];
-      y[va + i] = s;
-    }
-  }
+  return s;
 }
 
 // The dof of entry e of a contact's row list: the sphere body's root-path
 // dofs, then the block's slide dofs, then the ball's six (-1 where there
 // are fewer, or where that body is not in the contact).
-template <int NBLK, int NBALL, int R>
-__device__ __forceinline__ int con_dof(const Tables& tb, const Contact<R>& ct,
+template <int NBLK, int NBALL>
+__device__ __forceinline__ int con_dof(const Tables& tb, const float* ct,
                                        int e) {
   if (e < kBodyDofs) {
-    if constexpr (NBALL > 0) {
-      if (ct.body < 0) return -1;
-    }
-    return row_dof(tb.body + ct.body * kBodyCols, e);
+    const int body = geti(ct, kCBody);
+    if (body < 0) return -1;
+    return row_dof(tb.body + body * kBodyCols, e);
   }
   if constexpr (NBALL > 0) {
     constexpr int kBall = Rows<NBLK, NBALL>::kBall;
-    if (e >= kBall) return ct.ball ? (int)tb.ball[1] + (e - kBall) : -1;
+    if (e >= kBall)
+      return geti(ct, kCFlags) & 12 ? (int)tb.ball[1] + (e - kBall) : -1;
   }
-  if (ct.blk < 0) return -1;
-  const float* br = tb.blk + ct.blk * kBlkCols;
+  const int blk = geti(ct, kCBlk);
+  if (blk < 0) return -1;
+  const float* br = tb.blk + blk * kBlkCols;
   const int k = e - kBodyDofs;
   return k < (int)br[7] ? (int)br[6] + k : -1;
 }
 
-// Append one active contact: its three rows on the contact's dof list, the
-// impedance constants, A = J Minv J^T, aref - a0, R and the denominator
-// (contact.py contact_qfrc, row by row).  par = (mu, d0, dmax, width, tc,
-// dampr) of the sphere, of the sphere-block or sphere-ball pair, or of the
-// ball.  body: the sphere's ant body (-1: none); blk: the pair's block
-// (-1: none); ball: +1 if the ball is the contact's first body, -1 if its
-// second, 0 if it is not in it.
+// The dofs of a contact's row entries (con_dof), in registers.
 template <int NBLK, int NBALL>
-__device__ void add_contact(const Tables& tb, const Kin& k,
-                            const float Minv[kNa][kNa], const Ball* bl,
-                            const float* v, const float* qacc0,
-                            const float* par, int body, int blk, int ball,
-                            const float* pos, const float* nrm, float dist,
-                            float margin,
-                            Contact<Rows<NBLK, NBALL>::kR>& ct) {
-  constexpr int R = Rows<NBLK, NBALL>::kR;
-  const float mu = par[0], d0 = par[1], dmax = par[2], width = par[3];
-  const float tc = par[4], dampr = par[5];
-  ct.body = body;
-  ct.blk = blk;
-  ct.ball = ball;
-  ct.mu = mu;
-  // tangent frame: reference x if |n.x| < 0.5, else y
+__device__ __forceinline__ void con_dofs(const Tables& tb, const float* ct,
+                                         int* dof) {
+#pragma unroll
+  for (int e = 0; e < Rows<NBLK, NBALL>::kR; ++e)
+    dof[e] = con_dof<NBLK, NBALL>(tb, ct, e);
+}
+
+// The contact's three rows (normal, tangent 1, tangent 2) on its entries:
+// a sphere body's dof, dir . (w x (x - anchor)) or dir[d]; a block's slide,
+// -dir[axis] (the block is the contact's second body); the ball's dof,
+// +-[(x - o) x dir; dir] . cdof (+ as the contact's first body); 0 where
+// the list has no dof.
+template <int NBLK, int NBALL>
+__device__ __forceinline__ void contact_jac(
+    const Tables& tb, const Kin& k, const Ball* bl, const float* ct,
+    const int* dof, float (*J)[Rows<NBLK, NBALL>::kR]) {
+#pragma unroll
+  for (int e = 0; e < Rows<NBLK, NBALL>::kR; ++e) {
+    const int d = dof[e];
+    if (d < 0) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) J[r][e] = 0.f;
+    } else if (e < kBodyDofs) {
+      float Jl[3], W[3];
+      dof_basis(k, d, ct + kCPos, Jl, W);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) J[r][e] = dot3(Jl, ct + kCDir + 3 * r);
+    } else if constexpr (NBALL > 0) {
+      const float* pos = ct + kCPos;
+      const float rel[3] = {pos[0] - bl->o[0], pos[1] - bl->o[1],
+                            pos[2] - bl->o[2]};
+      const bool second = geti(ct, kCFlags) & 8;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float* dir = ct + kCDir + 3 * r;
+        float Fb[6];
+        cross3(rel, dir, Fb);
+        for (int i = 0; i < 3; ++i) Fb[3 + i] = dir[i];
+        const float x = dot6(Fb, bl->cdof[d - bl->va]);
+        J[r][e] = second ? -x : x;
+      }
+    } else {
+      const int ax = (int)tb.wdof[(d - kNa) * kWdofCols];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) J[r][e] = -ct[kCDir + 3 * r + ax];
+    }
+  }
+}
+
+// Write one candidate into its slot: flags (active, inside, the ball's
+// role), bodies, constants, point, normal, and dist and margin until the
+// rows are built.
+__device__ __forceinline__ void put_contact(float* ct, int flags, int body,
+                                            int blk, int par, float p0,
+                                            float p1, float p2, float n0,
+                                            float n1, float n2, float dist,
+                                            float margin) {
+  seti(ct, kCFlags, flags);
+  seti(ct, kCBody, body);
+  seti(ct, kCBlk, blk);
+  seti(ct, kCPar, par);
+  ct[kCPos] = p0;
+  ct[kCPos + 1] = p1;
+  ct[kCPos + 2] = p2;
+  ct[kCDir] = n0;
+  ct[kCDir + 1] = n1;
+  ct[kCDir + 2] = n2;
+  ct[kCF] = dist;
+  ct[kCF + 1] = margin;
+}
+
+// Test sphere s against the floor, its two nearest boxes within reach (the
+// bit set near), every block and the ball, writing the slots s K .. s K +
+// K - 1: floor, picks, blocks, ball.
+template <int NBLK, int NBALL>
+__device__ void detect_sphere(const Tables& tb, const AntParams& P,
+                              const Kin& k, const Ball* bl,
+                              const float (*bc)[6], const uint32_t* near,
+                              int s, int K, float* con) {
+  const int S = P.n_sph;
+  const float* sp = tb.sph + s * kSphCols;
+  const int body = (int)sp[0];
+  float c[3];
+  mat_vec3(k.R[body], sp + 1, c);
+  for (int i = 0; i < 3; ++i) c[i] = k.p[body][i] + c[i];
+  const float r = sp[4];
+  float* slot = con + s * K * kConStride;
+  const int par_sph = (int)(sp + 7 - tb.base);
+  {  // floor plane z = 0
+    const float dist = c[2] - r;
+    if (dist < sp[6]) {
+      put_contact(slot, 1, body, -1, par_sph, c[0], c[1], c[2] - r, 0.f, 0.f,
+                  1.f, dist, sp[6]);
+    } else {
+      seti(slot, kCFlags, 0);
+    }
+  }
+  // the two nearest boxes within reach
+  Nearest2 pick;
+#pragma unroll
+  for (int w = 0; w < kBoxWords; ++w) {
+    uint32_t m = near[w];
+#pragma unroll 1
+    while (m) {
+      const int b = (w << 5) + __ffs(m) - 1;
+      m &= m - 1u;
+      pick.test(c, r, tb.box, b);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float* ct = slot + (1 + j) * kConStride;
+    const float margin = sp[5] + pick.m[j];
+    if (pick.d[j] < margin) {
+      float dist, pos[3], n[3];
+      bool inside;
+      sphere_box(c, r, tb.box + pick.box[j] * kBoxCols, &dist, pos, n,
+                 &inside);
+      put_contact(ct, 1 | (inside ? 2 : 0), body, -1, par_sph, pos[0],
+                  pos[1], pos[2], n[0], n[1], n[2], dist, margin);
+    } else {
+      seti(ct, kCFlags, 0);
+    }
+  }
+  // every movable block (the box frame is the world's: slides only)
+#pragma unroll 1
+  for (int b = 0; b < P.n_blk; ++b) {
+    const float* pr = tb.qpair + (b * S + s) * kPairCols;
+    float* ct = slot + (3 + b) * kConStride;
+    float dist, pos[3], n[3];
+    bool inside;
+    sphere_box(c, r, bc[b], &dist, pos, n, &inside);
+    if (dist < pr[0])
+      put_contact(ct, 1 | (inside ? 2 : 0), body, b, (int)(pr + 1 - tb.base),
+                  pos[0], pos[1], pos[2], n[0], n[1], n[2], dist, pr[0]);
+    else
+      seti(ct, kCFlags, 0);
+  }
+  // the ball, the pair's second body: the normal from its centre to the
+  // sphere's, the point midway through the overlap
+  if constexpr (NBALL > 0) {
+    const float* pr = tb.bpair + s * kPairCols;
+    float* ct = slot + (3 + P.n_blk) * kConStride;
+    const float rb = tb.ball[2];
+    const float d[3] = {c[0] - bl->c[0], c[1] - bl->c[1], c[2] - bl->c[2]};
+    const float dn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-12f);
+    const float n[3] = {d[0] / dn, d[1] / dn, d[2] / dn};
+    const float dist = dn - (r + rb);
+    if (dist < pr[0]) {
+      const float reach = rb + dist * 0.5f;
+      put_contact(ct, 1 | 8, body, -1, (int)(pr + 1 - tb.base),
+                  bl->c[0] + n[0] * reach, bl->c[1] + n[1] * reach,
+                  bl->c[2] + n[2] * reach, n[0], n[1], n[2], dist, pr[0]);
+    } else {
+      seti(ct, kCFlags, 0);
+    }
+  }
+}
+
+// The ball against the floor and the two nearest of all static boxes: the
+// slots after the spheres'.
+__device__ void detect_ball(const Tables& tb, const AntParams& P,
+                            const Ball* bl, float* slot) {
+  const float* br = tb.ball;
+  const float* c = bl->c;
+  const float rb = br[2];
+  const int par = (int)(br + kBallPar - tb.base);
+  const float dist = c[2] - rb;
+  if (dist < br[9]) {
+    put_contact(slot, 1 | 4, -1, -1, par, c[0], c[1], c[2] - rb, 0.f, 0.f,
+                1.f, dist, br[9]);
+  } else {
+    seti(slot, kCFlags, 0);
+  }
+  Nearest2 pick;
+#pragma unroll 1
+  for (int b = 0; b < P.n_box; ++b) pick.test(c, rb, tb.box, b);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float* ct = slot + (1 + j) * kConStride;
+    const float margin = br[8] + pick.m[j];
+    if (pick.d[j] < margin) {
+      float dist, pos[3], n[3];
+      bool inside;
+      sphere_box(c, rb, tb.box + pick.box[j] * kBoxCols, &dist, pos, n,
+                 &inside);
+      put_contact(ct, 1 | 4 | (inside ? 2 : 0), -1, -1, par, pos[0], pos[1],
+                  pos[2], n[0], n[1], n[2], dist, margin);
+    } else {
+      seti(ct, kCFlags, 0);
+    }
+  }
+}
+
+// The slot of trace bit b (kind * S + sphere; then, from (3 + blocks) S,
+// the ball against the floor, its first and second box pick, then each
+// sphere against the ball), or -1 past the candidates.
+__device__ __forceinline__ int bit_slot(const AntParams& P, int b) {
+  const int S = P.n_sph, K = 3 + P.n_blk + P.n_ball;
+  const int ball_bit = (3 + P.n_blk) * S;
+  if (b < ball_bit) return (b % S) * K + b / S;
+  b -= ball_bit;
+  if (P.n_ball == 0 || b >= 3 + S) return -1;
+  return b < 3 ? S * K + b : (b - 3) * K + 3 + P.n_blk;
+}
+
+// An active contact's tangent frame (reference x if |n.x| < 0.5, else
+// y) and friction, into its slot.
+__device__ __forceinline__ void contact_frame(const Tables& tb, float* ct) {
+  ct[kCMu] = tb.base[geti(ct, kCPar)];
+  const float* nrm = ct + kCDir;
   const bool use_x = fabsf(nrm[0]) < 0.5f;
   const float ref[3] = {use_x ? 1.f : 0.f, use_x ? 0.f : 1.f, 0.f};
   float t1[3], t2[3];
@@ -834,270 +1328,289 @@ __device__ void add_contact(const Tables& tb, const Kin& k,
   const float tn = sqrtf(dot3(t1, t1) + 1e-12f);
   for (int i = 0; i < 3; ++i) t1[i] = t1[i] / tn;
   cross3(nrm, t1, t2);
-  const float* dirs[3] = {nrm, t1, t2};
-  // the ball's columns: [(x - o) x dir; dir] . cdof, about its origin o
-  float Fb[3][6];
-  if constexpr (NBALL > 0) {
-    if (ball) {
-      const float rel[3] = {pos[0] - bl->o[0], pos[1] - bl->o[1],
-                            pos[2] - bl->o[2]};
-      for (int r = 0; r < 3; ++r) {
-        cross3(rel, dirs[r], Fb[r]);
-        for (int i = 0; i < 3; ++i) Fb[r][3 + i] = dirs[r][i];
-      }
-    }
+  for (int i = 0; i < 3; ++i) {
+    ct[kCDir + 3 + i] = t1[i];
+    ct[kCDir + 6 + i] = t2[i];
   }
-  int dof[R];
-  for (int e = 0; e < R; ++e) {
-    const int d = con_dof<NBLK, NBALL>(tb, ct, e);
-    dof[e] = d;
-    if (e < kBodyDofs) {
-      float J[3], W[3];
-      if (d >= 0) dof_basis(k, d, pos, J, W);
-      for (int r = 0; r < 3; ++r) ct.J[r][e] = d >= 0 ? dot3(J, dirs[r]) : 0.f;
-    } else if constexpr (NBALL > 0) {
-      // the ball's entries (a ball world has no blocks): + as the
-      // contact's first body, - as its second
-      for (int r = 0; r < 3; ++r) {
-        float x = 0.f;
-        if (d >= 0) {
-          x = dot6(Fb[r], bl->cdof[d - bl->va]);
-          if (ball < 0) x = -x;
-        }
-        ct.J[r][e] = x;
-      }
-    } else {
-      // the block is the contact's second body: a slide moves its box
-      // along its axis, so the row's entry is -dir[axis]
-      const int ax = d >= 0 ? (int)tb.wdof[(d - kNa) * kWdofCols] : 0;
-      for (int r = 0; r < 3; ++r) ct.J[r][e] = d >= 0 ? -dirs[r][ax] : 0.f;
-    }
-  }
-  const float r = dist - margin;
+}
+
+// An active contact's rows from its Jacobian J: the impedance constants,
+// A = J Minv J^T, aref - a0, R and the denominator (contact.py
+// contact_qfrc, row by row).  The slot's (mu, d0, dmax, width, tc, dampr)
+// are those of the sphere, of the sphere-block or sphere-ball pair, or of
+// the ball.
+template <int NBLK, int NBALL>
+__device__ void contact_rows(const Tables& tb, const float (*Minv)[kNa],
+                             const Ball* bl, const float* v,
+                             const float* qacc0, const int* dof,
+                             const float (*J)[Rows<NBLK, NBALL>::kR],
+                             float* ct) {
+  constexpr int R = Rows<NBLK, NBALL>::kR;
+  const float* par = tb.base + geti(ct, kCPar);
+  const float d0 = par[1], dmax = par[2], width = par[3];
+  const float tc = par[4], dampr = par[5];
+  const float r = ct[kCF] - ct[kCF + 1];  // dist - margin
   const float b_imp = 2.f / (dmax * tc);
   const float imp = d0 + (dmax - d0) * clampf(-r / width, 0.f, 1.f);
   const float k_imp = imp / (dmax * dmax * tc * tc * dampr * dampr);
   const float rfac = (1.f - imp) / fmaxf(imp, 1e-6f);
-#pragma unroll 1
+#pragma unroll
   for (int rr = 0; rr < 3; ++rr) {
-    const float* J = ct.J[rr];
     float A = 0.f, vr = 0.f, ar = 0.f;
+#pragma unroll
     for (int i = 0; i < R; ++i) {
       if (dof[i] < 0) continue;
+      // (J Minv)_i over the entries that M^-1 couples to entry i: the
+      // body's (the ant's block), the ball's (its block), or a slide's own
+      // (a diagonal); the other products are exact zeros, which leave the
+      // sum as it is
       float s = 0.f;
-      for (int j = 0; j < R; ++j)
-        if (dof[j] >= 0)
-          s = s + J[j] * minv_at<NBALL>(tb, Minv, bl, dof[j], dof[i]);
-      A = A + s * J[i];
-      vr = vr + J[i] * v[dof[i]];
-      ar = ar + J[i] * qacc0[dof[i]];
+      if (i < kBodyDofs) {
+#pragma unroll
+        for (int j = 0; j < kBodyDofs; ++j)
+          if (dof[j] >= 0) s = s + J[rr][j] * Minv[dof[j]][dof[i]];
+      } else if constexpr (NBALL > 0) {
+        constexpr int kBall = Rows<NBLK, NBALL>::kBall;
+        const int va = bl->va;
+#pragma unroll
+        for (int j = kBall; j < R; ++j)
+          if (dof[j] >= 0)
+            s = s + J[rr][j] * bl->Minv[dof[j] - va][dof[i] - va];
+      } else {
+        s = s + J[rr][i] * tb.wdof[(dof[i] - kNa) * kWdofCols + 6];
+      }
+      A = A + s * J[rr][i];
+      vr = vr + J[rr][i] * v[dof[i]];
+      ar = ar + J[rr][i] * qacc0[dof[i]];
     }
     const float aref = rr == 0 ? -b_imp * vr - k_imp * r : -b_imp * vr;
-    ct.rhs[rr] = aref - ar;
-    ct.rreg[rr] = rfac * A;
-    ct.denom[rr] = A + ct.rreg[rr] + 1e-9f;
+    const float reg = rfac * A;
+    ct[kCRhs + rr] = aref - ar;
+    ct[kCReg + rr] = reg;
+    ct[kCDen + rr] = A + reg + 1e-9f;
   }
 }
 
-// Friction-cone projection of one contact's (f_n, f_t1, f_t2).
-template <int R>
-__device__ __forceinline__ void project(Contact<R>& ct) {
-  const float fn = fmaxf(ct.f[0], 0.f);
-  const float ftn = sqrtf(ct.f[1] * ct.f[1] + ct.f[2] * ct.f[2] + 1e-12f);
-  const float scale = fminf(ct.mu * fn / ftn, 1.f);
-  ct.f[0] = fn;
-  ct.f[1] = ct.f[1] * scale;
-  ct.f[2] = ct.f[2] * scale;
+// Friction-cone projection of one contact's (f_n, f_t1, f_t2), in
+// registers.
+__device__ __forceinline__ void project(float mu, float* f) {
+  const float fn = fmaxf(f[0], 0.f);
+  const float ftn = sqrtf(f[1] * f[1] + f[2] * f[2] + 1e-12f);
+  const float scale = fminf(mu * fn / ftn, 1.f);
+  f[0] = fn;
+  f[1] = f[1] * scale;
+  f[2] = f[2] * scale;
 }
 
-// J^T f of one contact, added into x (nv).
-template <int NBLK, int NBALL, int R>
-__device__ __forceinline__ void add_jt_f(const Tables& tb,
-                                         const Contact<R>& ct, float* x) {
-  for (int e = 0; e < R; ++e) {
-    const int d = con_dof<NBLK, NBALL>(tb, ct, e);
-    if (d < 0) continue;
-    x[d] = x[d] + (ct.J[0][e] * ct.f[0] + ct.J[1][e] * ct.f[1] +
-                   ct.J[2][e] * ct.f[2]);
+// One Jacobi update of one contact from y = M^-1 J^T f: A f = J y, the
+// residual, the relaxed step and the projection.
+template <int NBLK, int NBALL>
+__device__ __forceinline__ void sweep_contact(
+    const AntParams& P, const int* dof,
+    const float (*J)[Rows<NBLK, NBALL>::kR], const float* y, float* ct) {
+  float af[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < Rows<NBLK, NBALL>::kR; ++e) {
+    if (dof[e] < 0) continue;
+    const float yd = y[dof[e]];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) af[r] = af[r] + J[r][e] * yd;
   }
+  float f[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float resid = ct[kCRhs + r] - af[r] - ct[kCReg + r] * ct[kCF + r];
+    f[r] = ct[kCF + r] + P.omega * resid / ct[kCDen + r];
+  }
+  project(ct[kCMu], f);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) ct[kCF + r] = f[r];
 }
 
-// The trace bits of one active contact (bit kind * n_sph + sphere): active,
-// centre inside its box, tangent frame off the x axis.
-__device__ __forceinline__ void mark(int* trace, int bit, bool inside,
-                                     const float* n) {
-  if (!trace) return;
-  const int w = bit >> 5;
-  const int m = (int)(1u << (bit & 31));
-  trace[w] |= m;
-  if (inside) trace[8 + w] |= m;
-  if (fabsf(n[0]) < 0.5f) trace[16 + w] |= m;
+// A contact's entries of J^T f written over its lane's row of T (nv
+// floats): +0 where the contact has no entry.
+template <int NV, int NBLK, int NBALL>
+__device__ __forceinline__ void jt_f_row(
+    const int* dof, const float (*J)[Rows<NBLK, NBALL>::kR], const float* ct,
+    int nv, float* row) {
+#pragma unroll
+  for (int d = 0; d < NV; ++d)
+    if (d < nv) row[d] = 0.f;
+  const float* f = ct + kCF;
+#pragma unroll
+  for (int e = 0; e < Rows<NBLK, NBALL>::kR; ++e)
+    if (dof[e] >= 0)
+      row[dof[e]] = J[0][e] * f[0] + J[1][e] * f[1] + J[2][e] * f[2];
 }
 
 // Contact detection, compacted active list and the projected-Jacobi
 // solve; adds the contact force into fcon.  bc holds each block's box
-// (center3, half3), bl the ball's tree.  Sets the trace bits of the
-// active contacts (``mark``; kind 0 the floor, 1-2 the first and second
-// static-box pick, 3 + b block b, bit kind * S + sphere; then, from
-// (3 + blocks) * S, the ball against the floor, its first and second box
-// pick, then each sphere against the ball) when trace is not null.
-// Returns the active count.
+// (center3, half3), bl the ball's tree.  Writes the trace's contact words
+// (kind 0 the floor, 1-2 the first and second static-box pick, 3 + b block
+// b, bit kind * S + sphere; then, from (3 + blocks) * S, the ball against
+// the floor, its first and second box pick, then each sphere against the
+// ball) when trace is not null.  Returns the active count.
 template <int W, int NBLK, int NBALL>
-__device__ int contact_force(const Tables& tb, const AntParams& P,
-                             const Kin& k, const float Minv[kNa][kNa],
-                             const Ball* bl, const float* v,
-                             const float* qacc0, const float (*bc)[6],
-                             float* fcon,
-                             Contact<Dims<W, NBLK, NBALL>::kRowDofs>* con,
-                             int* trace) {
-  constexpr int R = Dims<W, NBLK, NBALL>::kRowDofs;
+__device__ int contact_force_group(const Ctx& cx, const Tables& tb,
+                                   const AntParams& P, const Kin& k,
+                                   const float (*Minv)[kNa], const Ball* bl,
+                                   const float* v, const float* qacc0,
+                                   const float (*bc)[6], float* fcon,
+                                   float* x, float* y, float* con,
+                                   int* trace) {
   const int ns = kNa + P.n_w;
   const int nv = ns + 6 * NBALL;
+  const int S = P.n_sph, K = 3 + P.n_blk + P.n_ball;
+  const int n_slots = ant_slots(P);
+  int* list = reinterpret_cast<int*>(con + n_slots * kConStride);
+  ANT_PHASE_START
   // the static boxes within reach of the torso, as a bit set
   uint32_t near[kBoxWords];
-  for (int w = 0; w < kBoxWords; ++w) near[w] = 0u;
-#pragma unroll 1
-  for (int b = 0; b < P.n_box; ++b) {
-    const float* bx = tb.box + b * kBoxCols;
-    float d = 0.f;
-    for (int i = 0; i < 3; ++i) {
-      const float di = fmaxf(fabsf(k.p[0][i] - bx[i]) - bx[3 + i], 0.f);
-      d = d + di * di;
-    }
-    if (d <= P.reach2) near[b >> 5] |= 1u << (b & 31);
-  }
-  int nc = 0;
-  const int S = P.n_sph;
-  const int ball_bit = (3 + P.n_blk) * S;
-#pragma unroll 1
-  for (int s = 0; s < S; ++s) {
-    const float* sp = tb.sph + s * kSphCols;
-    const int body = (int)sp[0];
-    float c[3];
-    mat_vec3(k.R[body], sp + 1, c);
-    for (int i = 0; i < 3; ++i) c[i] = k.p[body][i] + c[i];
-    const float r = sp[4];
-    {  // floor plane z = 0
-      const float dist = c[2] - r;
-      if (dist < sp[6]) {
-        const float pos[3] = {c[0], c[1], c[2] - r};
-        const float up[3] = {0.f, 0.f, 1.f};
-        mark(trace, s, false, up);
-        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, sp + 7, body, -1,
-                                 0, pos, up, dist, sp[6], con[nc++]);
+#pragma unroll
+  for (int w = 0; w < kBoxWords; ++w) {
+    near[w] = 0u;
+#pragma unroll
+    for (int h = 0; h < 32; h += kLanes) {
+      const int b = 32 * w + h + cx.lane;
+      bool in = false;
+      if (b < P.n_box) {
+        const float* bx = tb.box + b * kBoxCols;
+        float d = 0.f;
+        for (int i = 0; i < 3; ++i) {
+          const float di = fmaxf(fabsf(k.p[0][i] - bx[i]) - bx[3 + i], 0.f);
+          d = d + di * di;
+        }
+        in = d <= P.reach2;
       }
-    }
-    // the two nearest boxes within reach
-    Nearest2 pick;
-#pragma unroll 1
-    for (int w = 0; w < kBoxWords; ++w) {
-      uint32_t m = near[w];
-#pragma unroll 1
-      while (m) {
-        const int b = (w << 5) + __ffs(m) - 1;
-        m &= m - 1u;
-        pick.test(c, r, tb.box + b * kBoxCols);
-      }
-    }
-    for (int j = 0; j < 2; ++j) {
-      const float margin = sp[5] + pick.m[j];
-      if (pick.d[j] < margin) {
-        mark(trace, (1 + j) * S + s, pick.in[j], pick.n[j]);
-        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, sp + 7, body, -1,
-                                 0, pick.p[j], pick.n[j], pick.d[j], margin,
-                                 con[nc++]);
-      }
-    }
-    // every movable block (the box frame is the world's: slides only)
-#pragma unroll 1
-    for (int b = 0; b < P.n_blk; ++b) {
-      const float* pr = tb.qpair + (b * S + s) * kPairCols;
-      float dist, pos[3], n[3];
-      bool inside;
-      sphere_box(c, r, bc[b], &dist, pos, n, &inside);
-      if (dist < pr[0]) {
-        mark(trace, (3 + b) * S + s, inside, n);
-        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, pr + 1, body, b,
-                                 0, pos, n, dist, pr[0], con[nc++]);
-      }
-    }
-    // the ball, the pair's second body: the normal from its centre to the
-    // sphere's, the point midway through the overlap
-    if constexpr (NBALL > 0) {
-      const float* pr = tb.bpair + s * kPairCols;
-      const float rb = tb.ball[2];
-      const float d[3] = {c[0] - bl->c[0], c[1] - bl->c[1], c[2] - bl->c[2]};
-      const float dn = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + 1e-12f);
-      const float n[3] = {d[0] / dn, d[1] / dn, d[2] / dn};
-      const float dist = dn - (r + rb);
-      if (dist < pr[0]) {
-        const float reach = rb + dist * 0.5f;
-        const float pos[3] = {bl->c[0] + n[0] * reach, bl->c[1] + n[1] * reach,
-                              bl->c[2] + n[2] * reach};
-        mark(trace, ball_bit + 3 + s, false, n);
-        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, pr + 1, body, -1,
-                                 -1, pos, n, dist, pr[0], con[nc++]);
-      }
+      near[w] |= gballot(cx, in) << h;
     }
   }
-  // the ball against the floor and the two nearest of all static boxes
+#pragma unroll 1
+  for (int s = cx.lane; s < S; s += kLanes)
+    detect_sphere<NBLK, NBALL>(tb, P, k, bl, bc, near, s, K, con);
   if constexpr (NBALL > 0) {
-    const float* br = tb.ball;
-    const float* c = bl->c;
-    const float rb = br[2];
-    const float dist = c[2] - rb;
-    if (dist < br[9]) {
-      const float pos[3] = {c[0], c[1], c[2] - rb};
-      const float up[3] = {0.f, 0.f, 1.f};
-      mark(trace, ball_bit, false, up);
-      add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, br + kBallPar, -1,
-                               -1, 1, pos, up, dist, br[9], con[nc++]);
-    }
-    Nearest2 pick;
+    if (cx.lane == 0) detect_ball(tb, P, bl, con + S * K * kConStride);
+  }
+  gsync(cx);
+  ANT_PHASE(kPhaseDetect)
+  // the active slots, in slot order
+  int nc = 0;
 #pragma unroll 1
-    for (int b = 0; b < P.n_box; ++b) pick.test(c, rb, tb.box + b * kBoxCols);
-    for (int j = 0; j < 2; ++j) {
-      const float margin = br[8] + pick.m[j];
-      if (pick.d[j] < margin) {
-        mark(trace, ball_bit + 1 + j, pick.in[j], pick.n[j]);
-        add_contact<NBLK, NBALL>(tb, k, Minv, bl, v, qacc0, br + kBallPar, -1,
-                                 -1, 1, pick.p[j], pick.n[j], pick.d[j],
-                                 margin, con[nc++]);
+  for (int base = 0; base < n_slots; base += kLanes) {
+    const int slot = base + cx.lane;
+    const bool act =
+        slot < n_slots && (geti(con + slot * kConStride, kCFlags) & 1);
+    const unsigned bal = gballot(cx, act);
+    if (act) list[nc + __popc(bal & ((1u << cx.lane) - 1u))] = slot;
+    nc += __popc(bal);
+  }
+  if (trace) {
+    // active, inside, tangent frame off the x axis: one ballot a word
+#pragma unroll 1
+    for (int w = 0; w < 8; ++w) {
+      unsigned words[3] = {0u, 0u, 0u};
+#pragma unroll
+      for (int h = 0; h < 32; h += kLanes) {
+        const int slot = bit_slot(P, 32 * w + h + cx.lane);
+        const float* ct = con + (slot < 0 ? 0 : slot) * kConStride;
+        const int fl = slot < 0 ? 0 : geti(ct, kCFlags);
+        const bool act = fl & 1;
+        words[0] |= gballot(cx, act) << h;
+        words[1] |= gballot(cx, act && (fl & 2)) << h;
+        words[2] |= gballot(cx, act && fabsf(ct[kCDir]) < 0.5f) << h;
+      }
+      if (cx.lane == 0) {
+        trace[w] = (int)words[0];
+        trace[8 + w] = (int)words[1];
+        trace[16 + w] = (int)words[2];
       }
     }
   }
+  gsync(cx);
+  ANT_PHASE(kPhaseCompact)
   if (nc == 0) return 0;
-  // projected Jacobi on (A + R) f = aref - a0, all rows in parallel
+  // the rows: lane c builds contact c's (c + kLanes, ...) and keeps its J
+  // and its entries' dofs in registers when nc <= kLanes, else recomputes
+  // them where it needs them; then its first Jacobi forces.  The ball
+  // worlds read the dofs again each time: their 14 would spill the
+  // rollout kernel's registers.
+  constexpr int R = Rows<NBLK, NBALL>::kR;
+  constexpr bool kRereadDofs = NBALL > 0;
+  const bool cached = nc <= kLanes;
+  int dof[R];
+  float J[3][R];
 #pragma unroll 1
-  for (int i = 0; i < nc; ++i) {
-    for (int r = 0; r < 3; ++r) con[i].f[r] = con[i].rhs[r] / con[i].denom[r];
-    project(con[i]);
+  for (int c = cx.lane; c < nc; c += kLanes) {
+    float* ct = con + list[c] * kConStride;
+    contact_frame(tb, ct);
+    con_dofs<NBLK, NBALL>(tb, ct, dof);
+    contact_jac<NBLK, NBALL>(tb, k, bl, ct, dof, J);
+    contact_rows<NBLK, NBALL>(tb, Minv, bl, v, qacc0, dof, J, ct);
+    float f[3];
+    for (int r = 0; r < 3; ++r) f[r] = ct[kCRhs + r] / ct[kCDen + r];
+    project(ct[kCMu], f);
+    for (int r = 0; r < 3; ++r) ct[kCF + r] = f[r];
   }
+  gsync(cx);
+  ANT_PHASE(kPhaseRows)
+  // projected Jacobi on (A + R) f = aref - a0, all rows in parallel: x =
+  // J^T f summed over the contacts in list order (each contact's lane
+  // writes its row of T, lane d adds up column d), y = M^-1 x, then each
+  // contact's update; the pass after the last sweep adds J^T f into fcon
+  float* T = con + n_slots * (kConStride + 1);
+  constexpr int kT = Group<W, NBLK, NBALL>::kNv + 1;
 #pragma unroll 1
-  for (int it = 0; it < P.solver_iters; ++it) {
-    float x[Dims<W, NBLK, NBALL>::kNv], y[Dims<W, NBLK, NBALL>::kNv];
-    for (int d = 0; d < nv; ++d) x[d] = 0.f;
-#pragma unroll 1
-    for (int i = 0; i < nc; ++i) add_jt_f<NBLK, NBALL>(tb, con[i], x);
-    minv_mul_all<NBALL>(tb, Minv, bl, ns, x, y);
-#pragma unroll 1
-    for (int i = 0; i < nc; ++i) {
-      Contact<R>& ct = con[i];
-      float af[3] = {0.f, 0.f, 0.f};
-      for (int e = 0; e < R; ++e) {
-        const int d = con_dof<NBLK, NBALL>(tb, ct, e);
-        if (d < 0) continue;
-        for (int r = 0; r < 3; ++r) af[r] = af[r] + ct.J[r][e] * y[d];
-      }
-      for (int r = 0; r < 3; ++r) {
-        const float resid = ct.rhs[r] - af[r] - ct.rreg[r] * ct.f[r];
-        ct.f[r] = ct.f[r] + P.omega * resid / ct.denom[r];
-      }
-      project(ct);
+  for (int it = 0;; ++it) {
+    const bool last = it == P.solver_iters;
+    float acc[kDofSlots];
+#pragma unroll
+    for (int j = 0; j < kDofSlots; ++j) {
+      const int d = cx.lane + j * kLanes;
+      acc[j] = last && d < nv ? fcon[d] : 0.f;
     }
-  }
 #pragma unroll 1
-  for (int i = 0; i < nc; ++i) add_jt_f<NBLK, NBALL>(tb, con[i], fcon);
+    for (int base = 0; base < nc; base += kLanes) {
+      const int c = base + cx.lane;
+      if (c < nc) {
+        const float* ct = con + list[c] * kConStride;
+        if (!cached || kRereadDofs) con_dofs<NBLK, NBALL>(tb, ct, dof);
+        if (!cached) contact_jac<NBLK, NBALL>(tb, k, bl, ct, dof, J);
+        jt_f_row<kT - 1, NBLK, NBALL>(dof, J, ct, nv, T + cx.lane * kT);
+      }
+      gsync(cx);
+      const int n = min(kLanes, nc - base);
+#pragma unroll
+      for (int j = 0; j < kDofSlots; ++j) {
+        const int d = cx.lane + j * kLanes;
+        if (d < nv) {
+#pragma unroll 4
+          for (int cc = 0; cc < n; ++cc) acc[j] = acc[j] + T[cc * kT + d];
+        }
+      }
+      if (base + kLanes < nc) gsync(cx);  // T read before the next chunk's
+    }
+#pragma unroll
+    for (int j = 0; j < kDofSlots; ++j) {
+      const int d = cx.lane + j * kLanes;
+      if (d < nv) (last ? fcon : x)[d] = acc[j];
+    }
+    if (last) break;
+    gsync(cx);
+    for (int d = cx.lane; d < nv; d += kLanes)
+      y[d] = minv_row<NBALL>(tb, Minv, bl, ns, x, d);
+    gsync(cx);
+#pragma unroll 1
+    for (int c = cx.lane; c < nc; c += kLanes) {
+      float* ct = con + list[c] * kConStride;
+      if (!cached || kRereadDofs) con_dofs<NBLK, NBALL>(tb, ct, dof);
+      if (!cached) contact_jac<NBLK, NBALL>(tb, k, bl, ct, dof, J);
+      sweep_contact<NBLK, NBALL>(P, dof, J, y, ct);
+    }
+    // a contact's forces are read next by its own lane; T and y are
+    // rewritten only after the barriers ahead
+  }
+  gsync(cx);
+  ANT_PHASE(kPhaseSweeps)
   return nc;
 }
 
@@ -1165,56 +1678,67 @@ __device__ __forceinline__ float limit_force(const AntParams& P, float qd,
 // and support forces).  Adds the active-contact count to *n_active; fills
 // this evaluation's trace words when trace is not null.
 template <int W, int NBLK, int NBALL>
-__device__ void forward(const Tables& tb, const AntParams& P, const float* q,
-                        const float* v, const float* ctrl, float* qacc,
-                        int* n_active, int* trace) {
-  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
+__device__ void forward_group(const Ctx& cx, const Tables& tb,
+                              const AntParams& P, Group<W, NBLK, NBALL>& G,
+                              float* region, const float* q, const float* v,
+                              float* qacc, int* n_active, int* trace) {
   const int ns = kNa + P.n_w;         // the ant's and the slides' dofs
   const int nv = ns + 6 * NBALL;
-  Kin k;
-  fk(tb, q, k);
-  float M[kNa][kNa], Minv[kNa][kNa];
-  mass_matrix(tb, k, M);
-  float bias[kNv], tau[kNv];
-  rne_bias(tb, P, k, v, bias);
-  for (int d = 0; d < kNv; ++d) tau[d] = 0.f;
-  for (int u = 0; u < kNu; ++u) {
-    const float* a = tb.act + u * kActCols;
-    const int d = (int)a[0];
-    tau[d] = tau[d] + a[1] * clampf(ctrl[u], a[2], a[3]);
-  }
-  for (int d = 0; d < kNa; ++d)
-    tau[d] = tau[d] - tb.dof[d * kDofCols + 1] * v[d];
-  // world dofs: gravity on the z slides (pure translation: no velocity
-  // products), no actuation or damping
-  for (int d = kNa; d < ns; ++d) {
-    const float* wr = tb.wdof + (d - kNa) * kWdofCols;
-    bias[d] = (int)wr[0] == 2 ? wr[1] * P.gravity : 0.f;
+  const Kin& k = G.k;
+  ANT_PHASE_START
+#ifdef MMT_ANT_PHASES
+  if (cx.lane == 0) atomicAdd(&g_ant_phases[kPhaseCount], 1ull);
+#endif
+  fk_group(cx, tb, q, G.k);
+  ANT_PHASE(kPhaseKinematics)
+  mass_matrix_group(cx, tb, k, G.Iw, G.M, region);
+  ANT_PHASE(kPhaseMassMatrix)
+  rne_bias_group(cx, tb, P, k, v, G.Iw, G.bias, region + kRecFloats);
+  for (int d = cx.lane; d < nv; d += kLanes) {
+    float s = 0.f;
+    if (d < kNa) {
+      for (int u = 0; u < kNu; ++u) {
+        const float* a = tb.act + u * kActCols;
+        if ((int)a[0] == d) s = s + a[1] * clampf(G.ctrl[u], a[2], a[3]);
+      }
+      s = s - tb.dof[d * kDofCols + 1] * v[d];
+    } else if (d < ns) {
+      // world dofs: gravity on the z slides (pure translation: no
+      // velocity products), no actuation or damping
+      const float* wr = tb.wdof + (d - kNa) * kWdofCols;
+      G.bias[d] = (int)wr[0] == 2 ? wr[1] * P.gravity : 0.f;
+    }
+    G.tau[d] = s;
   }
   // the ball's tree: its bias and its 6x6 block's inverse (no actuation,
   // damping or limits)
-  Ball ball;
   const Ball* bl = nullptr;
   if constexpr (NBALL > 0) {
-    ball_dynamics(tb, P, q, v, ball, bias);
-    bl = &ball;
+    ball_dynamics_group(cx, tb, P, q, v, G.ball.b, G.ball.M, G.bias);
+    bl = &G.ball.b;
   }
-  spd_inverse(M, Minv);
-  float rhs[kNv], qacc0[kNv], fcon[kNv];
-  for (int d = 0; d < nv; ++d) {
-    rhs[d] = tau[d] - bias[d];
-    fcon[d] = 0.f;
+  gsync(cx);
+  ANT_PHASE(kPhaseBias)
+  spd_inverse_group<kNa>(cx, G.M, G.Minv);
+  ANT_PHASE(kPhaseFactor)
+  for (int d = cx.lane; d < nv; d += kLanes) {
+    G.rhs[d] = G.tau[d] - G.bias[d];
+    G.fcon[d] = 0.f;
   }
-  minv_mul_all<NBALL>(tb, Minv, bl, ns, rhs, qacc0);
+  gsync(cx);
+  for (int d = cx.lane; d < nv; d += kLanes)
+    G.qacc0[d] = minv_row<NBALL>(tb, G.Minv, bl, ns, G.rhs, d);
+  gsync(cx);
+  ANT_PHASE(kPhaseQacc0)
   // joint limits: the hinges, then the limited slides
   uint32_t lim_bits = 0u;
-#pragma unroll 1
-  for (int d = 6; d < ns; ++d) {
+  for (int d = cx.lane; d < ns; d += kLanes) {
+    if (d < 6) continue;
     float m_eff, lo, hi;
     if (d < kNa) {
       const float* dr = tb.dof + d * kDofCols;
       if (dr[2] == 0.f) continue;
-      m_eff = 1.f / fmaxf(Minv[d][d], 1e-12f);
+      m_eff = 1.f / fmaxf(G.Minv[d][d], 1e-12f);
       lo = dr[3];
       hi = dr[4];
     } else {
@@ -1225,53 +1749,62 @@ __device__ void forward(const Tables& tb, const AntParams& P, const float* q,
       hi = wr[5];
     }
     bool on = false;
-    fcon[d] = fcon[d] + limit_force(P, q[d + 1], v[d], qacc0[d], m_eff, lo,
-                                    hi, &on);
+    G.fcon[d] = G.fcon[d] + limit_force(P, q[d + 1], v[d], G.qacc0[d], m_eff,
+                                        lo, hi, &on);
     if (on) lim_bits |= 1u << d;
   }
+  lim_bits = __reduce_or_sync(cx.mask, lim_bits);
   // the blocks' boxes
-  float bc[NBLK > 0 ? NBLK : 1][6];
-#pragma unroll 1
-  for (int b = 0; b < P.n_blk; ++b) {
+  for (int b = cx.lane; b < P.n_blk; b += kLanes) {
     const float* br = tb.blk + b * kBlkCols;
-    for (int i = 0; i < 6; ++i) bc[b][i] = br[i];
+    for (int i = 0; i < 6; ++i) G.bc[b][i] = br[i];
     for (int j = 0; j < (int)br[7]; ++j) {
       const int d = (int)br[6] + j;
       const int ax = (int)tb.wdof[(d - kNa) * kWdofCols];
-      bc[b][ax] = bc[b][ax] + q[d + 1];
+      G.bc[b][ax] = G.bc[b][ax] + q[d + 1];
     }
   }
-  if (trace)
-    for (int w = 0; w < kTraceWords; ++w) trace[w] = 0;
-  Contact<Dims<W, NBLK, NBALL>::kRowDofs> con[Dims<W, NBLK, NBALL>::kMaxCon];
-  *n_active += contact_force<W, NBLK, NBALL>(tb, P, k, Minv, bl, v, qacc0, bc,
-                                             fcon, con, trace);
-  if (trace) trace[kTraceWords - 1] = (int)lim_bits;
+  gsync(cx);
+  ANT_PHASE(kPhaseLimits)
+  *n_active += contact_force_group<W, NBLK, NBALL>(
+      cx, tb, P, k, G.Minv, bl, v, G.qacc0, G.bc, G.fcon, G.x, G.y, region,
+      trace);
+  ANT_PHASE_RESTART
   // falling blocks: the coupled support, against the highest platform top
   // the block's center overlaps (else the floor, z = 0)
-#pragma unroll 1
-  for (int b = 0; b < P.n_blk; ++b) {
-    const float* br = tb.blk + b * kBlkCols;
-    const int zd = (int)br[8];
-    if (zd < 0) continue;
-    // z as the engine reads it off the block's world origin
-    const float z = (br[2] + q[zd + 1]) - br[2];
-    const float bottom = br[2] + z - br[5];
-    float s = 0.f;
-    for (int pi = 0; pi < (int)br[10]; ++pi) {
-      const float* pl = tb.plat + ((int)br[9] + pi) * kPlatCols;
-      const bool over = fabsf(bc[b][0] - pl[0]) < pl[2] &&
-                        fabsf(bc[b][1] - pl[1]) < pl[3];
-      s = fmaxf(s, over ? pl[4] : 0.f);
+  if (cx.lane == 0) {
+    uint32_t word = lim_bits;
+    for (int b = 0; b < P.n_blk; ++b) {
+      const float* br = tb.blk + b * kBlkCols;
+      const int zd = (int)br[8];
+      if (zd < 0) continue;
+      // z as the engine reads it off the block's world origin
+      const float z = (br[2] + q[zd + 1]) - br[2];
+      const float bottom = br[2] + z - br[5];
+      float s = 0.f;
+      for (int pi = 0; pi < (int)br[10]; ++pi) {
+        const float* pl = tb.plat + ((int)br[9] + pi) * kPlatCols;
+        const bool over = fabsf(G.bc[b][0] - pl[0]) < pl[2] &&
+                          fabsf(G.bc[b][1] - pl[1]) < pl[3];
+        s = fmaxf(s, over ? pl[4] : 0.f);
+      }
+      const float w = tb.wdof[(zd - kNa) * kWdofCols + 6] + 1e-12f;
+      int rows;
+      G.fcon[zd] = G.fcon[zd] + falling_support(P, z, bottom, s, v[zd],
+                                                G.qacc0[zd], w, &rows);
+      word |= (uint32_t)rows << (24 + 2 * b);
     }
-    const float w = tb.wdof[(zd - kNa) * kWdofCols + 6] + 1e-12f;
-    int rows;
-    fcon[zd] = fcon[zd] + falling_support(P, z, bottom, s, v[zd], qacc0[zd],
-                                          w, &rows);
-    if (trace) trace[kTraceWords - 1] |= rows << (24 + 2 * b);
+    if (trace) trace[kTraceWords - 1] = (int)word;
   }
-  for (int d = 0; d < nv; ++d) rhs[d] = tau[d] + fcon[d] - bias[d];
-  minv_mul_all<NBALL>(tb, Minv, bl, ns, rhs, qacc);
+  gsync(cx);
+  ANT_PHASE(kPhaseSupport)
+  for (int d = cx.lane; d < nv; d += kLanes)
+    G.rhs[d] = G.tau[d] + G.fcon[d] - G.bias[d];
+  gsync(cx);
+  for (int d = cx.lane; d < nv; d += kLanes)
+    qacc[d] = minv_row<NBALL>(tb, G.Minv, bl, ns, G.rhs, d);
+  gsync(cx);
+  ANT_PHASE(kPhaseQacc)
 }
 
 // quat o exp(w h / 2), renormalised (the body-frame exponential of
@@ -1294,75 +1827,94 @@ __device__ __forceinline__ void quat_step(const float* q, const float* w,
 
 // q + v h with the free joints' body-frame exponential, the hinges and
 // slides linear (engine.integrate_pos): the torso, the ns - 6 hinge and
-// slide dofs, then the ball's free joint (its qpos after theirs).
+// slide dofs, then the ball's free joint (its qpos after theirs).  Lanes
+// over dofs; a free joint's first angular dof's lane turns its quaternion.
 template <int NBALL>
-__device__ void integrate(const float* q, const float* v, float h, int ns,
-                          float* out) {
-  for (int i = 0; i < 3; ++i) out[i] = q[i] + v[i] * h;
-  quat_step(q + 3, v + 3, h, out + 3);
-  for (int d = 6; d < ns; ++d) out[d + 1] = q[d + 1] + v[d] * h;
-  if constexpr (NBALL > 0) {
-    const int qa = ns + 1;
-    for (int i = 0; i < 3; ++i) out[qa + i] = q[qa + i] + v[ns + i] * h;
-    quat_step(q + qa + 3, v + ns + 3, h, out + qa + 3);
+__device__ void integrate_group(const Ctx& cx, const float* q, const float* v,
+                                float h, int ns, float* out) {
+  const int nv = ns + 6 * NBALL;
+  for (int d = cx.lane; d < nv; d += kLanes) {
+    if (d < 3) {
+      out[d] = q[d] + v[d] * h;
+    } else if (d == 3) {
+      quat_step(q + 3, v + 3, h, out + 3);
+    } else if (d >= 6 && d < ns) {
+      out[d + 1] = q[d + 1] + v[d] * h;
+    } else if (d >= ns) {
+      const int qa = ns + 1;
+      if (d < ns + 3)
+        out[qa + d - ns] = q[qa + d - ns] + v[d] * h;
+      else if (d == ns + 3)
+        quat_step(q + qa + 3, v + ns + 3, h, out + qa + 3);
+    }
   }
 }
 
-// One RK4 step (engine.rk4_step: the four stages in order).
+// One RK4 step (engine.rk4_step: the four stages in order) of the state
+// in G.q, G.v.
 template <int W, int NBLK, int NBALL>
-__device__ void rk4(const Tables& tb, const AntParams& P, float* q, float* v,
-                    const float* ctrl, int* n_active, int* trace) {
-  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
-  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
+__device__ void rk4_group(const Ctx& cx, const Tables& tb, const AntParams& P,
+                          Group<W, NBLK, NBALL>& G, float* region,
+                          int* n_active, int* trace) {
   const int ns = kNa + P.n_w;
   const int nv = ns + 6 * NBALL, nq = nv + 1 + NBALL;
-  float prev_v[kNv], prev_a[kNv], acc_v[kNv], acc_a[kNv];
-  for (int d = 0; d < nv; ++d) {
-    prev_v[d] = v[d];
-    prev_a[d] = 0.f;
-    acc_v[d] = 0.f;
-    acc_a[d] = 0.f;
+  for (int d = cx.lane; d < nv; d += kLanes) {
+    G.prev_v[d] = G.v[d];
+    G.prev_a[d] = 0.f;
+    G.acc_v[d] = 0.f;
+    G.acc_a[d] = 0.f;
   }
+  gsync(cx);
 #pragma unroll 1
   for (int st = 0; st < 4; ++st) {
     const float hs = st == 0 ? 0.f : (st == 3 ? P.h : P.h_half);
     const float w = (st == 0 || st == 3) ? 1.f : 2.f;
-    float qs[kNq], vs[kNv], as[kNv];
-    integrate<NBALL>(q, prev_v, hs, ns, qs);
-    for (int d = 0; d < nv; ++d) vs[d] = v[d] + prev_a[d] * hs;
-    forward<W, NBLK, NBALL>(tb, P, qs, vs, ctrl, as, n_active,
-                            trace ? trace + st * kTraceWords : nullptr);
-    for (int d = 0; d < nv; ++d) {
-      prev_v[d] = vs[d];
-      prev_a[d] = as[d];
-      acc_v[d] = acc_v[d] + w * vs[d];
-      acc_a[d] = acc_a[d] + w * as[d];
+    integrate_group<NBALL>(cx, G.q, G.prev_v, hs, ns, G.qs);
+    for (int d = cx.lane; d < nv; d += kLanes)
+      G.vs[d] = G.v[d] + G.prev_a[d] * hs;
+    gsync(cx);
+    forward_group<W, NBLK, NBALL>(cx, tb, P, G, region, G.qs, G.vs, G.as,
+                                  n_active,
+                                  trace ? trace + st * kTraceWords : nullptr);
+    for (int d = cx.lane; d < nv; d += kLanes) {
+      G.prev_v[d] = G.vs[d];
+      G.prev_a[d] = G.as[d];
+      G.acc_v[d] = G.acc_v[d] + w * G.vs[d];
+      G.acc_a[d] = G.acc_a[d] + w * G.as[d];
     }
+    gsync(cx);
   }
-  float vavg[kNv], qn[kNq];
-  for (int d = 0; d < nv; ++d) vavg[d] = acc_v[d] / 6.f;
-  integrate<NBALL>(q, vavg, P.h, ns, qn);
-  for (int i = 0; i < nq; ++i) q[i] = qn[i];
-  for (int d = 0; d < nv; ++d) v[d] = v[d] + (acc_a[d] / 6.f) * P.h;
+  // the average velocity (in prev_v, free now), then the step
+  for (int d = cx.lane; d < nv; d += kLanes) G.prev_v[d] = G.acc_v[d] / 6.f;
+  gsync(cx);
+  integrate_group<NBALL>(cx, G.q, G.prev_v, P.h, ns, G.qs);
+  gsync(cx);
+  for (int i = cx.lane; i < nq; i += kLanes) G.q[i] = G.qs[i];
+  for (int d = cx.lane; d < nv; d += kLanes)
+    G.v[d] = G.v[d] + (G.acc_a[d] / 6.f) * P.h;
+  gsync(cx);
 }
 
-// One Ant env step: frame_skip RK4 steps, then the inner reward and the
-// task heads on (x, y, z) of the torso, or of the first observed object
-// where the task observes it first (obs_offset 3): the first block's
-// center, or the ball's body origin.  t + 1; no reset.
+// One Ant env step of the state in G (G.ctrl the actions): frame_skip RK4
+// steps, then the inner reward and the task heads on (x, y, z) of the
+// torso, or of the first observed object where the task observes it first
+// (obs_offset 3): the first block's center, or the ball's body origin.
+// t + 1; no reset.  Every lane computes the heads, alike.
 template <int W, int NBLK, int NBALL>
-__device__ void ant_step(const Tables& tb, const AntParams& P, float* q,
-                         float* v, int* t, const float* ctrl, float* reward,
-                         bool* term, int* n_active, int* trace) {
-  const float x0 = q[0], y0 = q[1];
+__device__ void ant_step_group(const Ctx& cx, const Tables& tb,
+                               const AntParams& P, Group<W, NBLK, NBALL>& G,
+                               float* region, int* t, float* reward,
+                               bool* term, int* n_active, int* trace) {
+  const float x0 = G.q[0], y0 = G.q[1];
 #pragma unroll 1
   for (int fs = 0; fs < P.frame_skip; ++fs)
-    rk4<W, NBLK, NBALL>(tb, P, q, v, ctrl, n_active,
-                        trace ? trace + fs * 4 * kTraceWords : nullptr);
+    rk4_group<W, NBLK, NBALL>(cx, tb, P, G, region, n_active,
+                              trace ? trace + fs * 4 * kTraceWords : nullptr);
+  const float* q = G.q;
   const float vx = (q[0] - x0) / P.dt_outer, vy = (q[1] - y0) / P.dt_outer;
   const float fwd = sqrtf(vx * vx + vy * vy);
   float csq = 0.f;
-  for (int u = 0; u < kNu; ++u) csq = csq + ctrl[u] * ctrl[u];
+  for (int u = 0; u < kNu; ++u) csq = csq + G.ctrl[u] * G.ctrl[u];
   const float inner = fwd - P.ctrl_weight * csq;
   float hx = q[0], hy = q[1], hz = q[2];
   if (P.obs_offset == 3 && P.n_blk > 0) {
@@ -1407,15 +1959,26 @@ __device__ Tables stage_tables(float* smem, const float* tables,
   for (int i = threadIdx.x; i < P.n_floats; i += blockDim.x)
     smem[i] = tables[i];
   __syncthreads();
-  return Tables{smem + P.off_body,  smem + P.off_dof,   smem + P.off_act,
-                smem + P.off_sph,   smem + P.off_box,   smem + P.off_goal,
-                smem + P.off_qpos0, smem + P.off_wdof,  smem + P.off_blk,
-                smem + P.off_plat,  smem + P.off_qpair, smem + P.off_ball,
-                smem + P.off_bpair};
+  return Tables{smem,               smem + P.off_body,  smem + P.off_dof,
+                smem + P.off_act,   smem + P.off_sph,   smem + P.off_box,
+                smem + P.off_goal,  smem + P.off_qpos0, smem + P.off_wdof,
+                smem + P.off_blk,   smem + P.off_plat,  smem + P.off_qpair,
+                smem + P.off_ball,  smem + P.off_bpair};
+}
+
+// The group's state and contact region in the block's shared memory,
+// after the staged tables.
+template <int W, int NBLK, int NBALL>
+__device__ Group<W, NBLK, NBALL>& group_state(float* smem, const AntParams& P,
+                                              float** region) {
+  float* g = smem + round4(P.n_floats) +
+             (threadIdx.x / kLanes) * group_stride<W, NBLK, NBALL>(P);
+  *region = g + round4(group_floats<W, NBLK, NBALL>());
+  return *reinterpret_cast<Group<W, NBLK, NBALL>*>(g);
 }
 
 template <int W, int NBLK, int NBALL>
-__global__ void ant_step_kernel(
+__global__ void __launch_bounds__(kMaxThreads) ant_step_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
     int v_stride, int a_stride, float* __restrict__ qpos_out,
@@ -1423,35 +1986,43 @@ __global__ void ant_step_kernel(
     float* __restrict__ reward, bool* __restrict__ term,
     int* __restrict__ active_out, int* __restrict__ trace_out,
     const float* __restrict__ tables, AntParams P, int n) {
-  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
-  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
   extern __shared__ float smem[];
   const Tables tb = stage_tables(smem, tables, P);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int i = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
+  if (i >= n) return;  // the whole group: i is the group's env
+  const Ctx cx = make_ctx(tb);
+  float* region;
+  Group<W, NBLK, NBALL>& G = group_state<W, NBLK, NBALL>(smem, P, &region);
   const int nv = kNa + P.n_w + 6 * NBALL, nq = nv + 1 + NBALL;
-  float q[kNq], v[kNv], ctrl[kNu];
-  for (int j = 0; j < nq; ++j) q[j] = qpos[(size_t)i * q_stride + j];
-  for (int j = 0; j < nv; ++j) v[j] = qvel[(size_t)i * v_stride + j];
-  for (int j = 0; j < kNu; ++j) ctrl[j] = act[(size_t)i * a_stride + j];
+  for (int j = cx.lane; j < nq; j += kLanes)
+    G.q[j] = qpos[(size_t)i * q_stride + j];
+  for (int j = cx.lane; j < nv; j += kLanes)
+    G.v[j] = qvel[(size_t)i * v_stride + j];
+  for (int j = cx.lane; j < kNu; j += kLanes)
+    G.ctrl[j] = act[(size_t)i * a_stride + j];
+  gsync(cx);
   int t = t_in[i], n_active = 0;
   float rew;
   bool done;
   int* trace = trace_out ? trace_out + (size_t)i * P.frame_skip * 4 *
                                            kTraceWords
                          : nullptr;
-  ant_step<W, NBLK, NBALL>(tb, P, q, v, &t, ctrl, &rew, &done, &n_active,
-                           trace);
-  for (int j = 0; j < nq; ++j) qpos_out[(size_t)i * nq + j] = q[j];
-  for (int j = 0; j < nv; ++j) qvel_out[(size_t)i * nv + j] = v[j];
-  t_out[i] = t;
-  reward[i] = rew;
-  term[i] = done;
-  if (active_out) active_out[i] = n_active;
+  ant_step_group<W, NBLK, NBALL>(cx, tb, P, G, region, &t, &rew, &done,
+                                 &n_active, trace);
+  for (int j = cx.lane; j < nq; j += kLanes)
+    qpos_out[(size_t)i * nq + j] = G.q[j];
+  for (int j = cx.lane; j < nv; j += kLanes)
+    qvel_out[(size_t)i * nv + j] = G.v[j];
+  if (cx.lane == 0) {
+    t_out[i] = t;
+    reward[i] = rew;
+    term[i] = done;
+    if (active_out) active_out[i] = n_active;
+  }
 }
 
 template <int W, int NBLK, int NBALL>
-__global__ void ant_rollout_kernel(
+__global__ void __launch_bounds__(kMaxThreads) ant_rollout_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, int q_stride, int v_stride,
     float* __restrict__ qpos_out, float* __restrict__ qvel_out,
@@ -1459,30 +2030,37 @@ __global__ void ant_rollout_kernel(
     int* __restrict__ episodes, int* __restrict__ active_out,
     const float* __restrict__ tables, AntParams P, int n, int num_steps,
     uint32_t seed) {
-  constexpr int kNv = Dims<W, NBLK, NBALL>::kNv;
-  constexpr int kNq = Dims<W, NBLK, NBALL>::kNq;
   extern __shared__ float smem[];
   const Tables tb = stage_tables(smem, tables, P);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int i = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
+  if (i >= n) return;  // the whole group: i is the group's env
+  const Ctx cx = make_ctx(tb);
+  float* region;
+  Group<W, NBLK, NBALL>& G = group_state<W, NBLK, NBALL>(smem, P, &region);
   const int nv = kNa + P.n_w + 6 * NBALL, nq = nv + 1 + NBALL;
-  float q[kNq], v[kNv];
-  for (int j = 0; j < nq; ++j) q[j] = qpos[(size_t)i * q_stride + j];
-  for (int j = 0; j < nv; ++j) v[j] = qvel[(size_t)i * v_stride + j];
+  for (int j = cx.lane; j < nq; j += kLanes)
+    G.q[j] = qpos[(size_t)i * q_stride + j];
+  for (int j = cx.lane; j < nv; j += kLanes)
+    G.v[j] = qvel[(size_t)i * v_stride + j];
   int t = t_in[i], n_active = 0, eps = 0;
   float rew_sum = 0.f;
 #pragma unroll 1
   for (int s = 0; s < num_steps; ++s) {
     // words 0-7 (blocks 0, 1): ctrl ~ U(+-30)
-    const uint4 b0 = mmt::philox_block((uint32_t)i, (uint32_t)s, 0u, seed);
-    const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
-    const uint32_t cw[kNu] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-    float ctrl[kNu];
-    for (int u = 0; u < kNu; ++u) ctrl[u] = mmt::uniform24(cw[u], -30.f, 30.f);
+    if (cx.lane < 2) {
+      const uint4 b = mmt::philox_block((uint32_t)i, (uint32_t)s,
+                                        (uint32_t)cx.lane, seed);
+      float* c = G.ctrl + 4 * cx.lane;
+      c[0] = mmt::uniform24(b.x, -30.f, 30.f);
+      c[1] = mmt::uniform24(b.y, -30.f, 30.f);
+      c[2] = mmt::uniform24(b.z, -30.f, 30.f);
+      c[3] = mmt::uniform24(b.w, -30.f, 30.f);
+    }
+    gsync(cx);
     float rew;
     bool term;
-    ant_step<W, NBLK, NBALL>(tb, P, q, v, &t, ctrl, &rew, &term, &n_active,
-                             nullptr);
+    ant_step_group<W, NBLK, NBALL>(cx, tb, P, G, region, &t, &rew, &term,
+                                   &n_active, nullptr);
     rew_sum = rew_sum + rew;
     if (term || t >= P.episode_limit) {
       // words 8-51 (blocks 2-12): the ant's qpos0 + U(+-0.1) with the
@@ -1490,52 +2068,90 @@ __global__ void ant_rollout_kernel(
       // Box-Muller (lane_env.normal); the world dofs (slides, or the
       // ball's position and quaternion) go back to qpos0 at rest and draw
       // nothing
-      uint32_t w[44];
-      for (int b = 0; b < 11; ++b) {
+      uint32_t* w = G.words;
+      for (int b = cx.lane; b < 11; b += kLanes) {
         const uint4 bb = mmt::philox_block((uint32_t)i, (uint32_t)s,
                                            (uint32_t)(2 + b), seed);
         w[4 * b] = bb.x; w[4 * b + 1] = bb.y;
         w[4 * b + 2] = bb.z; w[4 * b + 3] = bb.w;
       }
-      for (int j = 0; j < kNa + 1; ++j)
-        q[j] = tb.qpos0[j] + mmt::uniform24(w[j], -0.1f, 0.1f);
-      const float qn = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5] +
-                             q[6] * q[6]);
-      for (int j = 3; j < 7; ++j) q[j] = q[j] / qn;
-      for (int d = 0; d < kNa; ++d) {
+      gsync(cx);
+      for (int j = cx.lane; j < kNa + 1; j += kLanes)
+        G.q[j] = tb.qpos0[j] + mmt::uniform24(w[j], -0.1f, 0.1f);
+      gsync(cx);
+      if (cx.lane == 0) {
+        float* q = G.q;
+        const float qn = sqrtf(q[3] * q[3] + q[4] * q[4] + q[5] * q[5] +
+                               q[6] * q[6]);
+        for (int j = 3; j < 7; ++j) q[j] = q[j] / qn;
+      }
+      for (int d = cx.lane; d < kNa; d += kLanes) {
         const float u1 = mmt::uniform24(w[15 + 2 * d], 1e-7f, 1.f);
         const float u2 = mmt::uniform24(w[16 + 2 * d], 0.f, 1.f);
         const float z = sqrtf(-2.f * logf(u1)) * cosf(6.2831854820251465f * u2);
-        v[d] = z * 0.1f;
+        G.v[d] = z * 0.1f;
       }
-      for (int j = kNa + 1; j < nq; ++j) q[j] = tb.qpos0[j];
-      for (int d = kNa; d < nv; ++d) v[d] = 0.f;
+      for (int j = kNa + 1 + cx.lane; j < nq; j += kLanes) G.q[j] = tb.qpos0[j];
+      for (int d = kNa + cx.lane; d < nv; d += kLanes) G.v[d] = 0.f;
       t = 0;
       eps = eps + 1;
     }
+    gsync(cx);
   }
-  for (int j = 0; j < nq; ++j) qpos_out[(size_t)i * nq + j] = q[j];
-  for (int j = 0; j < nv; ++j) qvel_out[(size_t)i * nv + j] = v[j];
-  t_out[i] = t;
-  reward_sum[i] = rew_sum;
-  episodes[i] = eps;
-  if (active_out) active_out[i] = n_active;
+  for (int j = cx.lane; j < nq; j += kLanes)
+    qpos_out[(size_t)i * nq + j] = G.q[j];
+  for (int j = cx.lane; j < nv; j += kLanes)
+    qvel_out[(size_t)i * nv + j] = G.v[j];
+  if (cx.lane == 0) {
+    t_out[i] = t;
+    reward_sum[i] = rew_sum;
+    episodes[i] = eps;
+    if (active_out) active_out[i] = n_active;
+  }
 }
 
 }  // namespace
 
-// Launchers of one instantiation: each launches on the given stream with
-// `block` threads per block and returns cudaGetLastError().
+// Dynamic shared memory of one launch: the staged tables, then `groups`
+// groups' state and contact regions.
+template <int W, int NBLK, int NBALL = 0>
+int ant_smem_bytes(const AntParams& p, int groups) {
+  static_assert(sizeof(Group<W, NBLK, NBALL>) ==
+                    sizeof(float) * group_floats<W, NBLK, NBALL>(),
+                "Group holds only 4-byte members");
+  return (int)sizeof(float) *
+         (round4(p.n_floats) + groups * group_stride<W, NBLK, NBALL>(p));
+}
+
+// Launchers of one instantiation: each launches `groups` envs a block (one
+// group of kLanes lanes each) on the given stream with `smem` bytes of
+// dynamic shared memory (refused unless it is ant_smem_bytes) and returns
+// cudaGetLastError().
+template <int W, int NBLK, int NBALL, typename Kernel>
+int prepare_ant_launch(Kernel kernel, const AntParams& p, int groups,
+                       int smem) {
+  if (groups < 1 || groups * kLanes > kMaxThreads ||
+      smem != ant_smem_bytes<W, NBLK, NBALL>(p, groups))
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return (int)cudaSuccess;
+}
+
 template <int W, int NBLK, int NBALL = 0>
 int launch_ant_step(const float* qpos, const float* qvel, const int* t,
                     const float* act, int q_stride, int v_stride,
                     int a_stride, float* qpos_out, float* qvel_out,
                     int* t_out, float* reward, bool* term, int* active_out,
                     int* trace_out, const float* tables, AntParams p, int n,
-                    int block, void* stream) {
+                    int groups, int smem, void* stream) {
+  const int rc = prepare_ant_launch<W, NBLK, NBALL>(
+      ant_step_kernel<W, NBLK, NBALL>, p, groups, smem);
+  if (rc != (int)cudaSuccess) return rc;
   if (n > 0) {
-    ant_step_kernel<W, NBLK, NBALL><<<(n + block - 1) / block, block,
-                                      sizeof(float) * (size_t)p.n_floats,
+    ant_step_kernel<W, NBLK, NBALL><<<(n + groups - 1) / groups,
+                                      groups * kLanes, smem,
                                       (cudaStream_t)stream>>>(
         qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
         t_out, reward, term, active_out, trace_out, tables, p, n);
@@ -1549,15 +2165,47 @@ int launch_ant_rollout(const float* qpos, const float* qvel, const int* t,
                        float* qvel_out, int* t_out, float* reward_sum,
                        int* episodes, int* active_out, const float* tables,
                        AntParams p, int n, int num_steps, unsigned int seed,
-                       int block, void* stream) {
+                       int groups, int smem, void* stream) {
+  const int rc = prepare_ant_launch<W, NBLK, NBALL>(
+      ant_rollout_kernel<W, NBLK, NBALL>, p, groups, smem);
+  if (rc != (int)cudaSuccess) return rc;
   if (n > 0) {
-    ant_rollout_kernel<W, NBLK, NBALL><<<(n + block - 1) / block, block,
-                                         sizeof(float) * (size_t)p.n_floats,
+    ant_rollout_kernel<W, NBLK, NBALL><<<(n + groups - 1) / groups,
+                                         groups * kLanes, smem,
                                          (cudaStream_t)stream>>>(
         qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
         reward_sum, episodes, active_out, tables, p, n, num_steps, seed);
   }
   return (int)cudaGetLastError();
+}
+
+// Blocks of `groups` envs that an SM holds at once with `smem` bytes of
+// dynamic shared memory (registers and shared memory both counted), for
+// the step (rollout = 0) or the rollout kernel; -1 on an error.
+template <int W, int NBLK, int NBALL = 0>
+int ant_blocks_per_sm(int groups, int smem, int rollout) {
+  int blocks = -1;
+  cudaError_t e;
+  if (rollout) {
+    e = smem > 48 * 1024 ? cudaFuncSetAttribute(
+                               ant_rollout_kernel<W, NBLK, NBALL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem)
+                         : cudaSuccess;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ant_rollout_kernel<W, NBLK, NBALL>, groups * kLanes, smem);
+  } else {
+    e = smem > 48 * 1024 ? cudaFuncSetAttribute(
+                               ant_step_kernel<W, NBLK, NBALL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem)
+                         : cudaSuccess;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ant_step_kernel<W, NBLK, NBALL>, groups * kLanes, smem);
+  }
+  return e == cudaSuccess ? blocks : -1;
 }
 
 // The block-world instantiation, compiled in ant_blocks.cu.
@@ -1568,15 +2216,17 @@ int launch_ant_blocks_step(const float* qpos, const float* qvel, const int* t,
                            int a_stride, float* qpos_out, float* qvel_out,
                            int* t_out, float* reward, bool* term,
                            int* active_out, int* trace_out,
-                           const float* tables, AntParams p, int n, int block,
-                           void* stream);
+                           const float* tables, AntParams p, int n,
+                           int groups, int smem, void* stream);
 int launch_ant_blocks_rollout(const float* qpos, const float* qvel,
                               const int* t, int q_stride, int v_stride,
                               float* qpos_out, float* qvel_out, int* t_out,
                               float* reward_sum, int* episodes,
                               int* active_out, const float* tables,
                               AntParams p, int n, int num_steps,
-                              unsigned int seed, int block, void* stream);
+                              unsigned int seed, int groups, int smem,
+                              void* stream);
+int ant_blocks_blocks_per_sm(int groups, int smem, int rollout);
 
 // The ball-world instantiation (one free object ball, no blocks or
 // slides), compiled in ant_balls.cu.
@@ -1586,12 +2236,14 @@ int launch_ant_balls_step(const float* qpos, const float* qvel, const int* t,
                           int a_stride, float* qpos_out, float* qvel_out,
                           int* t_out, float* reward, bool* term,
                           int* active_out, int* trace_out,
-                          const float* tables, AntParams p, int n, int block,
-                          void* stream);
+                          const float* tables, AntParams p, int n, int groups,
+                          int smem, void* stream);
 int launch_ant_balls_rollout(const float* qpos, const float* qvel,
                              const int* t, int q_stride, int v_stride,
                              float* qpos_out, float* qvel_out, int* t_out,
                              float* reward_sum, int* episodes,
                              int* active_out, const float* tables,
                              AntParams p, int n, int num_steps,
-                             unsigned int seed, int block, void* stream);
+                             unsigned int seed, int groups, int smem,
+                             void* stream);
+int ant_balls_blocks_per_sm(int groups, int smem, int rollout);

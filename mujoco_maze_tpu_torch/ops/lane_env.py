@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import _build
+from .ant_kernel import MAX_BLOCKS, MAX_WORLD_DOFS
 from .ant_kernel import NV as NV_ANT
 from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
                           ant_step_plain)
@@ -67,13 +68,26 @@ LAUNCHES: Dict[str, int] = {"point_step": 0, "point_rollout": 0,
                             "ant_balls_step": 0, "ant_balls_rollout": 0,
                             "swimmer_step": 0, "swimmer_rollout": 0,
                             "engine_step": 0, "fma_peak": 0}
-# Threads per block of the Ant kernels: one thread per env, and 4096 envs
-# in blocks of 32 spread over 128 of the H100's 132 SMs (PERF.md; a
-# wrapper's ``block`` attribute is what chip_smoke.py varies to measure it).
-ANT_BLOCK = 32
-# Threads per block of the generic engine kernel: one thread per env, and,
-# as for the Ant, 4096 envs in blocks of 32 spread over 128 of the H100's
-# 132 SMs (32, 64 and 128 timed alike once, PERF.md).
+# Lanes of the cooperative group that steps one Ant env (kLanes in
+# csrc/ant_lane.cuh): a full warp.
+ANT_LANES = 32
+# The Ant kernels' shared memory (csrc/ant_lane.cuh): the staged tables,
+# then per group its state (struct Group, ant_group_floats) and its
+# contact region: one slot of ANT_CON_STRIDE floats for each candidate
+# contact, the list of the active ones and a row of nv + 1 floats for each
+# lane (its contact's J^T f), or the scratch the region lends the mass
+# matrix and the RNE recursions where that is larger.
+ANT_CON_STRIDE = 29
+ANT_SCRATCH_FLOATS = 13 * 8 * 9 + 13 * 18
+ANT_MAX_GROUPS = 8          # kMaxThreads / ANT_LANES
+# The H100's shared memory: a block may use 227 KB; an SM holds 228 KB, of
+# which each resident block takes 1 KB for the system.
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_BLOCK_RESERVED = 1024
+# Threads per block of the generic engine kernel: one thread per env, and
+# 4096 envs in blocks of 32 spread over 128 of the H100's 132 SMs (32, 64
+# and 128 timed alike once, PERF.md).
 ENGINE_BLOCK = 32
 
 
@@ -388,14 +402,15 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
                                          # active contacts, trace (nullable)
-        _P, AntParams, _I, _I, _P]       # tables, params, B, block, stream
+        _P, AntParams, _I, _I, _I, _P]   # tables, params, B, groups a block,
+                                         # shared bytes, stream
     lib.mmt_ant_step.restype = _I
     lib.mmt_ant_rollout.argtypes = [
         _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
         _P, _P, _P, _P, _P, _P,          # qpos', qvel', t', reward sum,
                                          # episodes, active contacts (nullable)
-        _P, AntParams, _I, _I, ctypes.c_uint, _I, _P]
-        # tables, params, B, steps, seed, block, stream
+        _P, AntParams, _I, _I, ctypes.c_uint, _I, _I, _P]
+        # tables, params, B, steps, seed, groups a block, shared bytes, stream
     lib.mmt_ant_rollout.restype = _I
     lib.mmt_swimmer_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
@@ -422,6 +437,9 @@ def _lib() -> ctypes.CDLL:
     lib.mmt_ant_max_world_dofs.restype = _I
     lib.mmt_ant_max_blocks.restype = _I
     lib.mmt_ant_max_balls.restype = _I
+    lib.mmt_ant_lanes.restype = _I
+    lib.mmt_ant_blocks_per_sm.argtypes = [AntParams, _I, _I, _I]
+    lib.mmt_ant_blocks_per_sm.restype = _I
     return lib
 
 
@@ -615,23 +633,123 @@ def _ant_dims(ks: AntKernelSpec):
     return nv + 1 + ks.n_ball, nv
 
 
+@functools.lru_cache(maxsize=None)
+def _ant_caps() -> Dict[str, int]:
+    """The library's compile-time bounds of the Ant kernels, and the lanes
+    of a group, asked once."""
+    lib = _lib()
+    return {"world_dofs": lib.mmt_ant_max_world_dofs(),
+            "blocks": lib.mmt_ant_max_blocks(),
+            "balls": lib.mmt_ant_max_balls(), "lanes": lib.mmt_ant_lanes()}
+
+
 def _check_ant_bounds(ks: AntKernelSpec) -> None:
     """Refuse a world beyond the library's compile-time bounds: the block
     worlds' slides and blocks, or one ball in a world without them."""
-    lib = _lib()
-    if (ks.n_w > lib.mmt_ant_max_world_dofs()
-            or ks.n_blk > lib.mmt_ant_max_blocks()
-            or ks.n_ball > lib.mmt_ant_max_balls()
+    caps = _ant_caps()
+    if (ks.n_w > caps["world_dofs"] or ks.n_blk > caps["blocks"]
+            or ks.n_ball > caps["balls"]
             or ks.n_ball and (ks.n_w or ks.n_blk)):
         raise NotImplementedError(
             f"{ks.n_blk} blocks with {ks.n_w} world dofs and {ks.n_ball} "
             "balls exceed the Ant kernels' bounds")
+    if caps["lanes"] != ANT_LANES:
+        raise RuntimeError(f"the Ant kernels step an env with "
+                           f"{caps['lanes']} lanes, not {ANT_LANES}")
 
 
 def _ant_kernel_name(ks: AntKernelSpec, kind: str) -> str:
     """The ``LAUNCHES`` key of the instantiation that runs ``ks``."""
     world = "_balls" if ks.n_ball else "_blocks" if ks.n_w else ""
     return f"ant{world}_{kind}"
+
+
+def ant_group_floats(n_w: int, n_blk: int, n_ball: int) -> int:
+    """Floats of one group's state (``group_floats`` in
+    csrc/ant_lane.cuh) for an instantiation's maxima of world dofs, blocks
+    and balls: the poses and velocities, the RK4 stages, the force
+    vectors, the actuation, the body poses, M and M^-1, the world
+    inertias, the blocks' boxes, the ball's tree and block (or a stand-in)
+    and the rollout's reset words."""
+    nv = NV_ANT + n_w + 6 * n_ball
+    nq = nv + 1 + n_ball
+    kin = 13 * 9 + 2 * 13 * 3 + 2 * NV_ANT * 3
+    return (2 * nq + 14 * nv + 8 + kin + 2 * NV_ANT * NV_ANT + 13 * 9
+            + 6 * max(n_blk, 1) + (89 + 36 if n_ball else 1) + 44)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def ant_slots(ks: AntKernelSpec) -> int:
+    """Candidate contacts of ``ks``: each test sphere's floor, two static
+    box picks, blocks and ball, then the ball's floor and two box picks."""
+    return (ks.offsets["sph"][1] * (3 + ks.n_blk + ks.n_ball)
+            + 3 * ks.n_ball)
+
+
+class AntGeometry(NamedTuple):
+    """The launch of the Ant kernels on ``ks``."""
+
+    groups: int          # envs a block, one group of ANT_LANES lanes each
+    threads: int         # threads a block
+    smem_bytes: int      # dynamic shared memory a block
+    slots: int           # contact slots of a group
+    groups_per_sm: int   # groups an SM's shared memory holds at once
+
+
+def ant_geometry(ks: AntKernelSpec, groups: Optional[int] = None
+                 ) -> AntGeometry:
+    """The block shape of the Ant kernels on ``ks`` (``ant_smem_bytes`` in
+    csrc/ant_lane.cuh computes the same bytes and refuses any other):
+    ``groups`` envs a block, or by default the power of two up to
+    ANT_MAX_GROUPS that lets an SM's shared memory hold the most groups
+    (the fewest on ties: more blocks spread over more SMs)."""
+    w, nb = (MAX_WORLD_DOFS, MAX_BLOCKS) if ks.n_w else (0, 0)
+    slots = ant_slots(ks)
+    nv = NV_ANT + w + 6 * ks.n_ball
+    region = slots * (ANT_CON_STRIDE + 1) + ANT_LANES * (nv + 1)
+    per_group = (_round4(ant_group_floats(w, nb, ks.n_ball))
+                 + _round4(max(region, ANT_SCRATCH_FLOATS)))
+    tables = _round4(ks.packed.numel())
+
+    def shape(g: int) -> AntGeometry:
+        smem = 4 * (tables + g * per_group)
+        return AntGeometry(g, g * ANT_LANES, smem, slots,
+                           g * (SMEM_SM // (smem + SMEM_BLOCK_RESERVED)))
+
+    if groups is not None:
+        if not 1 <= groups <= ANT_MAX_GROUPS:
+            raise ValueError(f"groups must be in [1, {ANT_MAX_GROUPS}], "
+                             f"got {groups}")
+        geo = shape(groups)
+    else:
+        fits = [shape(g) for g in (1, 2, 4, 8, 16)
+                if g <= ANT_MAX_GROUPS and shape(g).smem_bytes <= SMEM_BLOCK_MAX]
+        geo = max(fits, key=lambda x: (x.groups_per_sm, -x.groups))
+    if geo.smem_bytes > SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"the Ant kernels need {geo.smem_bytes} bytes of shared memory "
+            f"a block at {geo.groups} groups, above {SMEM_BLOCK_MAX}")
+    return geo
+
+
+def ant_resident_warps(ks: AntKernelSpec) -> Dict[str, int]:
+    """Warps (envs) an SM holds at once for the Ant step and rollout
+    kernels at ``ant_geometry(ks)``, registers and shared memory counted
+    (CUDA's occupancy calculator on the built kernels; the card only)."""
+    geo = ant_geometry(ks)
+    lib, p = _lib(), ant_params(ks)
+    out = {}
+    for kind, rollout in (("step", 0), ("rollout", 1)):
+        blocks = lib.mmt_ant_blocks_per_sm(p, geo.groups, geo.smem_bytes,
+                                           rollout)
+        if blocks < 0:
+            raise RuntimeError(f"the occupancy query of the Ant {kind} "
+                               "kernel failed")
+        out[kind] = blocks * geo.groups
+    return out
 
 
 class AntStep:
@@ -648,7 +766,7 @@ class AntStep:
     def __init__(self, ks: AntKernelSpec, num_envs: int) -> None:
         self.ks = ks
         self.num_envs = num_envs
-        self.block = ANT_BLOCK
+        self.groups = ant_geometry(ks).groups   # envs a block
         self.params = ant_params(ks)
 
     def __call__(self, qpos, qvel, t, actions, count_active: bool = False,
@@ -667,6 +785,7 @@ class AntStep:
         if dev.type != "cuda":
             raise RuntimeError(f"no Ant step kernel for device {dev}")
         _check_ant_bounds(self.ks)
+        geo = ant_geometry(self.ks, self.groups)
         q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
         v_out = torch.empty((B, nv), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -683,8 +802,8 @@ class AntStep:
             reward.data_ptr(), term.data_ptr(),
             None if active is None else active.data_ptr(),
             None if tr is None else tr.data_ptr(),
-            self.ks.packed.data_ptr(), self.params, B, self.block,
-            torch.cuda.current_stream(dev).cuda_stream)
+            self.ks.packed.data_ptr(), self.params, B, geo.groups,
+            geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
         name = _ant_kernel_name(self.ks, "step")
         _raise_on(rc, name)
         LAUNCHES[name] += 1
@@ -706,7 +825,7 @@ class AntRollout:
         self.ks = ks
         self.num_envs = num_envs
         self.num_steps = num_steps
-        self.block = ANT_BLOCK
+        self.groups = ant_geometry(ks).groups   # envs a block
         self.params = ant_params(ks)
 
     def per_env(self, qpos, qvel, t, seed: int, count_active: bool = False):
@@ -729,6 +848,7 @@ class AntRollout:
         if dev.type != "cuda":
             raise RuntimeError(f"no Ant rollout kernel for device {dev}")
         _check_ant_bounds(self.ks)
+        geo = ant_geometry(self.ks, self.groups)
         q_out = torch.empty((B, nq), dtype=torch.float32, device=dev)
         v_out = torch.empty((B, nv), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -743,7 +863,8 @@ class AntRollout:
             rew.data_ptr(), eps.data_ptr(),
             None if active is None else active.data_ptr(),
             self.ks.packed.data_ptr(), self.params, B, self.num_steps, seed,
-            self.block, torch.cuda.current_stream(dev).cuda_stream)
+            geo.groups, geo.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
         name = _ant_kernel_name(self.ks, "rollout")
         _raise_on(rc, name)
         LAUNCHES[name] += 1

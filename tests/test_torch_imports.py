@@ -30,10 +30,16 @@ sys.modules["mujoco_maze_tpu"] = None
 """
 
 
+# A child process of these tests runs PyTorch with one intra-op thread, as
+# the test processes do (tests/_torch_threads.py): a pool of one thread per
+# core in each child competed with the other pytest workers for the cores.
+CHILD_ENV = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+
+
 def _run(code: str, cwd=REPO) -> subprocess.CompletedProcess:
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=120)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          env=CHILD_ENV, capture_output=True, text=True,
+                          timeout=120)
 
 
 def test_port_runs_without_jax_or_gymnasium():
@@ -139,8 +145,8 @@ import runpy, sys
 sys.argv = ["custom_robot", "--cpu"]
 runpy.run_module("mujoco_maze_tpu_torch.examples.custom_robot",
                  run_name="__main__")
-"""], cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
-        capture_output=True, text=True, timeout=300)
+"""], cwd=REPO, env=CHILD_ENV, capture_output=True, text=True,
+        timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "RollerUMaze: 64 envs on cpu through EngineStep" in proc.stdout
     assert "rollout: (100, 64, 7)" in proc.stdout

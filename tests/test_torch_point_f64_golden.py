@@ -225,7 +225,9 @@ loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
 print("LOADED", loaded, st.qpos.dtype, tuple(qs.qpos.shape),
       ks.quasi_table is not None)
 """
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    # the child with one PyTorch intra-op thread, as this process
+    # (tests/_torch_threads.py)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           cwd=os.path.dirname(os.path.dirname(
                               os.path.abspath(__file__))),
