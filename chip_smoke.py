@@ -120,9 +120,11 @@ Phases (each fails the run on its own; nothing is caught):
     the ball against the roller, against walls and in corners, spinning,
     or on the goal, and t spread over the episode, at phase 20's bounds
     and rule; the Ant model's AntSmallBilliard-v0 world for 8 steps with
-    legs on the ball, as phase 20 holds the Ant worlds; each with the
-    count of bit-exact env-steps and the mean active sphere-sphere pair
-    rows per forward evaluation;
+    legs on the ball, as phase 20 holds the Ant worlds; a Roller with 60
+    test spheres inside its own in the SmallBilliard task for 8 steps,
+    whose 247 candidate slots take the launch of one env a block of the
+    largest size class; each with the count of bit-exact env-steps and
+    the mean active sphere-sphere pair rows per forward evaluation;
 23. the ball-world main path: the Roller in the SmallBilliard task
     (``MazeEnvSpec`` then ``BatchedMazeEnv(spec, 4096)``) through the step
     API and ``rollout_metrics``, 1000 steps each with auto-reset, counted;
@@ -208,7 +210,16 @@ ptxas lines for them; ``python3 chip_smoke.py --point-parent-probe DIR``
 runs the Point kernels' plain-maze and object-solve modes of both and
 requires every output equal to the bit; ``python3 chip_smoke.py
 --ant-phases`` builds the Ant kernels with their phase counters and
-prints where a forward evaluation's SM cycles go on four Ant worlds.
+prints where a forward evaluation's SM cycles go on four Ant worlds;
+``python3 chip_smoke.py --engine-parent-probe DIR`` runs the generic
+engine kernel of the checkout at DIR and of this one on the same states
+of phases 20 and 22's worlds, holds each against the plain version at
+their rule, counts the outputs equal to the bit between the two, times
+both in turns (DIR, this, this, DIR) and prints both trees' ptxas lines
+for it; ``python3 chip_smoke.py --engine-phases`` builds the generic
+kernel with its phase counters and prints where a forward evaluation's
+SM cycles go on RollerUMaze, Roller · SmallBilliard and the AntUMaze-v0
+world.
 
 It needs one CUDA device and exits non-zero without one.  It imports
 torch, numpy and the port only: no JAX, no gymnasium, nothing of the JAX
@@ -2224,6 +2235,7 @@ CHECK_FLAG = "--engine-check"          # phase 20 on WORLD:SEED arguments
 CHECK_RESULT = "ENGINE_CHECK "
 ENGINE_RESULT = "ENGINE_RESULT "
 ROLLER_SCALE = 4.0                     # examples/custom_robot.py
+STUDS = 60                             # phase 22's studded roller
 # phases 22-23: free object balls through the generic kernel.  The Roller
 # in the SmallBilliard task at the task's own scaling for engine-world
 # robots (MAZE_SIZE_SCALING.ant): the ball one 2 m cell from the start.
@@ -2279,10 +2291,46 @@ def arm_roller_spec(device):
     return spec
 
 
+def studded_roller_spec(device):
+    """The Roller with STUDS test spheres inside its own, in the
+    SmallBilliard task at BALL_SCALE: 247 candidate contacts, within the
+    plain version's 256 but more than a block's shared memory holds for a
+    warp of its size class's groups (4 envs of 8 lanes), so that the
+    generic kernel's launch falls to one env a block of its largest class
+    (ops/lane_env.py engine_geometry).  The studs reach 0.25 m from the
+    centre, well inside the roller's 0.4 m: each is tested in every
+    forward evaluation and meets a wall or the ball only where the roller
+    sinks 0.15 m into it."""
+    import math
+
+    from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+    from mujoco_maze_tpu_torch.examples.custom_robot import RollerRobot
+    from mujoco_maze_tpu_torch.physics.model import Geom
+    from mujoco_maze_tpu_torch.tasks.library import GoalRewardSmallBilliard
+
+    class StuddedRoller(RollerRobot):
+        NAME = "StuddedRoller"
+
+        def build_bodies(self, torso_z: float = 0.75):
+            bodies, actuators = super().build_bodies(torso_z)
+            bodies[0].geoms.extend(
+                Geom(gtype=0, size=(0.05,),
+                     pos=(0.2 * math.cos(2 * math.pi * k / STUDS),
+                          0.2 * math.sin(2 * math.pi * k / STUDS), 0.0),
+                     contype=1, conaffinity=1, **self.WORLD_GEOM_DEFAULTS)
+                for k in range(STUDS))
+            return bodies, actuators
+
+    task = GoalRewardSmallBilliard
+    return MazeEnvSpec(StuddedRoller(), task, BALL_SCALE,
+                       inner_reward_scaling=task.INNER_REWARD_SCALING,
+                       device=device)
+
+
 def engine_spec(world: str, device):
     """The env spec of a phase-20 or phase-22 world: a Roller task (the
     SmallBilliard task at BALL_SCALE, the others at ROLLER_SCALE), an Ant
-    ID, or "Arm"."""
+    ID, "Arm" or "Studded"."""
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
     from mujoco_maze_tpu_torch.examples.custom_robot import RollerRobot
@@ -2290,6 +2338,8 @@ def engine_spec(world: str, device):
 
     if world == "Arm":
         return arm_roller_spec(device)
+    if world == "Studded":
+        return studded_roller_spec(device)
     if world.startswith("Ant"):
         return mmt.make_spec(world, device=device)
     task = getattr(library, world)
@@ -2626,6 +2676,100 @@ def engine_states(spec, world: str, seed: int):
 CHECK_READINGS: dict = {}   # the last engine_step_check's rounding readings
 
 
+def engine_compare(world: str, ks, ins, kern, plain, cpu_spec):
+    """One engine_step launch's outputs ``kern`` (with its active counts
+    and traces) against the plain version's ``plain`` on the card, from the
+    inputs ``ins`` = (q, v, t, a), at phase 20/22's rule: an env-step past
+    the bounds is recomputed by the plain version on the CPU (``cpu_spec()``
+    gives its spec), then passes at a knife edge (the two traces differ),
+    then by float32 rounding alone (rounding_ratio).  Returns the per-env
+    errors left ("qpos", "qvel", "reward", zero on blow-ups in both and on
+    exempted env-steps) and the tallies."""
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT, EnvState
+    from mujoco_maze_tpu_torch.ops import engine_kernel
+
+    q, v, t, a = ins
+    kq, kv, kt, kr, km = kern[:5]
+    ktr = kern[6]
+    pq, pv, pt, pr, pm = plain
+    tol = ENGINE_ANT_TOL if world.startswith("Ant") else ENGINE_TOL
+    n = q.shape[0]
+    blown_k = ~torch.isfinite(kq).all(1) | ~torch.isfinite(kv).all(1) | (
+        kv.abs().max(1).values > BLOWN_QVEL)
+    blown_p = ~torch.isfinite(pq).all(1) | ~torch.isfinite(pv).all(1) | (
+        pv.abs().max(1).values > BLOWN_QVEL)
+    ok = ~(blown_k | blown_p)
+    zero = torch.zeros(n, device=q.device)
+    eq = torch.where(ok, (kq - pq).abs().max(1).values, zero)
+    ev = torch.where(ok, (kv - pv).abs().max(1).values, zero)
+    er = torch.where(ok, (kr - pr).abs(), zero)
+    out = {"blow_mis": int((blown_k != blown_p).sum()),
+           "exact": int((ok & (eq == 0) & (ev == 0) & (er == 0)).sum()),
+           "cpu": 0, "knife": 0, "knife_notes": [], "rounding": 0,
+           "ratio": -math.inf}
+    over = torch.nonzero((eq > tol["qpos"]) | (ev > tol["qvel"])
+                         | (er > tol["reward"]))[:, 0]
+    if len(over):
+        # recompute those env-steps by the plain version on the CPU
+        cpu = engine_kernel.engine_step_plain(
+            cpu_spec(), *(x[over].cpu() for x in (q, v, t, a)))
+        cq, cv, cr = pq.clone(), pv.clone(), pr.clone()
+        cq[over], cv[over], cr[over] = (cpu[k].to(q.device) for k in (0, 1, 3))
+        still = ((kq[over] - cq[over]).abs().max(1).values > tol["qpos"]) | (
+            (kv[over] - cv[over]).abs().max(1).values > tol["qvel"]) | (
+            (kr[over] - cr[over]).abs() > tol["reward"])
+        out["cpu"] = int((~still).sum())
+        for x in (eq, ev, er):
+            x[over[~still]] = 0.0
+        rest = over[still]
+        if len(rest):
+            tr_p = engine_kernel.active_trace(ks, q[rest], v[rest], a[rest])
+            switch = (ktr[rest] != tr_p).flatten(1).any(dim=1)
+            knife = rest[switch]
+            out["knife"] = len(knife)
+            out["knife_notes"] = [
+                f"env {e}: qpos {float(eq[e]):.3g} qvel {float(ev[e]):.3g} "
+                f"reward {float(er[e]):.3g}" for e in knife[:2].tolist()]
+            for x in (eq, ev, er):
+                x[knife] = 0.0
+            rest = rest[~switch]
+        if len(rest):
+            # float32 rounding alone: each coordinate against its own
+            # float32 spread
+            out["ratio"] = rounding_ratio(
+                ks, (kq, kv, kr), (pq, pv, pr), (cq, cv, cr), q, v, t, a,
+                rest, tol)
+            out["rounding"] = len(rest)
+            for x in (eq, ev, er):
+                x[rest] = 0.0
+    edge = knife_edges(ks, EnvState(qpos=pq, qvel=pv, t=pt))
+    out.update(qpos=eq, qvel=ev, reward=er, t_mis=int((kt != pt).sum()),
+               term_mis=int(((km != pm) & ~edge & ok).sum()),
+               knife_mis=int(((km != pm) & edge & ok).sum()),
+               trunc=int((pt >= EPISODE_LIMIT).sum()))
+    return out
+
+
+def engine_passes(world: str, errs: dict, qv_q: float, tally: dict,
+                  n: int) -> bool:
+    """Phase 20/22's verdict on ``n`` env-steps: the largest errors left
+    ``errs`` within the bounds (the Ant worlds' qvel by its quantile
+    ``qv_q``), t exact, terminated exact but at goal knife edges, no
+    blow-up in one version only, knife edges in at most KNIFE_SHARE and
+    rounding alone in at most CONDITIONED_SHARE of the env-steps, within
+    ROUNDING_FACTOR of the float32 spread."""
+    ant = world.startswith("Ant")
+    tol = ENGINE_ANT_TOL if ant else ENGINE_TOL
+    ok = (errs["qpos"] <= tol["qpos"] and errs["reward"] <= tol["reward"]
+          and not tally["t_mis"] and not tally["term_mis"]
+          and not tally["blow_mis"] and tally["knife"] <= KNIFE_SHARE * n
+          and tally["rounding"] <= CONDITIONED_SHARE * n
+          and (not tally["rounding"] or tally["ratio"] <= ROUNDING_FACTOR))
+    if ant:
+        return ok and qv_q <= ANT_QVEL_TOL and errs["qvel"] < BLOWN_QVEL
+    return ok and errs["qvel"] <= tol["qvel"]
+
+
 def engine_step_check(world: str, seed: int, phase: str = "20"):
     """Phase 20 (or 22, the ball worlds) for one world: engine_step against
     engine_step_plain at B envs, teacher-forced (both start every step from
@@ -2633,38 +2777,45 @@ def engine_step_check(world: str, seed: int, phase: str = "20"):
     floor, against wall and block faces, the blocks at and beyond their
     travel limits, the Fall block perched, over the chasm and between, the
     ball against the robot, walls and corners, spinning, or on the goal,
-    with t spread over the episode.  Returns the max error."""
-    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT, EnvState
+    with t spread over the episode, each env-step held at engine_compare's
+    rule.  Returns the max error."""
     from mujoco_maze_tpu_torch.ops import engine_kernel, lane_env
 
     ant = world.startswith("Ant")
     tol = ENGINE_ANT_TOL if ant else ENGINE_TOL
-    steps = ENGINE_ANT_STEPS if ant or world == "Arm" else ENGINE_STEPS
+    steps = (ENGINE_ANT_STEPS if ant or world in ("Arm", "Studded")
+             else ENGINE_STEPS)
     spec = engine_spec(world, "cuda")
     ks = engine_kernel.spec_from_env(spec)
     kstep = lane_env.EngineStep(ks, B)
-    ks_cpu = None
+    cpu_ks = []
+
+    def cpu_spec():
+        if not cpu_ks:
+            cpu_ks.append(engine_kernel.spec_from_env(engine_spec(world, "cpu")))
+        return cpu_ks[0]
+
     q, v, t = engine_states(spec, world, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     lo, hi = (float(x[0]) for x in spec.robot.action_bounds())
     nw = (ks.n_cand + 31) // 32
     errs = {"qpos": 0.0, "qvel": 0.0, "reward": 0.0}
     qv_all = []
-    exact = t_mis = term_mis = knife_mis = knife_steps = cpu_steps = 0
-    blow_mis = trunc = noise_steps = 0
-    worst_ratio = -math.inf
+    tally = {k: 0 for k in ("exact", "t_mis", "term_mis", "knife_mis",
+                            "knife", "cpu", "blow_mis", "trunc", "rounding")}
+    tally["ratio"] = -math.inf
+    knife_notes = []
     active = pair_rows = 0
     n_spair = ks.offsets["spair"][1]
     cover = {k: torch.zeros(B, dtype=torch.bool, device="cuda")
              for k in ("floor", "wall", "ball", "block", "limit",
                        "platform row")}
-    knife_notes = []
     for it in range(steps):
         a = (lo + (hi - lo) * torch.rand(B, ks.nu, generator=gen,
                                          device="cuda")).contiguous()
-        kq, kv, kt, kr, km, ka, ktr = kstep(q, v, t, a, count_active=True,
-                                            trace=True)
-        pq, pv, pt, pr, pm = engine_kernel.engine_step_plain(ks, q, v, t, a)
+        kern = kstep(q, v, t, a, count_active=True, trace=True)
+        ka, ktr = kern[5], kern[6]
+        plain = engine_kernel.engine_step_plain(ks, q, v, t, a)
         words = ktr.to(torch.int64) & 0xFFFFFFFF
         act_bits = words[:, :, :nw]
         bit = lambda i: ((act_bits[:, :, i // 32] >> (i % 32)) & 1).any(dim=1)
@@ -2686,73 +2837,19 @@ def engine_step_check(world: str, seed: int, phase: str = "20"):
         sup = (last >> 24) & 3
         cover["platform row"] |= ((sup == 1) | (sup == 3)).any(dim=1)
         active += int(ka.sum())
-        blown_k = ~torch.isfinite(kq).all(1) | ~torch.isfinite(kv).all(1) | (
-            kv.abs().max(1).values > BLOWN_QVEL)
-        blown_p = ~torch.isfinite(pq).all(1) | ~torch.isfinite(pv).all(1) | (
-            pv.abs().max(1).values > BLOWN_QVEL)
-        blow_mis += int((blown_k != blown_p).sum())
-        ok = ~(blown_k | blown_p)
-        zero = torch.zeros(B, device="cuda")
-        eq = torch.where(ok, (kq - pq).abs().max(1).values, zero)
-        ev = torch.where(ok, (kv - pv).abs().max(1).values, zero)
-        er = torch.where(ok, (kr - pr).abs(), zero)
-        exact += int((ok & (eq == 0) & (ev == 0) & (er == 0)).sum())
-        over = torch.nonzero((eq > tol["qpos"]) | (ev > tol["qvel"])
-                             | (er > tol["reward"]))[:, 0]
-        if len(over):
-            # recompute those env-steps by the plain version on the CPU
-            if ks_cpu is None:
-                ks_cpu = engine_kernel.spec_from_env(engine_spec(world, "cpu"))
-            cpu = engine_kernel.engine_step_plain(
-                ks_cpu, *(x[over].cpu() for x in (q, v, t, a)))
-            cq, cv, cr = pq.clone(), pv.clone(), pr.clone()
-            cq[over], cv[over], cr[over] = (cpu[k].cuda() for k in (0, 1, 3))
-            still = ((kq[over] - cq[over]).abs().max(1).values > tol["qpos"]) | (
-                (kv[over] - cv[over]).abs().max(1).values > tol["qvel"]) | (
-                (kr[over] - cr[over]).abs() > tol["reward"])
-            cpu_steps += int((~still).sum())
-            eq[over[~still]] = 0.0
-            ev[over[~still]] = 0.0
-            er[over[~still]] = 0.0
-            rest = over[still]
-            if len(rest):
-                tr_p = engine_kernel.active_trace(ks, q[rest], v[rest], a[rest])
-                switch = (ktr[rest] != tr_p).flatten(1).any(dim=1)
-                knife = rest[switch]
-                knife_steps += len(knife)
-                for e in knife[:2].tolist():
-                    knife_notes.append(
-                        f"step {it} env {e}: qpos {float(eq[e]):.3g} qvel "
-                        f"{float(ev[e]):.3g} reward {float(er[e]):.3g}")
-                eq[knife] = 0.0
-                ev[knife] = 0.0
-                er[knife] = 0.0
-                rest = rest[~switch]
-            if len(rest):
-                # float32 rounding alone: each coordinate against its own
-                # float32 spread
-                worst_ratio = max(worst_ratio, rounding_ratio(
-                    ks, (kq, kv, kr), (pq, pv, pr), (cq, cv, cr), q, v, t, a,
-                    rest, tol))
-                noise_steps += len(rest)
-                eq[rest] = 0.0
-                ev[rest] = 0.0
-                er[rest] = 0.0
-        errs["qpos"] = max(errs["qpos"], float(eq.max()))
-        errs["reward"] = max(errs["reward"], float(er.max()))
+        res = engine_compare(world, ks, (q, v, t, a), kern, plain, cpu_spec)
+        for k in tally:
+            tally[k] = (max(tally[k], res[k]) if k == "ratio"
+                        else tally[k] + res[k])
+        knife_notes += [f"step {it} {x}" for x in res["knife_notes"]]
+        for k in ("qpos", "reward") + (() if ant else ("qvel",)):
+            errs[k] = max(errs[k], float(res[k].max()))
         if ant:
-            qv_all.append(ev)
-        else:
-            errs["qvel"] = max(errs["qvel"], float(ev.max()))
-        t_mis += int((kt != pt).sum())
-        edge = knife_edges(ks, EnvState(qpos=pq, qvel=pv, t=pt))
-        term_mis += int(((km != pm) & ~edge & ok).sum())
-        knife_mis += int(((km != pm) & edge & ok).sum())
-        trunc += int((pt >= EPISODE_LIMIT).sum())
-        q, v, t = pq, pv, pt
+            qv_all.append(res["qvel"])
+        q, v, t = plain[0], plain[1], plain[2]
     n = steps * B
     cov = {k: int(x.sum()) for k, x in cover.items()}
-    qv_note = ""
+    qv_note, qv_q = "", 0.0
     if ant:
         qv = torch.cat(qv_all)
         errs["qvel"] = float(qv.max())
@@ -2760,41 +2857,37 @@ def engine_step_check(world: str, seed: int, phase: str = "20"):
         qv_note = (f"; qvel {100 * ANT_QVEL_QUANTILE:g}th percentile "
                    f"{qv_q:.3g} (tol {ANT_QVEL_TOL})")
     # the env-steps that float32 rounding alone puts beyond the bounds
-    noise_ok = (noise_steps <= CONDITIONED_SHARE * n
-                and worst_ratio <= ROUNDING_FACTOR)
-    noise_note = (f"beyond the bounds by float32 rounding alone {noise_steps} "
-                  f"(tol {int(CONDITIONED_SHARE * n)})")
-    if noise_steps:
+    noise_note = (f"beyond the bounds by float32 rounding alone "
+                  f"{tally['rounding']} (tol {int(CONDITIONED_SHARE * n)})")
+    if tally["rounding"]:
         noise_note += (f", their largest (|kernel - float64| - bound) / "
-                       f"float32 spread {worst_ratio:.4g} (tol "
+                       f"float32 spread {tally['ratio']:.4g} (tol "
                        f"{ROUNDING_FACTOR:g})")
-    CHECK_READINGS.update(world=world, seed=seed, rounding_steps=noise_steps,
-                          rounding_ratio=worst_ratio if noise_steps else None,
-                          cpu_steps=cpu_steps, knife_steps=knife_steps,
-                          max_err=dict(errs), exact_steps=exact,
-                          pair_rows_per_eval=pair_rows / (n * 4 * ks.frame_skip))
+    CHECK_READINGS.update(
+        world=world, seed=seed, rounding_steps=tally["rounding"],
+        rounding_ratio=tally["ratio"] if tally["rounding"] else None,
+        cpu_steps=tally["cpu"], knife_steps=tally["knife"],
+        max_err=dict(errs), exact_steps=tally["exact"],
+        pair_rows_per_eval=pair_rows / (n * 4 * ks.frame_skip))
+    knife_notes = knife_notes[:2]
     log(f"phase {phase}: {world} engine_step vs plain, {steps} teacher-forced "
         f"steps x {B} envs: max |err| qpos {errs['qpos']:.3g} qvel "
         f"{errs['qvel']:.3g} reward {errs['reward']:.3g} (tol {tol}){qv_note}; "
-        f"bit-exact env-steps {exact} of {n}; beyond the bounds on the card "
-        f"but within them against the plain version on the CPU {cpu_steps}; "
-        f"at a knife edge (a switch in one version only) {knife_steps} (tol "
-        f"{int(KNIFE_SHARE * n)}){': ' + '; '.join(knife_notes) if knife_notes else ''}; "
-        f"t mismatches {t_mis} (tol 0), terminated {term_mis} (tol 0) and "
-        f"{knife_mis} at goal-threshold knife edges; {noise_note}; "
-        f"env-steps past t = 1000 "
-        f"{trunc}; blown up in one version only {blow_mis} (tol 0); envs "
-        f"seen {cov}; active contacts per env-step {active / n:.4g}"
+        f"bit-exact env-steps {tally['exact']} of {n}; beyond the bounds on "
+        f"the card but within them against the plain version on the CPU "
+        f"{tally['cpu']}; at a knife edge (a switch in one version only) "
+        f"{tally['knife']} (tol {int(KNIFE_SHARE * n)})"
+        f"{': ' + '; '.join(knife_notes) if knife_notes else ''}; "
+        f"t mismatches {tally['t_mis']} (tol 0), terminated "
+        f"{tally['term_mis']} (tol 0) and {tally['knife_mis']} at "
+        f"goal-threshold knife edges; {noise_note}; env-steps past t = 1000 "
+        f"{tally['trunc']}; blown up in one version only {tally['blow_mis']} "
+        f"(tol 0); envs seen {cov}; active contacts per env-step "
+        f"{active / n:.4g}"
         + (f"; active sphere-sphere pair rows per forward evaluation "
-           f"{pair_rows / (n * 4 * ks.frame_skip):.4g}" if n_spair else ""))
-    bad = (not errs["qpos"] <= tol["qpos"] or not errs["reward"] <= tol["reward"]
-           or t_mis or term_mis or blow_mis or knife_steps > KNIFE_SHARE * n
-           or not noise_ok)
-    if ant:
-        bad = bad or not qv_q <= ANT_QVEL_TOL or not errs["qvel"] < BLOWN_QVEL
-    else:
-        bad = bad or not errs["qvel"] <= tol["qvel"]
-    if bad:
+           f"{pair_rows / (n * 4 * ks.frame_skip):.4g}" if n_spair else "")
+        + f"; {ks.n_cand} candidates, launch {engine_launch(ks)}")
+    if not engine_passes(world, errs, qv_q, tally, n):
         raise SystemExit(f"engine_step disagrees with its plain version on {world}")
     # the robot stands on the floor, or on the elevated floor's boxes
     need = {"wall": 1}
@@ -2805,7 +2898,7 @@ def engine_step_check(world: str, seed: int, phase: str = "20"):
         need["ball"] = 1
     if spec._falling_support:
         need["platform row"] = 1
-    if any(cov[k] < m for k, m in need.items()) or trunc == 0:
+    if any(cov[k] < m for k, m in need.items()) or tally["trunc"] == 0:
         raise SystemExit(f"{world}: expected the floor, walls, the ball, blocks, "
                          "limits, the Fall block's platform and truncations")
     return max(errs["qpos"], errs["reward"],
@@ -2947,6 +3040,18 @@ def engine_idle_share(env, run, phase: str, name: str,
                              / max(sum(n for _, n in kern), 1) / 1e3)
 
 
+def engine_launch(ks) -> dict:
+    """engine_step's launch on ``ks`` (size class, lanes an env, envs a
+    block, shared bytes) and the warps an SM holds at it (CUDA's occupancy
+    calculator)."""
+    from mujoco_maze_tpu_torch.ops import lane_env
+
+    geo = lane_env.engine_geometry(ks)
+    return {"class": geo.cls, "lanes": geo.lanes, "groups": geo.groups,
+            "smem_bytes": geo.smem_bytes,
+            "warps_per_sm": lane_env.engine_resident_warps(ks, geo)}
+
+
 def engine_main_path():
     """Phase 21: the main path, make_roller_umaze(B) through the public step
     API and rollout_metrics (1000 steps each, from the same seeds, with
@@ -3033,17 +3138,18 @@ def engine_main_path():
     dev, n_prof = device_ms(prof, "engine_step_kernel")
     flops = engine_step_flops(ks, tr)
     b = bound(B * engine_bytes(ks) + 4 * ks.packed.numel(), B * flops)
+    shape = engine_launch(ks)
     log(f"phase 21: RollerUMaze engine_step {ms:.6g} ms/launch, {dev:.6g} ms "
         f"on the device ({n_prof} profiled), plain {ms_plain:.6g} ms; bound "
         f"{b[0]:.3g} ms by {b[1]} ({flops:.6g} fp32 operations per env-step at "
         f"{per_eval:.4g} active contacts per forward evaluation, on the "
         f"data sheet's {FP32_FLOP_S:.3g} FLOP/s; the measured peak's bound "
-        f"follows phase 16); kernel/bound {ms / b[0]:.4g}x")
+        f"follows phase 16); kernel/bound {ms / b[0]:.4g}x; launch {shape}")
     out["step"] = {"name": "engine_step", "launches": run["launches"],
                    "ms": ms, "device_ms": dev, "plain_ms": ms_plain,
                    "bound_ms": b[0], "bound_by": b[1],
                    "fp32_ops_per_env_step": flops,
-                   "active_contacts_per_eval": per_eval}
+                   "active_contacts_per_eval": per_eval, "launch": shape}
 
     ant_env = mmt.make_batched("AntUMaze-v0", B)
     ant_st, ant_obs = ant_env.reset(7)
@@ -3072,17 +3178,19 @@ def engine_main_path():
         gks, ant_st.qpos, ant_st.qvel, ant_st.t, ant_act), 1)
     g_flops = engine_step_flops(gks, g_tr)
     gb = bound(B * engine_bytes(gks) + 4 * gks.packed.numel(), B * g_flops)
+    g_shape = engine_launch(gks)
     log(f"phase 21: AntUMaze-v0 world: engine_step {ms_g:.6g} ms/launch, "
         f"{dev_g:.6g} ms on the device, plain {ms_gp:.6g} ms, bound "
         f"{gb[0]:.3g} ms by {gb[1]} ({g_flops:.6g} fp32 operations per env-step "
         f"at {ant_per_eval:.4g} active contacts per forward evaluation); the "
         f"Ant kernel on the same state {ms_a:.6g} ms/launch, {dev_a:.6g} ms "
         f"on the device: the topology-specific kernel is "
-        f"{ms_g / ms_a:.3g}x faster")
+        f"{ms_g / ms_a:.3g}x faster; launch {g_shape}")
     out["step"]["ant_world"] = {"id": "AntUMaze-v0", "ms": ms_g,
                                 "device_ms": dev_g, "plain_ms": ms_gp,
                                 "bound_ms": gb[0], "bound_by": gb[1],
-                                "ant_step_ms": ms_a, "ant_step_device_ms": dev_a}
+                                "ant_step_ms": ms_a, "ant_step_device_ms": dev_a,
+                                "launch": g_shape}
     return out
 
 
@@ -3251,16 +3359,17 @@ def ball_main_path():
         dev = device_ms_events(lambda: kstep(*args), 5)
         flops = engine_step_flops(ks, tr)
         b = bound(B * engine_bytes(ks) + 4 * ks.packed.numel(), B * flops)
+        shape = engine_launch(ks)
         log(f"phase 23: {name}: engine_step {ms:.6g} ms/launch, {dev:.6g} ms "
             f"on the device (CUDA events around single launches), plain "
             f"{ms_plain:.6g} ms; bound {b[0]:.3g} ms by "
             f"{b[1]} ({flops:.6g} fp32 operations per env-step at "
             f"{per_eval:.4g} active contacts per forward evaluation); "
-            f"kernel/bound {ms / b[0]:.4g}x")
+            f"kernel/bound {ms / b[0]:.4g}x; launch {shape}")
         out["roller" if name.startswith("Roller") else "ant_world"] = {
             "ms": ms, "device_ms": dev, "plain_ms": ms_plain, "bound_ms": b[0],
             "bound_by": b[1], "fp32_ops_per_env_step": flops,
-            "active_contacts_per_eval": per_eval}
+            "active_contacts_per_eval": per_eval, "launch": shape}
     return out
 
 
@@ -3588,7 +3697,8 @@ def engine_phases() -> int:
     err = max(engine_step_check(w, 101 + k) for k, w in enumerate(worlds))
     out = engine_main_path()
     err = max([err] + [engine_step_check(w, 131 + k, phase="22")
-                       for k, w in enumerate((BALL_WORLD, BALL_ANT_ID))])
+                       for k, w in enumerate((BALL_WORLD, BALL_ANT_ID,
+                                              "Studded"))])
     out["ball"] = ball_main_path()
     out["step"]["max_abs_err"] = err
     print(ENGINE_RESULT + json.dumps(out), flush=True)
@@ -3703,6 +3813,293 @@ def engine_faults() -> int:
         ok = ok and rc != 0
     print(json.dumps(result), flush=True)
     return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# the generic engine kernel of this tree against another tree's on one
+# card: both held to the plain version at phase 20/22's rule, timed in turns
+# ---------------------------------------------------------------------------
+ENGINE_PROBE_FLAG = "--engine-parent-probe"     # PARENT_DIR
+ENGINE_PROBE_OUT_FLAG = "--engine-probe-out"    # IN OUT [--time]
+ENGINE_PROBE_WORLDS = ENGINE_WORLDS + (BALL_WORLD, "Arm") + ENGINE_ANT_IDS + (
+    BALL_ANT_ID, "Studded")
+ENGINE_PROBE_REPS = 20
+ENGINE_PROBE_SEED = 5
+
+
+def engine_probe_inputs(path: str) -> None:
+    """The probe's inputs on ENGINE_PROBE_WORLDS at B envs, saved to
+    ``path``: phase 20/22's start states (``engine_states``) and uniform
+    actions within the robot's bounds, from ENGINE_PROBE_SEED."""
+    import numpy as np
+
+    out = {}
+    for world in ENGINE_PROBE_WORLDS:
+        spec = engine_spec(world, "cuda")
+        q, v, t = (x.cpu().numpy() for x in engine_states(
+            spec, world, ENGINE_PROBE_SEED))
+        lo, hi = (float(x[0]) for x in spec.robot.action_bounds())
+        a = np.random.RandomState(ENGINE_PROBE_SEED).uniform(
+            lo, hi, (B, spec.robot.action_dim)).astype(np.float32)
+        for k, x in (("q", q), ("v", v), ("t", t), ("a", a)):
+            out[f"{world}/{k}"] = x
+    np.savez(path, **out)
+
+
+def ptxas_lines(kernel: str) -> str:
+    """What ``ptxas -v`` says of the kernels whose name holds ``kernel``."""
+    from mujoco_maze_tpu_torch.ops import _build
+
+    keep, on = [], False
+    for ln in _build.ptxas_report().splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+            if on:
+                keep.append(ln.strip())
+        elif on and ("Used" in ln or "stack frame" in ln):
+            keep.append(ln.strip())
+    return "\n".join(keep)
+
+
+def engine_probe_outputs(args) -> int:
+    """``--engine-probe-out IN OUT [--time]``, run from the probed tree:
+    every output of one engine_step launch (with its active counts and
+    traces) on the inputs at IN, saved to OUT; with ``--time``, each
+    world's step times instead (CUDA events over back-to-back launches,
+    and around single launches for the device time), the launch shape and
+    what ``ptxas -v`` says of the engine kernels."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.ops import _build, engine_kernel, lane_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    ins = np.load(args[0])
+    timed = "--time" in args
+    out = {}
+    for world in ENGINE_PROBE_WORLDS:
+        ks = engine_kernel.spec_from_env(engine_spec(world, "cuda"))
+        kstep = lane_env.EngineStep(ks, B)
+        x = [torch.as_tensor(ins[f"{world}/{k}"], device="cuda")
+             for k in ("q", "v", "t", "a")]
+        if not timed:
+            for i, y in enumerate(kstep(*x, count_active=True, trace=True)):
+                out[f"{world}/{i}"] = y.cpu().numpy()
+            continue
+        kstep(*x)
+        nums = {"step_ms": cuda_ms(lambda: kstep(*x), ENGINE_PROBE_REPS),
+                "step_device_ms": device_ms_events(lambda: kstep(*x), 5)}
+        if hasattr(lane_env, "engine_geometry"):
+            geo = lane_env.engine_geometry(ks)
+            nums.update(geo._asdict(), warps_per_sm=(
+                lane_env.engine_resident_warps(ks, geo)))
+        out[f"{world}/times"] = np.asarray(json.dumps(nums))
+    if timed:
+        out["ptxas"] = np.asarray(ptxas_lines("engine_step_kernel"))
+    np.savez(args[1], **out)
+    return 0
+
+
+def engine_parent_probe(args) -> int:
+    """``python3 chip_smoke.py --engine-parent-probe PARENT_DIR``: the
+    generic engine kernel of the tree at PARENT_DIR (a checkout with its own
+    ``mujoco_maze_tpu_torch``) and of this one, each built from its own
+    sources and run in a process of its own, on the same inputs
+    (``engine_probe_inputs``): each tree's step held against the plain
+    version at phase 20/22's rule (``engine_compare``, ``engine_passes``),
+    the outputs equal to the bit between the two counted; then both trees'
+    kernel timed in turns, parent, this, this, parent, and the ptxas lines
+    of both trees' engine kernels.  Prints one ``ENGINE_PROBE {json}``
+    line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.ops import engine_kernel
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    parent = os.path.abspath(args[0])
+    work = tempfile.mkdtemp()
+    copy = os.path.join(parent, "_probe_chip_smoke.py")
+    shutil.copy(__file__, copy)
+    inputs = os.path.join(work, "inputs.npz")
+    engine_probe_inputs(inputs)
+    ins = np.load(inputs)
+    trees = {"parent": copy, "this": os.path.abspath(__file__)}
+    got, times = {}, {"parent": [], "this": []}
+    for k, tree in enumerate(("parent", "this", "this", "parent")):
+        for timed in ((False, True) if k < 2 else (True,)):
+            path = os.path.join(work, f"{tree}{k}{int(timed)}.npz")
+            script = trees[tree]
+            subprocess.run([sys.executable, script, ENGINE_PROBE_OUT_FLAG,
+                            inputs, path] + (["--time"] if timed else []),
+                           check=True, cwd=os.path.dirname(script))
+            res = np.load(path)
+            if timed:
+                times[tree].append(res)
+            else:
+                got[tree] = res
+    os.remove(copy)
+    ok, result = True, {"worlds": {}}
+    for world in ENGINE_PROBE_WORLDS:
+        ks = engine_kernel.spec_from_env(engine_spec(world, "cuda"))
+        cpu_ks = []
+
+        def cpu_spec():
+            if not cpu_ks:
+                cpu_ks.append(engine_kernel.spec_from_env(
+                    engine_spec(world, "cpu")))
+            return cpu_ks[0]
+
+        x = tuple(torch.as_tensor(ins[f"{world}/{k}"], device="cuda")
+                  for k in ("q", "v", "t", "a"))
+        plain = engine_kernel.engine_step_plain(ks, *x)
+        outs = {tree: [torch.as_tensor(got[tree][f"{world}/{i}"],
+                                       device="cuda") for i in range(7)]
+                for tree in got}
+        entry = {}
+        for tree in ("parent", "this"):
+            res = engine_compare(world, ks, x, outs[tree], plain, cpu_spec)
+            errs = {k: float(res[k].max()) for k in ("qpos", "qvel", "reward")}
+            qv_q = float(torch.quantile(res["qvel"], ANT_QVEL_QUANTILE))
+            passed = engine_passes(world, errs, qv_q, res, B)
+            ok = ok and passed
+            entry[f"{tree} vs plain"] = {
+                "passed": passed, **errs, "qvel_quantile": qv_q,
+                **{k: res[k] for k in ("exact", "cpu", "knife", "rounding",
+                                       "t_mis", "term_mis", "blow_mis")},
+                "ratio": res["ratio"] if res["rounding"] else None}
+        entry["outputs equal to the bit, this vs parent"] = sum(
+            bool(np.array_equal(got["parent"][f"{world}/{i}"],
+                                got["this"][f"{world}/{i}"], equal_nan=True))
+            for i in range(7))
+        entry["envs equal to the bit, this vs parent"] = int(
+            ((outs["this"][0] == outs["parent"][0]).all(1)
+             & (outs["this"][1] == outs["parent"][1]).all(1)
+             & (outs["this"][3] == outs["parent"][3])).sum())
+        entry["active contacts of the step"] = int(outs["this"][5].sum())
+        for tree in ("parent", "this"):
+            runs = [json.loads(str(r[f"{world}/times"])) for r in times[tree]]
+            entry[f"{tree} times"] = {k: [r[k] for r in runs] for k in runs[0]}
+        p_ms = np.mean(entry["parent times"]["step_device_ms"])
+        t_ms = np.mean(entry["this times"]["step_device_ms"])
+        entry["step device ms parent / this"] = float(p_ms / t_ms)
+        log(f"engine probe: {world}: " + json.dumps(entry))
+        result["worlds"][world] = entry
+    for tree in ("parent", "this"):
+        result[f"{tree} ptxas"] = str(times[tree][0]["ptxas"]).splitlines()
+        log(f"engine probe: {tree} tree's engine kernels, ptxas -v:\n  "
+            + "\n  ".join(result[f"{tree} ptxas"]))
+    result["passed"] = ok
+    result["device"] = torch.cuda.get_device_name(0)
+    result["nvidia_smi"] = nvidia_smi()
+    shutil.rmtree(work, ignore_errors=True)
+    print("ENGINE_PROBE " + json.dumps(result), flush=True)
+    return 0 if ok else 1
+
+
+# ---------------------------------------------------------------------------
+# where a generic forward evaluation's time goes: the phase counters of a
+# profiling build of the generic engine kernel
+# ---------------------------------------------------------------------------
+ENGINE_PHASES_FLAG = "--engine-phases"
+ENGINE_PHASES = ("kinematics", "mass matrix", "bias", "factor and inverse",
+                 "limits and support", "detection", "rows", "sweeps",
+                 "qacc", "integration")   # enum EnginePhase
+ENGINE_CLASS_NAMES = ("small", "mid", "large")
+
+
+def engine_phases_run() -> int:
+    """``python3 chip_smoke.py --engine-phases``: the generic engine kernel
+    built with its phase counters (``-DMMT_ENGINE_PHASES``, into a library
+    of its own: the name hashes the flags) on RollerUMaze, Roller ·
+    SmallBilliard and the AntUMaze-v0 world at B envs, on the main path's
+    state (three public-API steps from reset; the Ant world's through the
+    Ant kernel) and on phase 20/22's contact-rich states: the step's ms
+    per launch with the counters on, and per forward evaluation the SM
+    cycles (clock64) of each phase in lane 0 of each group, the mean over
+    every group and evaluation of five launches (the RK4 updates and
+    integration around the evaluations counted per evaluation).  Prints
+    one ``ENGINE_PHASES {json}`` line."""
+    import ctypes
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.batched import BatchedMazeEnv
+    from mujoco_maze_tpu_torch.examples.custom_robot import make_roller_umaze
+    from mujoco_maze_tpu_torch.ops import _build, engine_kernel, lane_env
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DMMT_ENGINE_PHASES",)
+    t0 = time.perf_counter()
+    lib = lane_env._lib()
+    log(f"engine phases: built {_build.library_path().name} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = (ctypes.c_ulonglong * (len(ENGINE_PHASES) + 1))()
+    out = {"device": torch.cuda.get_device_name(0),
+           "nvidia_smi": nvidia_smi(), "worlds": {}}
+    for name, world, make in (
+            ("RollerUMaze", "GoalRewardUMaze", lambda: make_roller_umaze(B)),
+            (f"Roller x {BALL_WORLD}", BALL_WORLD,
+             lambda: BatchedMazeEnv(engine_spec(BALL_WORLD, "cuda"), B)),
+            ("AntUMaze-v0 world", "AntUMaze-v0",
+             lambda: mmt.make_batched("AntUMaze-v0", B))):
+        env = make()
+        spec = env.spec
+        ks = engine_kernel.spec_from_env(spec)
+        kstep = lane_env.EngineStep(ks, B)
+        geo = lane_env.engine_geometry(ks)
+        read = getattr(lib, f"mmt_engine_{ENGINE_CLASS_NAMES[geo.cls]}_phases")
+        read.argtypes = [ctypes.c_void_p]
+        policy = env.random_policy()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        st, obs = env.reset(5)
+        for _ in range(3):
+            res = env.step(st, policy(obs, gen))
+            st, obs = res.state, res.obs
+        q, v, t = engine_states(spec, world, 5)
+        lo, hi = (float(x[0]) for x in spec.robot.action_bounds())
+        act = (lo + (hi - lo) * torch.rand(B, ks.nu, generator=gen,
+                                           device="cuda")).contiguous()
+        rows = {}
+        for where, args in (("main path state", (st.qpos, st.qvel, st.t,
+                                                 policy(obs, gen))),
+                            ("contact-rich states", (q, v, t, act))):
+            kstep(*args)
+            torch.cuda.synchronize()
+            if read(None):
+                raise SystemExit("the phase counters could not be zeroed")
+            ms = cuda_ms(lambda: kstep(*args), 5)
+            if read(ctypes.addressof(counters)):
+                raise SystemExit("the phase counters could not be read")
+            n = counters[len(ENGINE_PHASES)]
+            cycles = {k: counters[i] / n for i, k in enumerate(ENGINE_PHASES)}
+            active = int(kstep(*args, count_active=True)[5].sum())
+            rows[where] = {"ms": ms, "forward_evaluations": n,
+                           "cycles_per_evaluation": sum(cycles.values()),
+                           "active_contacts_per_evaluation":
+                               active / (B * 4 * ks.frame_skip),
+                           "cycles": cycles, "lanes": geo.lanes,
+                           "groups": geo.groups}
+            log(f"engine phases: {name} on the {where}: {ms:.6g} ms/launch "
+                f"with the counters on ({geo.lanes} lanes an env, "
+                f"{geo.groups} envs a block); {sum(cycles.values()):.6g} SM "
+                f"cycles a forward evaluation in lane 0 of a group at "
+                f"{rows[where]['active_contacts_per_evaluation']:.4g} active "
+                f"contacts: " + ", ".join(f"{k} {x:.5g}"
+                                         for k, x in cycles.items()))
+        out["worlds"][name] = rows
+    print("ENGINE_PHASES " + json.dumps(out), flush=True)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -5390,6 +5787,8 @@ def main() -> int:
         "source": "mujoco_maze_tpu_torch/csrc/engine_lane.cu",
         "replaces": "mujoco_maze_tpu/ops/engine_pallas.py:190",
         "device_code": "mujoco_maze_tpu_torch/csrc/engine_lane.cuh",
+        "size_classes": "mujoco_maze_tpu_torch/csrc/engine_lane.cu, "
+                        "engine_mid.cu, engine_large.cu",
         "library_ms": None,
         "worlds": "custom USES_WORLD_ENGINE robots (examples/custom_robot.py),"
                   " with free object balls",
@@ -5431,6 +5830,11 @@ if __name__ == "__main__":
              else registry_sweep(ARGS) if ARGS[:1] == [SWEEP_FLAG]
              else ant_parent_probe(ARGS[1:]) if ARGS[:1] == [PROBE_FLAG]
              else ant_phases() if ARGS[:1] == [PHASES_FLAG]
+             else engine_parent_probe(ARGS[1:])
+             if ARGS[:1] == [ENGINE_PROBE_FLAG]
+             else engine_probe_outputs(ARGS[1:])
+             if ARGS[:1] == [ENGINE_PROBE_OUT_FLAG]
+             else engine_phases_run() if ARGS[:1] == [ENGINE_PHASES_FLAG]
              else probe_outputs(ARGS[1:]) if ARGS[:1] == [PROBE_OUT_FLAG]
              else point_parent_probe(ARGS[1:])
              if ARGS[:1] == [POINT_PROBE_FLAG]

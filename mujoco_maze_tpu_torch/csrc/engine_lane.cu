@@ -1,78 +1,68 @@
 // The generic engine step kernel (custom robots through the extension
-// API) and its C entry point: engine_lane.cuh holds the per-env device
-// code and says what it computes and what bounds it.
-
-#include <cuda_runtime.h>
+// API): the smallest size class's instantiations and the C entry points.
+// engine_lane.cuh holds the device code and says what it computes and what
+// bounds it; engine_mid.cu and engine_large.cu instantiate the other two
+// classes.
 
 #include "engine_lane.cuh"
 
+// The smallest class (kSmallNv dofs, kSmallNb bodies): 8 lanes an env.
+ENGINE_CLASS_DISPATCH(engine_small_step, mmt_eng::kSmallNv, mmt_eng::kSmallNb,
+                      8)
+
 namespace {
 
-__global__ void engine_step_kernel(
-    const float* __restrict__ qpos, const float* __restrict__ qvel,
-    const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
-    int v_stride, int a_stride, float* __restrict__ qpos_out,
-    float* __restrict__ qvel_out, int* __restrict__ t_out,
-    float* __restrict__ reward, bool* __restrict__ term,
-    int* __restrict__ active_out, int* __restrict__ trace_out,
-    float* __restrict__ scratch, const float* __restrict__ tables,
-    EngineParams P, int n) {
-  using namespace mmt_eng;
-  extern __shared__ float smem[];
-  for (int i = threadIdx.x; i < P.n_floats; i += blockDim.x)
-    smem[i] = tables[i];
-  __syncthreads();
-  const Tables tb = tables_at(smem, P);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float q[kMaxNq], v[kMaxNv], ctrl[kMaxNu];
-  for (int j = 0; j < P.nq; ++j) q[j] = qpos[(size_t)i * q_stride + j];
-  for (int j = 0; j < P.nv; ++j) v[j] = qvel[(size_t)i * v_stride + j];
-  for (int j = 0; j < P.nu; ++j) ctrl[j] = act[(size_t)i * a_stride + j];
-  int t = t_in[i], n_active = 0;
-  float rew;
-  bool done;
-  int* trace = trace_out ? trace_out + (size_t)i * P.frame_skip * 4 *
-                                           P.trace_words
-                         : nullptr;
-  const Scratch S{scratch, (int64_t)n, i, P.row_floats};
-  engine_step(tb, P, q, v, &t, ctrl, &rew, &done, S, &n_active, trace);
-  for (int j = 0; j < P.nq; ++j) qpos_out[(size_t)i * P.nq + j] = q[j];
-  for (int j = 0; j < P.nv; ++j) qvel_out[(size_t)i * P.nv + j] = v[j];
-  t_out[i] = t;
-  reward[i] = rew;
-  term[i] = done;
-  if (active_out) active_out[i] = n_active;
+// The launch (or the occupancy query) of size class cls (0 small, 1 mid,
+// 2 large), each at its own lanes an env.
+int engine_dispatch(const float* qpos, const float* qvel, const int* t,
+                    const float* act, int q_stride, int v_stride,
+                    int a_stride, float* qpos_out, float* qvel_out,
+                    int* t_out, float* reward, bool* term, int* active_out,
+                    int* trace_out, const float* tables, EngineParams p,
+                    int n, int cls, int groups, int smem, void* stream,
+                    int* groups_per_sm) {
+  auto* fn = cls == 0 ? engine_small_step
+             : cls == 1 ? engine_mid_step
+             : cls == 2 ? engine_large_step
+                        : nullptr;
+  if (!fn) return (int)cudaErrorInvalidValue;
+  return fn(qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out,
+            qvel_out, t_out, reward, term, active_out, trace_out, tables, p,
+            n, groups, smem, stream, groups_per_sm);
 }
 
 }  // namespace
 
-// C entry point: launches on the given stream with `block` threads per
-// block and returns cudaGetLastError(), which the Python wrapper checks.
-// scratch holds max(n_cand, 1) x row_floats floats per env; active_out and
+// C entry point: launches size class cls with `groups` envs a block on the
+// given stream, with `smem` bytes of dynamic shared memory
+// (ops/lane_env.py engine_geometry; any other byte count or a model past
+// the class's bounds is refused with cudaErrorInvalidValue), and returns
+// cudaGetLastError(), which the Python wrapper checks.  active_out and
 // trace_out may be null.
 extern "C" int mmt_engine_step(
     const float* qpos, const float* qvel, const int* t, const float* act,
     int q_stride, int v_stride, int a_stride, float* qpos_out,
     float* qvel_out, int* t_out, float* reward, bool* term, int* active_out,
-    int* trace_out, float* scratch, const float* tables, EngineParams p,
-    int n, int block, void* stream) {
-  if (n > 0) {
-    engine_step_kernel<<<(n + block - 1) / block, block,
-                         sizeof(float) * (size_t)p.n_floats,
-                         (cudaStream_t)stream>>>(
-        qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
-        t_out, reward, term, active_out, trace_out, scratch, tables, p, n);
-  }
-  return (int)cudaGetLastError();
+    int* trace_out, const float* tables, EngineParams p, int n, int cls,
+    int groups, int smem, void* stream) {
+  return engine_dispatch(qpos, qvel, t, act, q_stride, v_stride, a_stride,
+                         qpos_out, qvel_out, t_out, reward, term, active_out,
+                         trace_out, tables, p, n, cls, groups, smem, stream,
+                         nullptr);
 }
 
-// The compile-time caps the wrapper checks a spec against: bodies, dofs,
-// coordinates, actuators, table floats.
-extern "C" void mmt_engine_caps(int* out) {
-  out[0] = mmt_eng::kMaxBodies;
-  out[1] = mmt_eng::kMaxNv;
-  out[2] = mmt_eng::kMaxNq;
-  out[3] = mmt_eng::kMaxNu;
-  out[4] = mmt_eng::kMaxTableFloats;
+// Envs an SM holds at once for class cls at `groups` envs a block with
+// `smem` bytes (registers and shared memory counted, CUDA's occupancy
+// calculator); -1 on an error.
+extern "C" int mmt_engine_groups_per_sm(EngineParams p, int cls, int groups,
+                                        int smem) {
+  int blocks = -1;
+  const int rc = engine_dispatch(nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+                                 nullptr, nullptr, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, nullptr, p, 0, cls, groups,
+                                 smem, nullptr, &blocks);
+  return rc == 0 && blocks >= 0 ? blocks * groups : -1;
 }
+
+// The phase counters of a profiling build (-DMMT_ENGINE_PHASES), or nothing.
+ENGINE_PHASES_READER(mmt_engine_small_phases)

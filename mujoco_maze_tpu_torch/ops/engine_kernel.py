@@ -8,8 +8,8 @@ falling blocks' support, then the locomotion reward and the task heads.
 The JAX package generated its Pallas kernel from the ``RigidModel`` at
 trace time (``lane_engine.py``); the CUDA kernel (``csrc/engine_lane.cu``)
 reads the model and the world from runtime tables instead, packed into one
-float32 buffer by :func:`engine_table`, so one build serves every model
-within its compile-time caps:
+float32 buffer by :func:`engine_table`, so one build of each size class
+serves every model within its compile-time bounds:
 
 * ``body (nb, 34)``: parent, first joint, joint count, offset in the
   parent (3), frame in the parent (3x3 row-major), mass, com (3), inertia
@@ -76,15 +76,16 @@ TABLES = ("body", "jnt", "dof", "act", "sph", "box", "dbox", "spair", "pair",
 TABLE_COLS = {"body": 34, "jnt": 12, "dof": 5, "act": 4, "sph": 14, "box": 7,
               "dbox": 7, "spair": 9, "pair": 9, "fall": 6, "plat": 5,
               "goal": 9}
-# Floats one active contact keeps in the wrapper's scratch: its three rows
-# of J over the nv dofs, aref - a0, R and the denominator per row, the
-# forces (3) and the friction (kRowFixed in csrc/engine_lane.cu).
+# Floats of a candidate contact's rows in the kernel's shared memory, after
+# its three rows of J over the nv dofs: aref - a0, R and the denominator
+# per row, the forces (3) and the friction (kRowFixed in
+# csrc/engine_lane.cuh).
 ROW_FIXED = 13
 _NVJ = {FREE: 6, BALL: 3, SLIDE: 1, HINGE: 1}
 
 
 def row_floats(nv: int) -> int:
-    """Scratch floats of one active contact at ``nv`` dofs."""
+    """Floats of one candidate contact's rows at ``nv`` dofs."""
     return 3 * nv + ROW_FIXED
 
 

@@ -32,7 +32,8 @@ from .ant_kernel import MAX_BLOCKS, MAX_WORLD_DOFS
 from .ant_kernel import NV as NV_ANT
 from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
                           ant_step_plain)
-from .engine_kernel import EngineKernelSpec, engine_step_plain, row_floats
+from .engine_kernel import (EngineKernelSpec, _trees, engine_step_plain,
+                            row_floats)
 from . import object_lanes
 from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
@@ -85,10 +86,26 @@ ANT_MAX_GROUPS = 8          # kMaxThreads / ANT_LANES
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
 SMEM_BLOCK_RESERVED = 1024
-# Threads per block of the generic engine kernel: one thread per env, and
-# 4096 envs in blocks of 32 spread over 128 of the H100's 132 SMs (32, 64
-# and 128 timed alike once, PERF.md).
-ENGINE_BLOCK = 32
+# The generic engine kernel (csrc/engine_lane.cuh): its compile-time caps
+# (bodies, dofs, coordinates, actuators, table floats, threads a block) and
+# size classes (dof and body bounds: engine_lane.cu, engine_mid.cu,
+# engine_large.cu) with the lanes an env each class builds, the floats of a
+# candidate contact's record (kRec) and the row fields after its three
+# rows (kRowFixed, engine_kernel.ROW_FIXED).  The source is the one
+# definition; tests/test_torch_engine_lanes.py holds these copies to it.
+ENGINE_CAPS = {"bodies": 16, "nv": 24, "nq": 32, "nu": 16,
+               "table_floats": 12288, "threads": 256}
+ENGINE_CLASSES = ((4, 2, 8), (12, 4, 8), (24, 16, 32))
+ENGINE_REC = 14
+# A group's fields in the kernel's shared memory and the block's lists
+# after the staged tables, in struct EngineParams' o_* and b_* order.
+ENGINE_GROUP_FIELDS = (
+    "q", "v", "ctrl", "qs", "vs", "as", "accv", "acca", "R", "p", "c",
+    "cvel", "I", "C", "acc", "frc", "fs", "root", "cdof", "cdd", "ax", "an",
+    "rot", "M", "Minv", "bias", "tau", "qacc0", "flim", "fsup", "fc", "x",
+    "y", "flags", "slot", "list")
+ENGINE_BLOCK_FIELDS = ("rowoff", "dinfo", "binfo", "chain", "jinfo",
+                       "static", "mpairs")
 
 
 def reset_launch_counts() -> None:
@@ -291,8 +308,9 @@ def swimmer_params(ks: SwimmerKernelSpec) -> SwimmerParams:
 
 
 class EngineParams(ctypes.Structure):
-    """The scalars of one engine world, passed by value (mirrors ``struct
-    EngineParams`` in ``csrc/engine_lane.cuh``, field for field)."""
+    """The scalars of one engine world and its launch's layout, passed by
+    value (mirrors ``struct EngineParams`` in ``csrc/engine_lane.cuh``,
+    field for field)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "off_body", "off_jnt", "off_dof", "off_act", "off_sph", "off_box",
@@ -308,18 +326,142 @@ class EngineParams(ctypes.Structure):
         "head_b0", "head_b1", "head_b2",
         "lim_b", "lim_d0", "lim_dd", "lim_width", "lim_kden", "omega",
         "sup_kc", "sup_bc", "sup_kl_den", "sup_bl",
-    )]
+    )] + [(name, ctypes.c_int) for name in (
+        "n_levels", "m_floats", "n_mpairs", "tree_max", "blk_floats",
+        "g_floats",
+        *(f"o_{f}" for f in ENGINE_GROUP_FIELDS),
+        *(f"b_{f}" for f in ENGINE_BLOCK_FIELDS))]
 
 
-def engine_params(ks: EngineKernelSpec) -> EngineParams:
-    """The struct of ``ks``: constants computed as the engine computes them
-    (Python double, rounded once to float32)."""
+def engine_group_fields(ks: EngineKernelSpec) -> list:
+    """``(name, floats)`` of one group's fields in the kernel's shared
+    memory, in ``struct EngineParams``'s o_* order, sized to the model: the
+    pose, velocity and actuation, the RK4 stages, the body poses and
+    spatial quantities (the fluid's forces only with a fluid), each dof's
+    cdof, its derivative, axis, anchor and kind, M and M^-1 as one block
+    per kinematic tree, the force vectors, the limit and support flags, a
+    slot per candidate contact (its record and rows) and the active
+    list."""
+    model = ks.env_spec.dynamic_model
+    nq, nv, nu = ks.nq, ks.nv, ks.nu
+    nb = ks.offsets["body"][1]
+    fluid = model.viscosity > 0 or model.fluid_density > 0
+    m_floats = sum(len(t) ** 2 for t in _trees(model))
+    return [("q", nq), ("v", nv), ("ctrl", nu), ("qs", nq), ("vs", nv),
+            ("as", nv), ("accv", nv), ("acca", nv),
+            ("R", 9 * nb), ("p", 3 * nb), ("c", 3 * nb), ("cvel", 6 * nb),
+            ("I", 10 * nb), ("C", 10 * nb), ("acc", 6 * nb),
+            ("frc", 6 * nb), ("fs", 6 * nb if fluid else 0), ("root", nb),
+            ("cdof", 6 * nv), ("cdd", 6 * nv), ("ax", 3 * nv),
+            ("an", 3 * nv), ("rot", nv), ("M", m_floats),
+            ("Minv", m_floats), ("bias", nv), ("tau", nv), ("qacc0", nv),
+            ("flim", nv), ("fsup", nv), ("fc", nv), ("x", nv), ("y", nv),
+            ("flags", ks.offsets["jnt"][1] + ks.offsets["fall"][1]),
+            ("slot", ks.n_cand * (ENGINE_REC + row_floats(nv))),
+            ("list", ks.n_cand)]
+
+
+def engine_block_fields(ks: EngineKernelSpec) -> list:
+    """``(name, ints)`` of the per-model lists a block derives once after
+    the staged tables (``struct BlockLists``): per dof its row offset in
+    M's tree blocks and its tree and body, per body its parent, joints,
+    depth and root-path dofs, per joint its type, addresses and limit, the
+    sphere of each static index, and M's lower-triangle entries."""
+    lo = ks.table("dof")[:, 3].astype(int)
+    n_mpairs = int(sum(d - lo[d] + 1 for d in range(ks.nv)))
+    nb = ks.offsets["body"][1]
+    return [("rowoff", ks.nv), ("dinfo", ks.nv), ("binfo", nb),
+            ("chain", nb), ("jinfo", ks.offsets["jnt"][1]),
+            ("static", ks.n_static), ("mpairs", n_mpairs)]
+
+
+class EngineGeometry(NamedTuple):
+    """The launch of the generic engine kernel on a model."""
+
+    cls: int             # size class (ENGINE_CLASSES index)
+    lanes: int           # lanes an env (G, the class's)
+    groups: int          # envs a block
+    threads: int         # threads a block
+    smem_bytes: int      # dynamic shared memory a block
+    g_floats: int        # floats of one group's fields
+    blk_floats: int      # floats of the block's lists
+    groups_per_sm: int   # envs an SM's shared memory holds at once
+
+
+def engine_tree_max(ks: EngineKernelSpec) -> int:
+    """Dofs of the model's largest kinematic tree (the factor's lanes)."""
+    return max(len(t) for t in _trees(ks.env_spec.dynamic_model))
+
+
+def _engine_class(ks: EngineKernelSpec) -> int:
+    """The smallest size class that holds ``ks``: its dofs, its bodies and,
+    on its lanes, its largest tree (the largest class, the caps at a warp
+    an env, holds every model that passes ``_check_engine_caps``)."""
+    nb, tree = ks.offsets["body"][1], engine_tree_max(ks)
+    return next(k for k, (nv_max, nb_max, lanes) in enumerate(ENGINE_CLASSES)
+                if ks.nv <= nv_max and nb <= nb_max and tree <= lanes)
+
+
+def engine_geometry(ks: EngineKernelSpec) -> EngineGeometry:
+    """The launch of the generic engine kernel on ``ks``: the smallest size
+    class that holds it (:func:`_engine_class`), at its lanes an env, and
+    the envs a block that make 32 or 64 threads, whichever lets an SM's
+    shared memory hold more envs (64 on ties).  Where not even a warp of
+    the class's groups fits a block's shared memory (a model with many
+    candidate contacts), one env a block of the largest class, which gives
+    an env the most room.  A group's fields are padded so that the groups
+    of a warp fall on different shared-memory banks.  Raises
+    NotImplementedError past the caps or past a block's shared memory at
+    one env a block, naming the limit."""
+    _check_engine_caps(ks)
+    raw = sum(n for _, n in engine_group_fields(ks))
+    blk = _round4(sum(n for _, n in engine_block_fields(ks)))
+    tables = _round4(ks.packed.numel())
+
+    def shape(cls: int, g: int) -> EngineGeometry:
+        lanes = ENGINE_CLASSES[cls][2]
+        g_floats = raw + (lanes % 32 - raw) % 32
+        smem = 4 * (tables + blk + g * g_floats)
+        return EngineGeometry(cls, lanes, g, g * lanes, smem, g_floats, blk,
+                              g * (SMEM_SM // (smem + SMEM_BLOCK_RESERVED)))
+
+    cls = _engine_class(ks)
+    lanes = ENGINE_CLASSES[cls][2]
+    fits = [x for x in (shape(cls, 32 // lanes), shape(cls, 64 // lanes))
+            if x.smem_bytes <= SMEM_BLOCK_MAX]
+    fits = fits or [shape(len(ENGINE_CLASSES) - 1, 1)]
+    geo = max(fits, key=lambda x: (x.groups_per_sm, x.groups))
+    if geo.smem_bytes > SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"the generic engine kernel needs {geo.smem_bytes} bytes of "
+            f"shared memory a block ({4 * geo.g_floats} an env at "
+            f"{ks.n_cand} candidate contacts, {4 * tables} of tables) at "
+            f"{geo.groups} envs a block, above the H100's {SMEM_BLOCK_MAX}")
+    return geo
+
+
+def engine_params(ks: EngineKernelSpec,
+                  geo: Optional[EngineGeometry] = None) -> EngineParams:
+    """The struct of ``ks`` at the launch ``geo`` (default:
+    :func:`engine_geometry`): constants computed as the engine computes
+    them (Python double, rounded once to float32), and the layout."""
+    geo = engine_geometry(ks) if geo is None else geo
     o = ks.offsets
     model = ks.env_spec.dynamic_model
     cs = ks.env_spec.contact_set
     tc = max(0.02, 2.0 * ks.timestep)
     d0, dmax, width = 0.9, 0.95, 0.001
     gx, gy, gz = (float(g) for g in model.gravity)
+    layout = {}
+    for prefix, fields in (("o", engine_group_fields(ks)),
+                           ("b", engine_block_fields(ks))):
+        off = 0
+        for name, n in fields:
+            layout[f"{prefix}_{name}"] = off
+            off += n
+    depth = []
+    for p in ks.table("body")[:, 0].astype(int):
+        depth.append(0 if p < 0 else depth[p] + 1)
     return EngineParams(
         **{f"off_{name}": o[name][0] for name in o},
         n_floats=ks.packed.numel(),
@@ -346,6 +488,11 @@ def engine_params(ks: EngineKernelSpec) -> EngineParams:
         lim_width=width, lim_kden=dmax * dmax * tc * tc, omega=0.6,
         sup_kc=0.995 / (0.995 * 0.995 * tc * tc), sup_bc=2.0 / (0.995 * tc),
         sup_kl_den=0.95 * 0.95 * tc * tc, sup_bl=2.0 / (0.95 * tc),
+        n_levels=max(depth) + 1,
+        m_floats=sum(len(t) ** 2 for t in _trees(model)),
+        n_mpairs=dict(engine_block_fields(ks))["mpairs"],
+        tree_max=engine_tree_max(ks),
+        blk_floats=geo.blk_floats, g_floats=geo.g_floats, **layout,
     )
 
 
@@ -429,11 +576,11 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
                                          # active contacts, trace (nullable)
-        _P, _P, EngineParams, _I, _I, _P]  # scratch, tables, params, B,
-                                           # block, stream
+        _P, EngineParams, _I, _I, _I, _I, _P]
+        # tables, params, B, class, groups a block, shared bytes, stream
     lib.mmt_engine_step.restype = _I
-    lib.mmt_engine_caps.argtypes = [_P]
-    lib.mmt_engine_caps.restype = None
+    lib.mmt_engine_groups_per_sm.argtypes = [EngineParams, _I, _I, _I]
+    lib.mmt_engine_groups_per_sm.restype = _I
     lib.mmt_ant_max_world_dofs.restype = _I
     lib.mmt_ant_max_blocks.restype = _I
     lib.mmt_ant_max_balls.restype = _I
@@ -970,23 +1117,29 @@ class SwimmerRollout:
         return q, v, tt, torch.sum(rew), torch.sum(eps)
 
 
-def engine_caps() -> Dict[str, int]:
-    """The generic engine kernel's compile-time caps (``mmt_engine_caps``)."""
-    out = (ctypes.c_int * 5)()
-    _lib().mmt_engine_caps(out)
-    return dict(zip(("bodies", "nv", "nq", "nu", "table_floats"), out))
-
-
 def _check_engine_caps(ks: EngineKernelSpec) -> None:
     """Refuse a world beyond the engine kernel's compile-time caps."""
-    caps = engine_caps()
     have = {"bodies": ks.offsets["body"][1], "nv": ks.nv, "nq": ks.nq,
             "nu": ks.nu, "table_floats": ks.packed.numel()}
-    over = {k: (n, caps[k]) for k, n in have.items() if n > caps[k]}
+    over = {k: (n, ENGINE_CAPS[k]) for k, n in have.items()
+            if n > ENGINE_CAPS[k]}
     if over:
         raise NotImplementedError(
             "the model exceeds the generic engine kernel's caps "
             + ", ".join(f"{k} {n} > {c}" for k, (n, c) in over.items()))
+
+
+def engine_resident_warps(ks: EngineKernelSpec,
+                          geo: Optional[EngineGeometry] = None) -> int:
+    """Warps an SM holds at once for the generic engine kernel at ``geo``
+    (default :func:`engine_geometry`), registers and shared memory counted
+    (CUDA's occupancy calculator on the built kernel; the card only)."""
+    geo = engine_geometry(ks) if geo is None else geo
+    envs = _lib().mmt_engine_groups_per_sm(engine_params(ks, geo), geo.cls,
+                                           geo.groups, geo.smem_bytes)
+    if envs < 0:
+        raise RuntimeError("the occupancy query of the engine kernel failed")
+    return envs * geo.lanes // 32 if geo.lanes < 32 else envs
 
 
 class EngineStep:
@@ -994,26 +1147,27 @@ class EngineStep:
     terminated)``: one step of an engine-world robot with explicit actions
     and no reset (the generic kernel is step-only, as in the JAX package).
 
-    The wrapper owns the contact scratch: ``max(n_cand, 1) x row_floats``
-    floats per env, allocated with ``torch.empty`` at first use (launches
-    on one stream reuse it in turn).  ``count_active=True`` (CUDA only)
-    adds a sixth output, each env's active contacts summed over the
-    step's forward evaluations; ``trace=True`` (CUDA only) adds, last, the
-    active sets per forward evaluation, ``(B, 4 * frame_skip,
-    trace_words)`` int32 (``engine_kernel.active_trace`` lays the plain
-    version's out alike)."""
+    The launch shape (:func:`engine_geometry`: size class, its lanes an
+    env, and envs a block) is computed and checked against the caps and a
+    block's shared memory once, at the first CUDA launch.
+    ``count_active=True`` (CUDA only) adds a sixth output, each env's
+    active contacts summed over the step's forward evaluations;
+    ``trace=True`` (CUDA only) adds, last, the active sets per forward
+    evaluation, ``(B, 4 * frame_skip, trace_words)`` int32
+    (``engine_kernel.active_trace`` lays the plain version's out
+    alike)."""
 
     def __init__(self, ks: EngineKernelSpec, num_envs: int) -> None:
         self.ks = ks
         self.num_envs = num_envs
-        self.params = engine_params(ks)
-        self.scratch = None
+        self._launch = None   # (geometry, params)
 
-    def _scratch(self, dev: torch.device) -> torch.Tensor:
-        n = max(self.ks.n_cand, 1) * row_floats(self.ks.nv) * self.num_envs
-        if self.scratch is None or self.scratch.device != dev:
-            self.scratch = torch.empty(n, dtype=torch.float32, device=dev)
-        return self.scratch
+    def launch_shape(self):
+        """``(geometry, params)`` of the launch, computed once."""
+        if self._launch is None:
+            geo = engine_geometry(self.ks)
+            self._launch = (geo, engine_params(self.ks, geo))
+        return self._launch
 
     def __call__(self, qpos, qvel, t, actions, count_active: bool = False,
                  trace: bool = False):
@@ -1030,7 +1184,7 @@ class EngineStep:
             return engine_step_plain(ks, qpos, qvel, t, actions)
         if dev.type != "cuda":
             raise RuntimeError(f"no engine step kernel for device {dev}")
-        _check_engine_caps(ks)
+        geo, params = self.launch_shape()
         q_out = torch.empty((B, ks.nq), dtype=torch.float32, device=dev)
         v_out = torch.empty((B, ks.nv), dtype=torch.float32, device=dev)
         t_out = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -1047,8 +1201,8 @@ class EngineStep:
             reward.data_ptr(), term.data_ptr(),
             None if active is None else active.data_ptr(),
             None if tr is None else tr.data_ptr(),
-            self._scratch(dev).data_ptr(), ks.packed.data_ptr(), self.params,
-            B, ENGINE_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+            ks.packed.data_ptr(), params, B, geo.cls, geo.groups,
+            geo.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(rc, "engine_step")
         LAUNCHES["engine_step"] += 1
         out = (q_out, v_out, t_out, reward, term)
