@@ -83,6 +83,9 @@ Phases (each fails the run on its own; nothing is caught):
     the robot's dofs, t and the robot-anchored heads exact, the objects
     within 1e-4 (qpos) and 2e-3 (qvel) but at a named knife edge (a row
     active in one version only), the count of bit-exact env-steps printed;
+    and a planted ball maze of 2268 candidate rows, whose row stores do not
+    fit shared memory, at 512 envs: 8 steps with their traces and a
+    16-step rollout, every output equal to the bit to the plain version;
 18. the object-world rollout kernel against its plain version on
     PointPush-v0 and PointBilliard-v0, as phase 3: episode counts, the
     robot's dofs and each reset draw exact, the world dofs of the envs
@@ -91,7 +94,11 @@ Phases (each fails the run on its own; nothing is caught):
     and checked as in phase 4; the object kernels' times per launch and
     on the device, their bounds (fp32 operations counted from
     ``ops/object_lanes.py`` at the run's active rows) and plain times, on
-    PointPush-v0 and on PointPushMaze-v0.  Phases 17-19 run in a process
+    PointPush-v0 and on PointPushMaze-v0, with their launch (envs a block,
+    shared bytes), the warps an SM holds and what ``ptxas -v`` says of
+    them; on PointPush-v0, PointMultiPush-v0 and PointPushMaze-v0 both
+    homes of the envs' row stores (shared or global memory), timed, their
+    outputs equal to the bit.  Phases 17-19 run in a process
     of their own (``python3 chip_smoke.py --point-objects``), with a
     fresh CUDA context and profiler;
 20. the generic engine step kernel of custom robots (``engine_step``)
@@ -207,8 +214,11 @@ inputs, holds each tree's against the plain version and the two against
 each other at phases 5/9/24's rule (and counts the outputs equal to the
 bit), times both in turns (DIR, this, this, DIR) and prints both trees'
 ptxas lines for them; ``python3 chip_smoke.py --point-parent-probe DIR``
-runs the Point kernels' plain-maze and object-solve modes of both and
-requires every output equal to the bit; ``python3 chip_smoke.py
+runs the Point kernels' plain-maze and object-solve modes of both on
+eight worlds, requires every output equal to the bit, and times the
+object kernels of both on PointPush-v0, PointMultiPush-v0 and
+PointPushMaze-v0 in turns (DIR, this, this, DIR) with both trees' ptxas
+lines; ``python3 chip_smoke.py
 --ant-phases`` builds the Ant kernels with their phase counters and
 prints where a forward evaluation's SM cycles go on four Ant worlds;
 ``python3 chip_smoke.py --engine-parent-probe DIR`` runs the generic
@@ -1638,6 +1648,15 @@ OBJ_ROLL_IDS = ("PointPush-v0", "PointBilliard-v0")
 OBJ_MAIN_ID = "PointPush-v0"
 OBJ_WORST_ID = "PointPushMaze-v0"      # 676 candidate rows, the most
 OBJ_CHECK_STEPS = 8
+# the row stores' two homes, timed and held equal to the bit on the worlds
+# whose stores fill shared memory at a full block (PointMultiPush-v0,
+# PointPushMaze-v0) and on the main path's, whose stores fit (phase 19)
+OBJ_STORE_IDS = ("PointPush-v0", "PointMultiPush-v0", "PointPushMaze-v0")
+# phase 17's planted world: a ball maze of PLANTED_N x PLANTED_N cells,
+# 2268 candidate rows, at PLANTED_B envs
+PLANTED_N = 42
+PLANTED_B = 512
+PLANTED_ROLL_STEPS = 16
 OBJ_QPOS_TOL = 1e-4
 OBJ_QVEL_TOL = 2e-3
 OBJ_FLAG = "--point-objects"           # runs phases 17-19 alone
@@ -1853,6 +1872,166 @@ def obj_step_check(env_id: str, seed: int, phase: str = "17",
             "max": max(float(eq_all.max()), float(ev_all.max()))}
 
 
+def planted_ball_maze_spec(device):
+    """A Point world whose row store fills more than a block's shared memory
+    at one warp of envs: the Billiard task's ball in a PLANTED_N x
+    PLANTED_N maze, walls on its border and on every cell of an even row
+    and column (564 walls: 2268 candidate rows at four rows a wall; 40.6 KB
+    of tables, within the 48 KB a block of the one-thread-per-env object
+    kernels staged), composed as a user composes a task (README, "Custom
+    tasks")."""
+    from mujoco_maze_tpu_torch.envs.env import MazeEnvSpec
+    from mujoco_maze_tpu_torch.models.point import PointRobot
+    from mujoco_maze_tpu_torch.tasks import library as lib
+
+    n = PLANTED_N
+
+    class PlantedBallMaze(lib.GoalRewardBilliard):
+        @staticmethod
+        def create_maze():
+            m = [[lib.B if i in (0, n - 1) or j in (0, n - 1)
+                  or (i % 2 == 0 and j % 2 == 0) else lib.E
+                  for j in range(n)] for i in range(n)]
+            m[3][3], m[4][3] = lib.R, lib.OB
+            return m
+
+    return MazeEnvSpec(PointRobot(), PlantedBallMaze, maze_size_scaling=3.0,
+                       device=device)
+
+
+def obj_planted_check():
+    """Phase 17 on the planted ball maze at PLANTED_B envs, whose row stores
+    live in global memory: OBJ_CHECK_STEPS steps of the step kernel from
+    ``object_states``, teacher-forced, each output and the trace equal to
+    the bit to the plain version's; and one PLANTED_ROLL_STEPS-step rollout
+    from t at the window's end, every output equal to the bit."""
+    import numpy as np
+
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import lane_env
+    from mujoco_maze_tpu_torch.ops.point_kernel import (object_active_plain,
+                                                        object_states,
+                                                        point_rollout_plain,
+                                                        point_step_plain,
+                                                        spec_from_env,
+                                                        trace_bits)
+
+    spec = planted_ball_maze_spec("cuda")
+    ks = spec_from_env(spec)
+    geo = lane_env.obj_geometry(ks)
+    one_warp = lane_env.obj_layout(ks, 4, True).smem_bytes
+    if geo.shared_rows or one_warp <= lane_env.SMEM_BLOCK_MAX:
+        raise SystemExit(f"the planted world's row stores fit shared memory "
+                         f"({one_warp} bytes at one warp of envs)")
+    n = PLANTED_B
+    q, v, t = (torch.as_tensor(x, device="cuda")
+               for x in object_states(spec, n, 7))
+    rng = np.random.RandomState(7)
+    step = lane_env.PointStep(ks, n)
+    exact = traced = 0
+    for _ in range(OBJ_CHECK_STEPS):
+        act = torch.as_tensor(rng.uniform(-1, 1, (n, 2)) * [1.0, 0.25],
+                              dtype=torch.float32, device="cuda")
+        *kern, tr = step(q, v, t, act, trace=True)
+        plain = point_step_plain(ks, q, v, t, act)
+        exact += int(torch.stack([(x == y).reshape(n, -1).all(dim=1)
+                                  for x, y in zip(kern, plain)]).all(dim=0)
+                     .sum())
+        traced += int((trace_bits(tr, ks.max_rows)
+                       == object_active_plain(ks, q, v, act))
+                      .reshape(n, -1).all(dim=1).sum())
+        q, v, t = plain[:3]
+    t0 = (EPISODE_LIMIT - PLANTED_ROLL_STEPS
+          + torch.arange(n, device="cuda") % PLANTED_ROLL_STEPS).int()
+    roll = lane_env.PointRollout(ks, n, PLANTED_ROLL_STEPS)
+    kern = roll.per_env(q, v, t0, 7)
+    plain = point_rollout_plain(ks, q, v, t0, 7, PLANTED_ROLL_STEPS)
+    roll_exact = sum(bool(torch.equal(x, y)) for x, y in zip(kern, plain))
+    total = OBJ_CHECK_STEPS * n
+    log(f"phase 17: planted ball maze ({PLANTED_N} x {PLANTED_N} cells, R = "
+        f"{ks.max_rows}, {4 * geo.off_items} bytes of tables; a warp's row "
+        f"stores {one_warp} bytes of shared memory, so they live in global "
+        f"memory, {geo.groups} envs a block) x {n} envs: env-steps bit-exact "
+        f"{exact} of {total}, traces equal {traced} of {total}; "
+        f"{PLANTED_ROLL_STEPS}-step rollout outputs equal to the bit "
+        f"{roll_exact} of 5, {int(kern[4].sum())} episodes")
+    if exact != total or traced != total or roll_exact != 5:
+        raise SystemExit("the planted world's object kernels disagree with "
+                         "their plain version")
+
+
+def obj_store_compare():
+    """Phase 19: the row stores' two homes on OBJ_STORE_IDS at B envs, the
+    launch ``obj_geometry`` picks and the other (global memory at the same
+    envs a block where it picks shared memory; else shared memory at the
+    most envs a block that fit, in whole warps): device time by CUDA
+    events around single launches of the step from phase 19's state and
+    from ``object_states`` and of a ROLLOUT_STEPS-step rollout, and every
+    output of each, the trace included, equal to the bit between the
+    two."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import lane_env
+    from mujoco_maze_tpu_torch.ops.point_kernel import object_states
+
+    out = {}
+    for env_id in OBJ_STORE_IDS:
+        env = mmt.make_batched(env_id, B)
+        ks = env._kernel_step.ks
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        policy = env.random_policy()
+        sm, obs = env.reset(17)
+        for _ in range(20):      # phase 19's state (obj_kernel_numbers)
+            res = env.step(sm, policy(obs, gen))
+            sm, obs = res.state, res.obs
+        am = policy(obs, gen)
+        q, v, t = (torch.as_tensor(x, device="cuda")
+                   for x in object_states(env.spec, B, 5))
+        act = torch.as_tensor(np.random.RandomState(5).uniform(
+            -1, 1, (B, 2)) * [1.0, 0.25], dtype=torch.float32, device="cuda")
+        t0 = (EPISODE_LIMIT - ROLLOUT_STEPS
+              + torch.arange(B, device="cuda") % ROLLOUT_STEPS).int()
+        geo = lane_env.obj_geometry(ks)
+        if geo.shared_rows:
+            other = lane_env.obj_layout(ks, geo.groups, False)
+        else:
+            fit = [g for g in range(4, geo.groups + 1, 4)
+                   if lane_env.obj_layout(ks, g, True).smem_bytes
+                   <= lane_env.SMEM_BLOCK_MAX]
+            other = lane_env.obj_layout(ks, max(fit), True) if fit else None
+        rows, outs = {}, []
+        for name, lay in (("picked", geo), ("other", other)):
+            if lay is None:
+                continue
+            step = lane_env.PointStep(ks, B)
+            roll = lane_env.PointRollout(ks, B, ROLLOUT_STEPS)
+            step.obj.geo = roll.obj.geo = lay
+            outs.append([*step(q, v, t, act, trace=True),
+                         *step(sm.qpos, sm.qvel, sm.t, am),
+                         *roll.per_env(sm.qpos, sm.qvel, t0, 7)])
+            rows[name] = {
+                "shared_rows": lay.shared_rows, "groups": lay.groups,
+                "smem_bytes": lay.smem_bytes,
+                "warps_per_sm": lane_env.obj_resident_warps(ks, lay),
+                "main_step_device_ms": device_ms_events(
+                    lambda: step(sm.qpos, sm.qvel, sm.t, am), 5),
+                "step_device_ms": device_ms_events(
+                    lambda: step(q, v, t, act), 5),
+                "rollout_device_ms": device_ms_events(
+                    lambda: roll.per_env(sm.qpos, sm.qvel, t0, 7), 2)}
+        equal = (len(outs) == 1
+                 or all(torch.equal(x, y) for x, y in zip(*outs)))
+        out[env_id] = dict(rows, equal=equal)
+        log(f"phase 19: {env_id} row stores (R = {ks.max_rows}), picked / "
+            f"other launch: {rows}; outputs equal to the bit: {equal}")
+        if not equal:
+            raise SystemExit(f"{env_id}: the object kernels' outputs depend "
+                             f"on where the row stores live")
+    return out
+
+
 def obj_rollout_check(env_id: str, seed: int):
     """Phase 18 for one ID: the object-world rollout kernel vs its plain
     version (the same Philox stream), ROLLOUT_STEPS steps from t spread
@@ -1911,7 +2090,8 @@ def obj_kernel_numbers(env_id: str, prof_steps: bool):
     ROLLOUT_STEPS-step launch), and on the device (profiler); the mean
     active rows of a step (from a traced launch) and the bounds."""
     import mujoco_maze_tpu_torch as mmt
-    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+    from mujoco_maze_tpu_torch.ops import (lane_env, make_fast_rollout,
+                                           make_fast_step)
     from mujoco_maze_tpu_torch.ops.point_kernel import trace_bits
     from torch.profiler import ProfilerActivity, profile
 
@@ -1939,6 +2119,8 @@ def obj_kernel_numbers(env_id: str, prof_steps: bool):
         torch.cuda.synchronize()
     dev_step, n_step = device_ms(prof, "point_obj_step_kernel")
     dev_roll64, _ = device_ms(prof, "point_obj_rollout_kernel")
+    geo = lane_env.obj_geometry(ks)
+    warps = lane_env.obj_resident_warps(ks)
     flops = obj_step_flops(ks, rows)
     nq = 3 + ks.n_world
     tables = 4 * (4 * ks.walls.shape[0] + 9 * ks.goals.shape[0]
@@ -1955,8 +2137,11 @@ def obj_kernel_numbers(env_id: str, prof_steps: bool):
         f"{ks.max_rows}); point_objects_rollout {ms_roll:.6g} ms per "
         f"{MAIN_STEPS}-step launch (bound {roll_bound[0]:.3g} ms), {ms_roll64:.6g} "
         f"ms per {ROLLOUT_STEPS}-step launch, {dev_roll64:.6g} ms on the device "
-        f"(bound {roll64_bound[0]:.3g} ms)")
+        f"(bound {roll64_bound[0]:.3g} ms); launch {geo.groups} envs a block "
+        f"of {geo.threads} threads, {geo.smem_bytes} bytes of shared memory a "
+        f"block; warps an SM (occupancy calculator) {warps}")
     return {"ms_step": ms_step, "dev_step": dev_step, "step_bound": step_bound,
+            "launch": geo._asdict(), "warps_per_sm": warps,
             "ms_roll": ms_roll, "roll_bound": roll_bound, "ms_roll64": ms_roll64,
             "dev_roll64": dev_roll64, "roll64_bound": roll64_bound,
             "rows": rows, "flops": flops, "st": st, "act": act, "env": env}
@@ -2095,8 +2280,11 @@ def obj_main_path():
         f"{idle:.4g}), {n_kernels:.3g} kernels/step; top: {top}")
 
     # the kernels' numbers, and the plain versions' times at the main shapes
+    ptxas = ptxas_lines("point_obj_")
+    log(f"phase 19: the object kernels, ptxas -v:\n{ptxas}")
     main = obj_kernel_numbers(OBJ_MAIN_ID, True)
     worst = obj_kernel_numbers(OBJ_WORST_ID, False)
+    stores = obj_store_compare()
     ks = main["env"]._kernel_step.ks
     mst, mact = main["st"], main["act"]
     ms_step_plain = cuda_ms(lambda: point_step_plain(ks, mst.qpos, mst.qvel,
@@ -2111,6 +2299,7 @@ def obj_main_path():
         "rates": {"step_api": rate(ms_api), "rollout_metrics": rate(ms_metrics),
                   "fused": rate(ms_fused), "idle_share": idle,
                   "kernels_per_step": n_kernels},
+        "row_stores": stores,
         "step": {"name": "point_objects_step",
                  "launches": launches["point_objects_step"],
                  "ms": main["ms_step"], "device_ms": main["dev_step"],
@@ -2118,10 +2307,14 @@ def obj_main_path():
                  "bound_by": main["step_bound"][1],
                  "active_rows_per_eval": main["rows"],
                  "fp32_ops_per_env_step": main["flops"],
+                 "launch": main["launch"], "warps_per_sm": main["warps_per_sm"],
+                 "ptxas": ptxas.splitlines(),
                  "worst_world": {"id": OBJ_WORST_ID, "ms": worst["ms_step"],
                                  "device_ms": worst["dev_step"],
                                  "bound_ms": worst["step_bound"][0],
-                                 "active_rows_per_eval": worst["rows"]}},
+                                 "active_rows_per_eval": worst["rows"],
+                                 "launch": worst["launch"],
+                                 "warps_per_sm": worst["warps_per_sm"]}},
         # per ROLLOUT_STEPS-step launch (the plain rollout takes ~0.2 s a
         # step); the 1000-step launch's time beside it
         "rollout": {"name": "point_objects_rollout",
@@ -2157,6 +2350,7 @@ def point_objects_phases() -> int:
     _build.load()
     step_err = max(obj_step_check(env_id, 91 + k)["max"]
                    for k, env_id in enumerate(OBJ_IDS))
+    obj_planted_check()
     roll_err = max(obj_rollout_check(env_id, 97 + k)
                    for k, env_id in enumerate(OBJ_ROLL_IDS))
     out = obj_main_path()
@@ -4664,28 +4858,39 @@ def ant_phases() -> int:
 
 
 POINT_PROBE_FLAG = "--point-parent-probe"     # PARENT_DIR
-POINT_PROBE_OUT_FLAG = "--point-probe-out"    # PATH (.npz), in the probed tree
+POINT_PROBE_OUT_FLAG = "--point-probe-out"    # PATH (.npz) [--time], in the
+                                              # probed tree
 POINT_PROBE_WORLDS = ("PointUMaze-v0", "Point4Rooms-v2", "PointPush-v0",
                       "PointBilliard-v0", "PointFall-v0",
-                      "PointMultiPushSmall-v0")
+                      "PointMultiPushSmall-v0", "PointMultiPush-v0",
+                      "PointPushMaze-v0")
+POINT_PROBE_TIMED = OBJ_STORE_IDS
+POINT_PROBE_REPS = 20
 
 
-def point_probe_outputs(path: str) -> int:
-    """Every output of one Point step launch (the object worlds' with its
-    trace) and of one ROLLOUT_STEPS-step rollout launch on
+def point_probe_outputs(args) -> int:
+    """``--point-probe-out PATH [--time]``, run from the tree whose kernels
+    are probed: every output of one Point step launch (the object worlds'
+    with its trace) and of one ROLLOUT_STEPS-step rollout launch on
     POINT_PROBE_WORLDS at B envs, from the reset states (plain mazes) or
     ``object_states`` (object worlds, the reduced object solve) and seeded
-    actions, saved to ``path``: run from the tree whose kernels are
-    probed."""
+    actions, saved to PATH; with ``--time``, the object kernels' times on
+    POINT_PROBE_TIMED instead (the step by CUDA events over back-to-back
+    launches and around single launches, from object_states and from
+    phase 19's state; the 1000-step rollout around one launch), their
+    launch where the tree has one, and what ``ptxas -v`` says of them."""
     import numpy as np
 
     import mujoco_maze_tpu_torch as mmt
     from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
-    from mujoco_maze_tpu_torch.ops import make_fast_rollout, make_fast_step
+    from mujoco_maze_tpu_torch.ops import (_build, lane_env, make_fast_rollout,
+                                           make_fast_step)
     from mujoco_maze_tpu_torch.ops.point_kernel import object_states
 
+    _build.load()
+    timed = "--time" in args
     out = {}
-    for env_id in POINT_PROBE_WORLDS:
+    for env_id in POINT_PROBE_TIMED if timed else POINT_PROBE_WORLDS:
         env = mmt.make_batched(env_id, B)
         if env.spec.object_spec is not None:
             q, v, t = (torch.as_tensor(x, device="cuda")
@@ -4696,6 +4901,31 @@ def point_probe_outputs(path: str) -> int:
         act = torch.as_tensor(np.random.RandomState(5).uniform(
             -1, 1, (B, 2)) * [1.0, 0.25], dtype=torch.float32, device="cuda")
         step = make_fast_step(env)
+        if timed:
+            # phase 19's state: 20 steps of the random policy from a reset
+            gen = torch.Generator(device="cuda").manual_seed(17)
+            policy = env.random_policy()
+            sm, obs = env.reset(17)
+            for _ in range(20):
+                res = env.step(sm, policy(obs, gen))
+                sm, obs = res.state, res.obs
+            am = policy(obs, gen)
+            step(q, v, t, act)
+            roll = make_fast_rollout(env, MAIN_STEPS)
+            st, _ = env.reset(5)
+            nums = {"step_ms": cuda_ms(lambda: step(q, v, t, act),
+                                       POINT_PROBE_REPS),
+                    "step_device_ms": device_ms_events(
+                        lambda: step(q, v, t, act), 5),
+                    "main_step_device_ms": device_ms_events(
+                        lambda: step(sm.qpos, sm.qvel, sm.t, am), 5),
+                    "rollout_1000_device_ms": device_ms_events(
+                        lambda: roll.per_env(st.qpos, st.qvel, st.t, 7), 1)}
+            if hasattr(lane_env, "obj_geometry"):
+                nums.update(lane_env.obj_geometry(step.ks)._asdict(),
+                            warps_per_sm=lane_env.obj_resident_warps(step.ks))
+            out[f"{env_id}/times"] = np.asarray(json.dumps(nums))
+            continue
         res = (step(q, v, t, act, trace=True)
                if env.spec.object_spec is not None else step(q, v, t, act))
         t_end = (EPISODE_LIMIT - ROLLOUT_STEPS
@@ -4704,7 +4934,9 @@ def point_probe_outputs(path: str) -> int:
         for kind, outs in (("step", res), ("rollout", roll)):
             for i, x in enumerate(outs):
                 out[f"{env_id}/{kind}/{i}"] = x.cpu().numpy()
-    np.savez(path, **out)
+    if timed:
+        out["ptxas"] = np.asarray(ptxas_lines("point_obj_"))
+    np.savez(args[0], **out)
     return 0
 
 
@@ -4714,7 +4946,9 @@ def point_parent_probe(args) -> int:
     ``point_obj_step`` and their rollouts) of the tree at PARENT_DIR (a
     checkout with its own ``mujoco_maze_tpu_torch``) and of this one, each
     built from its own sources in a process of its own, on the same states
-    and actions; every output must be equal to the bit."""
+    and actions; every output must be equal to the bit.  Then the object
+    kernels of both trees timed in turns (parent, this, this, parent), with
+    each tree's ptxas lines."""
     import shutil
     import tempfile
 
@@ -4728,12 +4962,16 @@ def point_parent_probe(args) -> int:
     work = tempfile.mkdtemp()
     copy = os.path.join(parent, "_probe_chip_smoke.py")
     shutil.copy(__file__, copy)
-    got = {}
-    for tree, script in (("parent", copy), ("this", __file__)):
-        path = os.path.join(work, f"{tree}.npz")
-        subprocess.run([sys.executable, script, POINT_PROBE_OUT_FLAG, path],
-                       check=True, cwd=os.path.dirname(script))
-        got[tree] = np.load(path)
+    scripts = {"parent": copy, "this": __file__}
+
+    def run(tree: str, name: str, *extra):
+        path = os.path.join(work, f"{name}.npz")
+        subprocess.run([sys.executable, scripts[tree], POINT_PROBE_OUT_FLAG,
+                        path, *extra], check=True,
+                       cwd=os.path.dirname(scripts[tree]))
+        return np.load(path)
+
+    got = {tree: run(tree, tree) for tree in ("parent", "this")}
     keys = sorted(got["parent"].files)
     same = {k: bool(np.array_equal(got["parent"][k], got["this"][k],
                                    equal_nan=True)) for k in keys}
@@ -4743,6 +4981,41 @@ def point_parent_probe(args) -> int:
         f"traces where there are) and one {steps}-step rollout: "
         f"{sum(same.values())} of {len(same)} outputs equal to the bit; "
         f"differing: {[k for k, x in same.items() if not x]}")
+    times = {"parent": [], "this": []}
+    for k, tree in enumerate(("parent", "this", "this", "parent")):
+        res = run(tree, f"{tree}_times_{k}", "--time")
+        times[tree].append({w: json.loads(str(res[f"{w}/times"]))
+                            for w in POINT_PROBE_TIMED})
+        if len(times[tree]) == 1:
+            log(f"probe: {tree} tree's object kernels (ptxas -v):\n"
+                f"{res['ptxas']}")
+    summary = {}
+    for w in POINT_PROBE_TIMED:
+        mean = {tree: {key: sum(r[w][key] for r in runs) / len(runs)
+                       for key in ("step_ms", "step_device_ms",
+                                   "main_step_device_ms",
+                                   "rollout_1000_device_ms")}
+                for tree, runs in times.items()}
+        summary[w] = {"parent": mean["parent"], "this": mean["this"],
+                      "launch": {k: x for k, x in times["this"][0][w].items()
+                                 if "ms" not in k},
+                      "runs": {tree: [r[w] for r in runs]
+                               for tree, runs in times.items()}}
+        log(f"probe: {w} at {B} envs, parent / this (mean of two turns each): "
+            f"step {mean['parent']['step_ms']:.6g} / {mean['this']['step_ms']:.6g} "
+            f"ms per back-to-back launch, {mean['parent']['step_device_ms']:.6g}"
+            f" / {mean['this']['step_device_ms']:.6g} ms on the device "
+            f"({mean['parent']['step_device_ms'] / mean['this']['step_device_ms']:.3g}x) "
+            f"from object_states, {mean['parent']['main_step_device_ms']:.6g} / "
+            f"{mean['this']['main_step_device_ms']:.6g} ms from phase 19's state "
+            f"({mean['parent']['main_step_device_ms'] / mean['this']['main_step_device_ms']:.3g}x); "
+            f"1000-step rollout {mean['parent']['rollout_1000_device_ms']:.6g} / "
+            f"{mean['this']['rollout_1000_device_ms']:.6g} ms "
+            f"({mean['parent']['rollout_1000_device_ms'] / mean['this']['rollout_1000_device_ms']:.3g}x); "
+            f"this tree's launch {summary[w]['launch']}")
+    print("POINT_PROBE " + json.dumps({"equal": sum(same.values()),
+                                       "outputs": len(same),
+                                       "worlds": summary}), flush=True)
     os.remove(copy)
     shutil.rmtree(work, ignore_errors=True)
     return 0 if all(same.values()) and keys == sorted(got["this"].files) else 1
@@ -5838,7 +6111,7 @@ if __name__ == "__main__":
              else probe_outputs(ARGS[1:]) if ARGS[:1] == [PROBE_OUT_FLAG]
              else point_parent_probe(ARGS[1:])
              if ARGS[:1] == [POINT_PROBE_FLAG]
-             else point_probe_outputs(ARGS[1])
+             else point_probe_outputs(ARGS[1:])
              if ARGS[:1] == [POINT_PROBE_OUT_FLAG]
              else engine_faults() if FAULTS_FLAG in ARGS
              else engine_check(ARGS[1:]) if ARGS[:1] == [CHECK_FLAG]

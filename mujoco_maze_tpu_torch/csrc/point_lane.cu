@@ -28,13 +28,23 @@
 // mode's code sits behind if constexpr, so the plain and object-solve
 // instantiations are the same code as before the quasi-static mode came.
 //
-// Design.  One thread is one env; its state stays in registers for the
-// whole step (or the whole rollout).  Blocks of 128 threads; the last block
-// masks the ragged edge.  The Pallas kernels baked the wall segments and
-// goals into the program at trace time; here they are runtime tables
-// (walls (W, 4), goals (G, 9)) that each block stages into shared memory
-// (48 walls are 768 bytes), and the scalars come by value in PointParams.
-// So one binary, built once, serves every plain Point maze.
+// Design.  The plain-maze and quasi-static kernels: one thread is one
+// env; its state stays in registers for the whole step (or the whole
+// rollout).  Blocks of 128 threads; the last block masks the ragged edge.
+// The object-solve kernels (point_obj_step_kernel,
+// point_obj_rollout_kernel): a group of mmt_obj::kLanes lanes is one
+// env, the warp's groups in lockstep, ObjParams::groups envs a block;
+// each is built twice, for the envs' row stores in shared memory and in
+// global memory (kSharedRows, picked by ObjParams::shared_rows), so that
+// the shared stores are addressed as shared memory;
+// every lane of the group runs the robot's part of the step on the same
+// values, the lanes share the object solve, and the group's lane 0 writes
+// the env's outputs (point_objects.cuh, "Design").  The Pallas kernels
+// baked the wall segments and goals into the program at trace time; here
+// they are runtime tables (walls (W, 4), goals (G, 9)) that each block
+// stages into shared memory (48 walls are 768 bytes), and the scalars
+// come by value in PointParams.  So one binary, built once, serves every
+// plain Point maze.
 //
 // Layout.  The kernels read and write the public (B, nq) row-major tensors
 // in place, with the row strides passed in.  The JAX wrapper transposed to
@@ -53,7 +63,9 @@
 // + 2 crossing-detect passes), plus the sines and cosines.  At B = 4096 one
 // thread per env fills only 32 of 132 SMs with 4 warps each; that, and the
 // serial dependence inside a step, is the first thing to attack when the
-// kernel is made fast.  This version is the simple one that is right.
+// plain-maze kernels are made fast.  The object-solve kernels are bound by
+// each env's chain of dependent solve steps (point_objects.cuh, "What
+// bounds it"); their groups spread 4096 envs over every SM.
 //
 // Arithmetic.  The plain PyTorch versions (ops/segments.py,
 // models/point.py, tasks/core.py) and this file do the same float32
@@ -154,12 +166,12 @@ __device__ bool detect(const Tables& tb, float ox, float oy, float nx,
 }
 
 // An object world's data for the step: its scalars, its table (shared
-// memory), and this env's row scratch and trace (nullable).
+// memory), this env's group of lanes with its row store, and its trace
+// (nullable).
 struct ObjCtx {
   ObjParams p;
   const float* tab;
-  float* rows;
-  int n;
+  mmt_obj::Group g;
   uint32_t* trace;
 };
 
@@ -322,8 +334,8 @@ __device__ void point_step(const PointParams& p, const Tables& tb, float* q,
 #pragma unroll
     for (int i = 0; i < mmt_obj::kDofs; ++i)
       ov[i] = fminf(fmaxf(ov[i], -p.vel_limit), p.vel_limit);
-    mmt_obj::object_step(oc->p, oc->tab, oc->rows, oc->n, oc->trace, x, y,
-                         ori, vx, vy, vr, oq, ov);
+    mmt_obj::object_step(oc->p, oc->tab, oc->g, oc->trace, x, y, ori, vx,
+                         vy, vr, oq, ov);
   }
 
   // closed-form mj_step residual (models/point.py residual_step)
@@ -606,6 +618,28 @@ __device__ void store_objects(const float* tab, int nd, const float* oq,
   }
 }
 
+// The object kernels' block: the tables, the object table and the item
+// list in shared memory (mmt_obj::build_items, by the first warp), then
+// one group of mmt_obj::kLanes lanes per env, op.groups envs (whole
+// warps).  Returns the env of this thread's group (past the batch for a
+// spare group, which steps a copy of the last env and writes nothing), or
+// -1 where the whole warp is past the batch.
+__device__ int stage_obj_block(float* smem, const float* walls, int n_walls,
+                               const float* goals, int n_goals,
+                               const float* obj_table, const ObjParams& op,
+                               int n, Tables* tb, const float** tab) {
+  *tb = stage_tables(smem, walls, n_walls, goals, n_goals);
+  *tab = stage_objects(smem + n_walls * kWallCols + n_goals * kGoalCols,
+                       obj_table, op.n_table);
+  if (threadIdx.x < 32)
+    mmt_obj::build_items(op, *tab, reinterpret_cast<int*>(smem + op.off_items));
+  __syncthreads();
+  const int first = blockIdx.x * op.groups;
+  const int warp_env = first + (threadIdx.x & ~31) / mmt_obj::kLanes;
+  return warp_env < n ? first + (int)threadIdx.x / mmt_obj::kLanes : -1;
+}
+
+template <bool kSharedRows>
 __global__ void point_obj_step_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
@@ -617,11 +651,13 @@ __global__ void point_obj_step_kernel(
     const float* __restrict__ obj_table, ObjParams op, float* rows,
     uint32_t* trace, int n) {
   extern __shared__ float smem[];
-  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
-  const float* tab = stage_objects(
-      smem + n_walls * kWallCols + n_goals * kGoalCols, obj_table, op.n_table);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  Tables tb;
+  const float* tab;
+  const int e = stage_obj_block(smem, walls, n_walls, goals, n_goals,
+                                obj_table, op, n, &tb, &tab);
+  if (e < 0) return;
+  const bool live = e < n;
+  const int i = live ? e : n - 1;
   const int nq = 3 + op.nd;
   const float* qrow = qpos + (size_t)i * q_stride;
   const float* vrow = qvel + (size_t)i * v_stride;
@@ -630,13 +666,17 @@ __global__ void point_obj_step_kernel(
   float oq[mmt_obj::kDofs], ov[mmt_obj::kDofs];
   load_objects(tab, op.nd, qrow, vrow, oq, ov);
   int t = t_in[i];
-  const ObjCtx oc{op, tab, rows + i, n,
-                  trace ? trace + (size_t)i * 4 * op.trace_words : nullptr};
+  const ObjCtx oc{op, tab,
+                  mmt_obj::make_group<kSharedRows>(
+                      op, smem, rows, threadIdx.x / mmt_obj::kLanes),
+                  trace && live ? trace + (size_t)i * 4 * op.trace_words
+                                : nullptr};
   float rew;
   bool done;
   point_step<kObjMode>(p, tb, q, v, &t, act[(size_t)i * a_stride],
                        act[(size_t)i * a_stride + 1], &rew, &done, &oc, oq, ov,
                        nullptr);
+  if (!live || oc.g.lane != 0) return;
   float* qo = qpos_out + (size_t)i * nq;
   float* vo = qvel_out + (size_t)i * nq;
   for (int k = 0; k < 3; ++k) {
@@ -649,6 +689,7 @@ __global__ void point_obj_step_kernel(
   term[i] = done;
 }
 
+template <bool kSharedRows>
 __global__ void point_obj_rollout_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, int q_stride, int v_stride,
@@ -659,11 +700,13 @@ __global__ void point_obj_rollout_kernel(
     const float* __restrict__ obj_table, ObjParams op, float* rows, int n,
     int num_steps, uint32_t seed) {
   extern __shared__ float smem[];
-  const Tables tb = stage_tables(smem, walls, n_walls, goals, n_goals);
-  const float* tab = stage_objects(
-      smem + n_walls * kWallCols + n_goals * kGoalCols, obj_table, op.n_table);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  Tables tb;
+  const float* tab;
+  const int e = stage_obj_block(smem, walls, n_walls, goals, n_goals,
+                                obj_table, op, n, &tb, &tab);
+  if (e < 0) return;
+  const bool live = e < n;
+  const int i = live ? e : n - 1;
   const int nq = 3 + op.nd;
   const float* qrow = qpos + (size_t)i * q_stride;
   const float* vrow = qvel + (size_t)i * v_stride;
@@ -672,12 +715,15 @@ __global__ void point_obj_rollout_kernel(
   float oq[mmt_obj::kDofs], ov[mmt_obj::kDofs];
   load_objects(tab, op.nd, qrow, vrow, oq, ov);
   int t = t_in[i];
-  const ObjCtx oc{op, tab, rows + i, n, nullptr};
+  const ObjCtx oc{op, tab,
+                  mmt_obj::make_group<kSharedRows>(
+                      op, smem, rows, threadIdx.x / mmt_obj::kLanes),
+                  nullptr};
   float rew_sum = 0.f;
   int eps = 0;
   for (int s = 0; s < num_steps; ++s) {
     // counter (env, step, block, 0): actions, then the reset draws; the
-    // world dofs draw nothing
+    // world dofs draw nothing.  Every lane of the group draws the same.
     const uint4 b0 = mmt::philox_block((uint32_t)i, (uint32_t)s, 0u, seed);
     const uint4 b1 = mmt::philox_block((uint32_t)i, (uint32_t)s, 1u, seed);
     float rew;
@@ -705,6 +751,7 @@ __global__ void point_obj_rollout_kernel(
     rew_sum = rew_sum + rew;
     eps = eps + (done ? 1 : 0);
   }
+  if (!live || oc.g.lane != 0) return;
   float* qo = qpos_out + (size_t)i * nq;
   float* vo = qvel_out + (size_t)i * nq;
   for (int k = 0; k < 3; ++k) {
@@ -879,6 +926,38 @@ extern "C" int mmt_point_rollout(
   return (int)cudaGetLastError();
 }
 
+// The object kernels' launch: op's layout (lane_env.obj_geometry) checked
+// against the tables, the row buffer and the card, and the dynamic shared
+// memory above 48 KB allowed; the shared bytes, or 0 with *rc the error.
+// rows: the envs' row stores where !op.shared_rows, one for each group of
+// each of the launch's blocks.
+template <typename K>
+size_t obj_launch_bytes(K kernel, const ObjParams& op, const float* rows,
+                        int n_walls, int n_goals, int* rc) {
+  const size_t bytes =
+      sizeof(float) *
+      ((size_t)op.off_groups +
+       (op.shared_rows ? (size_t)op.groups * (size_t)op.group_floats : 0));
+  *rc = (int)cudaSuccess;
+  if (op.groups < 1 || op.groups * mmt_obj::kLanes > mmt_obj::kMaxThreads ||
+      op.groups * mmt_obj::kLanes % 32 != 0 ||
+      op.off_items < n_walls * kWallCols + n_goals * kGoalCols + op.n_table ||
+      op.off_groups < op.off_items + 1 +
+                          2 * ((op.n_balls > 0 ? op.n_walls + 3 : 0) +
+                               op.n_blocks * (op.n_walls + 10)) ||
+      op.row_stride < op.max_rows ||
+      op.group_floats <
+          (op.nd + mmt_obj::kRowFixed) * op.row_stride + op.trace_words ||
+      (!op.shared_rows && rows == nullptr)) {
+    *rc = (int)cudaErrorInvalidValue;
+    return 0;
+  }
+  if (bytes > 48 * 1024)
+    *rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return bytes;
+}
+
 extern "C" int mmt_point_obj_step(
     const float* qpos, const float* qvel, const int* t, const float* act,
     int q_stride, int v_stride, int a_stride, float* qpos_out,
@@ -886,11 +965,15 @@ extern "C" int mmt_point_obj_step(
     const float* walls, int n_walls, const float* goals, int n_goals,
     PointParams p, const float* obj_table, ObjParams op, float* rows,
     unsigned int* trace, int n, void* stream) {
+  auto* kernel = op.shared_rows ? point_obj_step_kernel<true>
+                                 : point_obj_step_kernel<false>;
+  int rc;
+  const size_t bytes =
+      obj_launch_bytes(kernel, op, rows, n_walls, n_goals, &rc);
+  if (rc != (int)cudaSuccess) return rc;
   if (n > 0) {
-    point_obj_step_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
-                            table_bytes(n_walls, n_goals) +
-                                sizeof(float) * (size_t)op.n_table,
-                            (cudaStream_t)stream>>>(
+    kernel<<<(n + op.groups - 1) / op.groups, op.groups * mmt_obj::kLanes,
+             bytes, (cudaStream_t)stream>>>(
         qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
         t_out, reward, term, walls, n_walls, goals, n_goals, p, obj_table, op,
         rows, trace, n);
@@ -905,16 +988,48 @@ extern "C" int mmt_point_obj_rollout(
     const float* goals, int n_goals, PointParams p, const float* obj_table,
     ObjParams op, float* rows, int n, int num_steps, unsigned int seed,
     void* stream) {
+  auto* kernel = op.shared_rows ? point_obj_rollout_kernel<true>
+                                 : point_obj_rollout_kernel<false>;
+  int rc;
+  const size_t bytes =
+      obj_launch_bytes(kernel, op, rows, n_walls, n_goals, &rc);
+  if (rc != (int)cudaSuccess) return rc;
   if (n > 0) {
-    point_obj_rollout_kernel<<<(n + kBlock - 1) / kBlock, kBlock,
-                               table_bytes(n_walls, n_goals) +
-                                   sizeof(float) * (size_t)op.n_table,
-                               (cudaStream_t)stream>>>(
+    kernel<<<(n + op.groups - 1) / op.groups, op.groups * mmt_obj::kLanes,
+             bytes, (cudaStream_t)stream>>>(
         qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
         reward_sum, episodes, walls, n_walls, goals, n_goals, p, obj_table,
         op, rows, n, num_steps, seed);
   }
   return (int)cudaGetLastError();
+}
+
+// Warps an SM holds at once of the object step (rollout = 0) or rollout
+// kernel at op's launch, registers and shared memory counted (CUDA's
+// occupancy calculator); -1 on an error.
+extern "C" int mmt_point_obj_warps_per_sm(ObjParams op, int n_walls,
+                                          int n_goals, int rollout) {
+  int rc, blocks = -1;
+  const float* rows = reinterpret_cast<const float*>(&op);  // not read
+  if (rollout) {
+    auto* kernel = op.shared_rows ? point_obj_rollout_kernel<true>
+                                   : point_obj_rollout_kernel<false>;
+    const size_t bytes =
+        obj_launch_bytes(kernel, op, rows, n_walls, n_goals, &rc);
+    if (rc == (int)cudaSuccess)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, op.groups * mmt_obj::kLanes, bytes);
+  } else {
+    auto* kernel = op.shared_rows ? point_obj_step_kernel<true>
+                                   : point_obj_step_kernel<false>;
+    const size_t bytes =
+        obj_launch_bytes(kernel, op, rows, n_walls, n_goals, &rc);
+    if (rc == (int)cudaSuccess)
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, op.groups * mmt_obj::kLanes, bytes);
+  }
+  return rc == (int)cudaSuccess ? blocks * op.groups * mmt_obj::kLanes / 32
+                                : -1;
 }
 
 extern "C" int mmt_point_quasi_step(

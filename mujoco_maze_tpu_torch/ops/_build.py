@@ -109,8 +109,9 @@ def build() -> Path:
     work.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     try:
-        objs, _ = _compile_all(work)
+        objs, logs = _compile_all(work, ("-Xptxas", "-v"))
         _link(objs, tmp)
+        _ptxas_log(out).write_text("\n".join(logs))
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
@@ -124,10 +125,18 @@ def load() -> ctypes.CDLL:
     return ctypes.CDLL(str(build()))
 
 
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_name(f"{lib.stem}.ptxas.txt")
+
+
 def ptxas_report() -> str:
     """What ``ptxas -v`` says of each kernel (registers, stack frame, spill
-    stores and loads, shared memory): the same sources and flags compiled
-    once more into throwaway objects."""
+    stores and loads, shared memory): kept beside the library by the build
+    that made it, else the same sources and flags compiled once more into
+    throwaway objects."""
+    kept = _ptxas_log(library_path())
+    if library_path().exists() and kept.exists():
+        return kept.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = BUILD_DIR / f"ptxas.{os.getpid()}"
     work.mkdir(exist_ok=True)

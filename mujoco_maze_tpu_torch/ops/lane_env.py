@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -35,7 +36,7 @@ from .ant_kernel import (AntKernelSpec, ant_rollout_plain,
 from .engine_kernel import (EngineKernelSpec, _trees, engine_step_plain,
                             row_floats)
 from . import object_lanes
-from .point_kernel import (REWARD_TYPES, PointKernelSpec, Tensors5,
+from .point_kernel import (MAX_OBJ_DOFS, REWARD_TYPES, PointKernelSpec, Tensors5,
                            point_rollout_plain, point_step_plain)
 from .swimmer_kernel import (SwimmerKernelSpec, swimmer_rollout_plain,
                              swimmer_step_plain)
@@ -147,25 +148,134 @@ def point_params(ks: PointKernelSpec) -> PointParams:
 
 
 class ObjParams(ctypes.Structure):
-    """The scalars of one Point object world, passed by value (mirrors
-    ``struct ObjParams`` in ``csrc/point_objects.cuh``, field for field)."""
+    """The scalars of one Point object world and the launch's shared-memory
+    layout (:func:`obj_geometry`), passed by value (mirrors ``struct
+    ObjParams`` in ``csrc/point_objects.cuh``, field for field)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "nd", "n_walls", "n_balls", "n_blocks", "newton_iters", "ls_iters",
         "max_rows", "off_walls", "off_ball", "off_blocks", "block_stride",
-        "n_table", "trace_words", "head_obj",
+        "n_table", "trace_words", "head_obj", "groups", "row_stride",
+        "group_floats", "off_items", "off_groups", "shared_rows",
     )] + [(name, ctypes.c_float) for name in (
         "h", "ah_half", "bw16", "bw13",
         "mu", "sphere_r", "sphere_z", "arrow_off", "hl", "hw", "hz_arrow",
         "az_c", "floor_pen", "inv101",
-    )]
+    )] + [("x_free", ctypes.c_float * MAX_OBJ_DOFS)]
 
 
-def obj_params(ks: PointKernelSpec) -> ObjParams:
-    """The struct of an object world: each constant the float32 value the
-    plain version (``object_lanes``) uses."""
+@functools.lru_cache(maxsize=None)
+def obj_constants() -> Dict[str, int]:
+    """The object kernels' compile-time constants, read once from their one
+    definition, ``csrc/point_objects.cuh``: ``kRowFixed`` (the floats a
+    row keeps after its nd Jacobian columns: aref, rinv, and J x - aref
+    and J p of the current Newton step), ``kLanes`` (the lanes that step
+    one env) and ``kMaxThreads`` (the threads of a block)."""
+    text = (_build.CSRC / "point_objects.cuh").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kRowFixed", "kLanes", "kMaxThreads")}
+
+
+class ObjGeometry(NamedTuple):
+    """The launch of the Point object kernels on a world (floats of the
+    block's dynamic shared memory: the wall and goal tables, the object
+    table, the item list, then, where ``shared_rows``, one row store and
+    active mask per env; else those live in a global buffer of the same
+    layout, one per group of each block)."""
+
+    groups: int          # envs a block, a group of kLanes lanes each
+    threads: int         # threads a block
+    smem_bytes: int      # dynamic shared memory a block
+    row_stride: int      # floats between two fields of an env's row store
+    group_floats: int    # one env's row store and active mask
+    off_items: int       # the item list (1 + 2 obj_items(ks) ints)
+    off_groups: int      # the first env's row store, or the end of the
+                         # tables and items where the stores are global
+    shared_rows: bool    # the row stores in shared memory
+    groups_per_sm: int   # envs an SM's shared memory holds at once
+
+
+def obj_items(ks: PointKernelSpec) -> int:
+    """At most the candidate items the object kernels list (``build_items``
+    in csrc/point_objects.cuh): a ball's each wall, floor, robot and arrow;
+    a block's robot, arrow, each wall, earlier blocks (at most 3), ball,
+    floor and slide limits (3)."""
+    o = ks.object_spec
+    W = o.wb_c.shape[0]
+    return (W + 3) * len(o.balls) + (W + 10) * len(o.blocks)
+
+
+def obj_layout(ks: PointKernelSpec, groups: int,
+               shared_rows: bool) -> ObjGeometry:
+    """The object kernels' layout on ``ks`` at ``groups`` envs a block,
+    with the envs' row stores in shared memory or in global memory: each
+    env's store holds all R candidate rows (nd + kRowFixed fields of R | 1
+    floats; the stride is odd so that the fields of a row fall on
+    different banks) and R bits of active mask.  The item list takes a
+    count, and a code and a first row for each of at most
+    :func:`obj_items` items."""
+    c = obj_constants()
+    R = ks.max_rows
+    stride = R | 1
+    group_floats = ((ks.object_spec.nd + c["kRowFixed"]) * stride
+                    + trace_words(ks))
+    off_items = (ks.walls.numel() + ks.goals.numel()
+                 + ks.obj_table.numel())
+    off_groups = off_items + 1 + 2 * obj_items(ks)
+    smem = 4 * (off_groups + (groups * group_floats if shared_rows else 0))
+    return ObjGeometry(groups, groups * c["kLanes"], smem, stride,
+                       group_floats, off_items, off_groups, shared_rows,
+                       groups * (SMEM_SM // (smem + SMEM_BLOCK_RESERVED)))
+
+
+def obj_geometry(ks: PointKernelSpec) -> ObjGeometry:
+    """The launch of the object kernels on ``ks``, from its candidate rows
+    R, its object dofs nd and its tables: a full block of kMaxThreads
+    threads, whose envs keep their row stores in shared memory where all
+    of them fit a block's shared memory (the H100's 227 KB) beside the
+    tables, and else in global memory, where the rows the solve reads,
+    the active ones compacted to the front, stay in L1.  Raises
+    NotImplementedError only where the tables and the item list alone
+    overflow a block's shared memory, naming the sizes."""
+    c = obj_constants()
+    groups = c["kMaxThreads"] // c["kLanes"]
+    geo = obj_layout(ks, groups, True)
+    if geo.smem_bytes > SMEM_BLOCK_MAX:
+        geo = obj_layout(ks, groups, False)
+    if geo.smem_bytes > SMEM_BLOCK_MAX:
+        raise NotImplementedError(
+            f"the Point object kernels stage {4 * geo.off_items} bytes of "
+            f"tables and a list of the world's contact items for "
+            f"{ks.max_rows} candidate rows in {geo.smem_bytes} bytes of "
+            f"shared memory, above the H100's {SMEM_BLOCK_MAX} a block")
+    return geo
+
+
+def obj_free_solve(ks: PointKernelSpec, device) -> tuple:
+    """The object accelerations of a forward evaluation without active
+    rows, padded with 0 to the kernels' 6 dofs: they depend on the world
+    alone (the masses, gravity and the iteration counts).  Computed by
+    the plain version's solve on ``device``, which the kernels equal to
+    the bit."""
+    o = ks.object_spec
+    none = torch.zeros((0, 1), dtype=torch.float32, device=device)
+    x = object_lanes._solve_newton(
+        o, [none] * o.nd, none, none,
+        [torch.zeros(1, dtype=torch.float32, device=device)] * o.nd,
+        object_lanes.gravity(o))
+    return tuple(float(xi) for xi in x) + (0.0,) * (MAX_OBJ_DOFS - o.nd)
+
+
+def obj_params(ks: PointKernelSpec,
+               geo: Optional[ObjGeometry] = None) -> ObjParams:
+    """The struct of an object world at the launch ``geo`` (default:
+    :func:`obj_geometry`): each constant the float32 value the plain
+    version (``object_lanes``) uses; ``x_free`` is left 0 (the launch
+    sets it, :func:`obj_free_solve`)."""
     from .point_kernel import object_table
 
+    geo = geo or obj_geometry(ks)
     o = ks.object_spec
     F = object_lanes.F
     _, off_walls, off_ball, off_blocks, stride = object_table(
@@ -177,7 +287,10 @@ def obj_params(ks: PointKernelSpec) -> ObjParams:
         ls_iters=o.ls_iters, max_rows=ks.max_rows, off_walls=off_walls,
         off_ball=off_ball, off_blocks=off_blocks, block_stride=stride,
         n_table=ks.obj_table.numel(), trace_words=trace_words(ks),
-        head_obj=int(ks.obs_offset == 3),
+        head_obj=int(ks.obs_offset == 3), groups=geo.groups,
+        row_stride=geo.row_stride, group_floats=geo.group_floats,
+        off_items=geo.off_items, off_groups=geo.off_groups,
+        shared_rows=int(geo.shared_rows),
         h=h, ah_half=F(np.float32(0.5) * np.float32(h)), bw16=F(1.0 / 6.0),
         bw13=F(1.0 / 3.0), mu=F(o.mu), sphere_r=F(o.sphere_r),
         sphere_z=F(o.sphere_z), arrow_off=F(o.arrow_off),
@@ -207,12 +320,6 @@ def quasi_params(ks: PointKernelSpec) -> QuasiParams:
 def trace_words(ks: PointKernelSpec) -> int:
     """32-bit words of one forward evaluation's active-row bit set."""
     return (ks.max_rows + 31) // 32
-
-
-# Floats a row keeps in the object kernels' scratch: J (6), aref, rinv,
-# J x - aref and J p of the current Newton step (kRowFields in
-# csrc/point_objects.cuh).
-OBJ_ROW_FIELDS = 10
 
 
 class AntParams(ctypes.Structure):
@@ -520,17 +627,19 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
         _P, _I, _P, _I,                  # walls, W, goals, G
         PointParams, _P, ObjParams,      # params, object table, its params
-        _P, _P, _I, _P]                  # row scratch, trace (nullable), B,
-                                         # stream
+        _P, _P, _I, _P]                  # row stores (nullable), trace
+                                         # (nullable), B, stream
     lib.mmt_point_obj_step.restype = _I
     lib.mmt_point_obj_rollout.argtypes = [
         _P, _P, _P, _I, _I,              # qpos, qvel, t + row strides
         _P, _P, _P, _P, _P,              # qpos', qvel', t', reward sum, episodes
         _P, _I, _P, _I,                  # walls, W, goals, G
         PointParams, _P, ObjParams, _P,  # params, object table, its params,
-                                         # row scratch
+                                         # row stores (nullable)
         _I, _I, ctypes.c_uint, _P]       # B, steps, seed, stream
     lib.mmt_point_obj_rollout.restype = _I
+    lib.mmt_point_obj_warps_per_sm.argtypes = [ObjParams, _I, _I, _I]
+    lib.mmt_point_obj_warps_per_sm.restype = _I
     lib.mmt_point_quasi_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P,              # qpos', qvel', t', reward, terminated
@@ -612,20 +721,57 @@ def _tables(ks: PointKernelSpec):
             ks.goals.shape[0])
 
 
-class _ObjScratch:
-    """The object kernels' row scratch: ``max_rows x OBJ_ROW_FIELDS`` floats
-    per env, allocated with ``torch.empty`` at first use and kept by the
-    wrapper (launches on one stream reuse it in turn)."""
+def obj_resident_warps(ks: PointKernelSpec,
+                       geo: Optional[ObjGeometry] = None) -> Dict[str, int]:
+    """Warps an SM holds at once for the object step and rollout kernels at
+    the launch ``geo`` (default: :func:`obj_geometry`), registers and
+    shared memory counted (CUDA's occupancy calculator on the built
+    kernels; the card only)."""
+    p, out = obj_params(ks, geo), {}
+    for kind, rollout in (("step", 0), ("rollout", 1)):
+        warps = _lib().mmt_point_obj_warps_per_sm(
+            p, ks.walls.shape[0], ks.goals.shape[0], rollout)
+        if warps < 0:
+            raise RuntimeError(f"the occupancy query of the object {kind} "
+                               "kernel failed")
+        out[kind] = warps
+    return out
 
-    def __init__(self, ks: PointKernelSpec, num_envs: int) -> None:
-        self.params = obj_params(ks)
-        self.numel = max(ks.max_rows, 1) * OBJ_ROW_FIELDS * num_envs
-        self.buf = None
 
-    def get(self, dev: torch.device) -> torch.Tensor:
-        if self.buf is None or self.buf.device != dev:
-            self.buf = torch.empty(self.numel, dtype=torch.float32, device=dev)
-        return self.buf
+class _ObjLaunch:
+    """The object kernels' launch on a world, set up at the first CUDA
+    launch, so that a world the launch cannot take still steps on the CPU:
+    its geometry (:func:`obj_geometry`), its struct with the solve without
+    active rows (:func:`obj_free_solve`, on the launch's device), and,
+    where the row stores live in global memory, their buffer (allocated
+    with ``torch.empty`` and kept; launches on one stream reuse it in
+    turn)."""
+
+    def __init__(self, ks: PointKernelSpec) -> None:
+        self.ks = ks
+        self.geo: Optional[ObjGeometry] = None
+        self._params = None
+        self._rows = None
+
+    def params(self, dev: torch.device) -> ObjParams:
+        if self._params is None:
+            self.geo = self.geo or obj_geometry(self.ks)
+            p = obj_params(self.ks, self.geo)
+            p.x_free[:] = obj_free_solve(self.ks, dev)
+            self._params = p
+        return self._params
+
+    def rows(self, dev: torch.device, num_envs: int) -> Optional[int]:
+        """The global row stores of a launch of ``num_envs`` envs (after
+        :meth:`params`), or None where they live in shared memory."""
+        geo = self.geo
+        if geo.shared_rows:
+            return None
+        numel = -(-num_envs // geo.groups) * geo.groups * geo.group_floats
+        if (self._rows is None or self._rows.device != dev
+                or self._rows.numel() < numel):
+            self._rows = torch.empty(numel, dtype=torch.float32, device=dev)
+        return self._rows.data_ptr()
 
 
 class PointStep:
@@ -643,8 +789,8 @@ class PointStep:
         self.ks = ks
         self.num_envs = num_envs
         self.params = point_params(ks)
-        self.scratch = (_ObjScratch(ks, num_envs)
-                        if ks.object_spec is not None else None)
+        self.obj = (_ObjLaunch(ks) if ks.object_spec is not None
+                    else None)
         self.quasi = (quasi_params(ks) if ks.quasi_table is not None
                       else None)
 
@@ -679,7 +825,7 @@ class PointStep:
                 *ins, *outs, *_tables(self.ks), self.params,
                 self.ks.quasi_table.data_ptr(), self.quasi, B, stream)
             name = "point_quasi_step"
-        elif self.scratch is None:
+        elif self.obj is None:
             if trace:
                 raise ValueError("a plain maze has no object rows to trace")
             rc = _lib().mmt_point_step(*ins, *outs, *_tables(self.ks),
@@ -690,9 +836,9 @@ class PointStep:
                               device=dev) if trace else None)
             rc = _lib().mmt_point_obj_step(
                 *ins, *outs, *_tables(self.ks), self.params,
-                self.ks.obj_table.data_ptr(), self.scratch.params,
-                self.scratch.get(dev).data_ptr(),
-                None if tr is None else tr.data_ptr(), B, stream)
+                self.ks.obj_table.data_ptr(), self.obj.params(dev),
+                self.obj.rows(dev, B), None if tr is None else tr.data_ptr(),
+                B, stream)
             name = "point_objects_step"
         _raise_on(rc, name)
         LAUNCHES[name] += 1
@@ -712,8 +858,8 @@ class PointRollout:
         self.num_envs = num_envs
         self.num_steps = num_steps
         self.params = point_params(ks)
-        self.scratch = (_ObjScratch(ks, num_envs)
-                        if ks.object_spec is not None else None)
+        self.obj = (_ObjLaunch(ks) if ks.object_spec is not None
+                    else None)
         self.quasi = (quasi_params(ks) if ks.quasi_table is not None
                       else None)
 
@@ -748,15 +894,14 @@ class PointRollout:
                 *ins, self.ks.quasi_table.data_ptr(), self.quasi, B,
                 self.num_steps, seed, stream)
             name = "point_quasi_rollout"
-        elif self.scratch is None:
+        elif self.obj is None:
             rc = _lib().mmt_point_rollout(*ins, B, self.num_steps, seed,
                                           stream)
             name = "point_rollout"
         else:
             rc = _lib().mmt_point_obj_rollout(
-                *ins, self.ks.obj_table.data_ptr(), self.scratch.params,
-                self.scratch.get(dev).data_ptr(), B, self.num_steps, seed,
-                stream)
+                *ins, self.ks.obj_table.data_ptr(), self.obj.params(dev),
+                self.obj.rows(dev, B), B, self.num_steps, seed, stream)
             name = "point_objects_rollout"
         _raise_on(rc, name)
         LAUNCHES[name] += 1

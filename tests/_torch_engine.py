@@ -104,17 +104,52 @@ class TorchTwinRoller(torch_custom.RollerRobot):
                                     self.WORLD_GEOM_DEFAULTS)], actuators
 
 
+# the studded roller of chip_smoke.py studded_roller_spec: STUDS test
+# spheres inside the roller's own, here at the placement whose phase-22
+# check once failed (studs of 0.1 m at 0.25 m), in the SmallBilliard task
+STUDS, STUD_R, STUD_RING = 60, 0.1, 0.25
+
+
+def _studs(model_mod, bodies, defaults):
+    bodies[0].geoms.extend(
+        model_mod.Geom(gtype=0, size=(STUD_R,),
+                       pos=(STUD_RING * np.cos(2 * np.pi * k / STUDS),
+                            STUD_RING * np.sin(2 * np.pi * k / STUDS), 0.0),
+                       contype=1, conaffinity=1, **defaults)
+        for k in range(STUDS))
+    return bodies
+
+
+class JaxStuddedRoller(jax_custom.RollerRobot):
+    NAME = "StuddedRoller"
+
+    def build_bodies(self, torso_z: float = 0.75):
+        bodies, actuators = super().build_bodies(torso_z)
+        return _studs(jax_model, bodies, self.WORLD_GEOM_DEFAULTS), actuators
+
+
+class TorchStuddedRoller(torch_custom.RollerRobot):
+    NAME = "StuddedRoller"
+
+    def build_bodies(self, torso_z: float = 0.75):
+        bodies, actuators = super().build_bodies(torso_z)
+        return _studs(torch_model, bodies, self.WORLD_GEOM_DEFAULTS), actuators
+
+
 def specs(world: str):
     """``(jax_spec, torch_spec)`` of a Roller world: ``world`` names a
     stock task class (``"GoalRewardPush"``; the SmallBilliard task at
     BALL_SCALE, the others at SCALE), ``"Arm"`` for the ball-jointed robot
-    with fluid drag in the UMaze, or ``"Twin"`` for the twin roller in the
-    UMaze."""
-    task = "GoalRewardUMaze" if world in ("Arm", "Twin") else world
+    with fluid drag in the UMaze, ``"Twin"`` for the twin roller in the
+    UMaze, or ``"Studded"`` for the studded roller in the SmallBilliard
+    task."""
+    task = {"Arm": "GoalRewardUMaze", "Twin": "GoalRewardUMaze",
+            "Studded": BALL_TASK}.get(world, world)
     robots = {"Arm": (JaxArmRoller, TorchArmRoller),
-              "Twin": (JaxTwinRoller, TorchTwinRoller)}.get(
+              "Twin": (JaxTwinRoller, TorchTwinRoller),
+              "Studded": (JaxStuddedRoller, TorchStuddedRoller)}.get(
         world, (jax_custom.RollerRobot, torch_custom.RollerRobot))
-    scale = BALL_SCALE if world == BALL_TASK else SCALE
+    scale = BALL_SCALE if task == BALL_TASK else SCALE
     jtask, ttask = getattr(jax_library, task), getattr(torch_library, task)
     js = JaxSpec(robot=robots[0](), maze_task=jtask, maze_size_scaling=scale,
                  inner_reward_scaling=jtask.INNER_REWARD_SCALING)
