@@ -62,13 +62,19 @@ Phases (each fails the run on its own; nothing is caught):
     over a 1000-step trajectory of the public step API with auto-reset,
     from t spread over the episode and some envs started on the goal;
     at four of those steps also through the env's own 4096-env wrapper on
-    the step API's live states and on copies with wider rows;
+    the step API's live states and on copies with wider rows; and on
+    SwimmerUMaze-v0 and ReacherUMaze-v0 at 1 and 4093 envs (spare groups
+    past the batch), every output equal to the bit;
 14. the swimmer rollout kernel against its plain version (the same Philox
     stream) on SwimmerUMaze-v0 and SwimmerPush-v0, 64 steps from t spread
     over [936, 1000): equal episode counts, every reset draw exact, world
-    dofs included;
+    dofs included; and on SwimmerUMaze-v0 and ReacherUMaze-v0 at 1 and
+    4093 envs, 16 steps from t in [984, 1000), every output equal to the
+    bit;
 15. the swimmer main path, SwimmerUMaze-v0 at 4096 envs, counted, timed
-    and checked as in phase 4, with each swimmer kernel's numbers;
+    and checked as in phase 4, with each swimmer kernel's numbers, its
+    launch (lanes an env, envs a block), the warps an SM holds and what
+    ``ptxas -v`` says of the swimmer kernels (a spill fails the run);
 16. the card's fp32 peak measured by the FMA-chain kernel
     (``utils/roofline.py``), checked against its plain version on a small
     array and at the timed launch's chain count, printed beside the data
@@ -218,7 +224,13 @@ runs the Point kernels' plain-maze and object-solve modes of both on
 eight worlds, requires every output equal to the bit, and times the
 object kernels of both on PointPush-v0, PointMultiPush-v0 and
 PointPushMaze-v0 in turns (DIR, this, this, DIR) with both trees' ptxas
-lines; ``python3 chip_smoke.py
+lines; ``python3 chip_smoke.py --swimmer-parent-probe DIR`` runs the
+swimmer step and rollout kernels of both on SwimmerUMaze-v0,
+ReacherUMaze-v0 and SwimmerPush-v0 (phase 13's teacher-forced states at
+512,000, 4096, 4093 and 1 envs, phase 14's rollout at 4096 and 4093),
+requires every output equal to the bit, and times both in turns (DIR,
+this, this, DIR: the step at 4096 and 1024 envs, the rollout per 1000
+steps) with both trees' ptxas lines; ``python3 chip_smoke.py
 --ant-phases`` builds the Ant kernels with their phase counters and
 prints where a forward evaluation's SM cycles go on four Ant worlds;
 ``python3 chip_smoke.py --engine-parent-probe DIR`` runs the generic
@@ -324,6 +336,10 @@ SWIMMER_ROLL_IDS = ("SwimmerUMaze-v0", "SwimmerPush-v0")
 SWIMMER_MAIN_ID = "SwimmerUMaze-v0"
 SWIMMER_CHUNK = 125         # recorded steps per comparison launch
 SWIMMER_LIVE_STEPS = (0, 1, 500, 999)   # also checked at B envs, live states
+# batches that leave a block's last groups, or a warp's, past the batch
+SWIMMER_TAIL_IDS = ("SwimmerUMaze-v0", "ReacherUMaze-v0")
+SWIMMER_TAIL_ENVS = (1, B - 3)
+SWIMMER_TAIL_STEPS = 16     # rollout steps from t in [984, 1000)
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores.  Bounds stay on the data sheet's figure; the
 # measured fp32 peak (phase 16) is printed beside it.
@@ -1421,6 +1437,78 @@ def swimmer_rollout_check(env_id: str, seed: int):
     return err
 
 
+def swimmer_tail_check(env_id: str, seed: int, kind: str) -> None:
+    """Phases 13 and 14 at the batches SWIMMER_TAIL_ENVS, which leave the
+    last block's spare groups, and warps, past the batch: the step
+    (``kind`` "step") from states with the hinges over +-2 rad and t over
+    the episode, or a SWIMMER_TAIL_STEPS-step rollout ("rollout") from t
+    in its last SWIMMER_TAIL_STEPS steps, so that every env resets; every
+    output equal to the plain version's to the bit."""
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import lane_env, make_fast_step
+    from mujoco_maze_tpu_torch.ops.swimmer_kernel import (swimmer_rollout_plain,
+                                                          swimmer_step_plain)
+
+    phase = "13" if kind == "step" else "14"
+    ks = make_fast_step(mmt.make_batched(env_id, B)).ks
+    nr, nq = ks.dyn.n_links + 2, 2 + ks.dyn.n_links + ks.n_world
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    uni = lambda *shape, lo=-1.0, hi=1.0: lo + (hi - lo) * torch.rand(
+        *shape, generator=gen, device="cuda")
+    g = ks.goals[0]
+    same = {}
+    for n in SWIMMER_TAIL_ENVS:
+        q = uni(n, nq, lo=-0.1, hi=0.1)
+        q[:, :2] = uni(n, 2, lo=-2.0, hi=10.0)
+        q[:, 2:nr] = uni(n, nr - 2, lo=-2.0, hi=2.0)
+        v = uni(n, nq)
+        # every 7th env on the first goal (the dimensions its mask keeps)
+        q[::7, :3] = torch.where(g[3:6] > 0, g[:3], q[::7, :3])
+        if kind == "step":
+            t = torch.randint(0, EPISODE_LIMIT, (n,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            a = uni(n, ks.dyn.n_act, lo=-1.2, hi=1.2)
+            kern = lane_env.SwimmerStep(ks, n)(q, v, t, a)
+            plain = swimmer_step_plain(ks, q, v, t, a)
+        else:
+            t = (EPISODE_LIMIT - SWIMMER_TAIL_STEPS
+                 + torch.arange(n, device="cuda") % SWIMMER_TAIL_STEPS).int()
+            kern = lane_env.SwimmerRollout(ks, n, SWIMMER_TAIL_STEPS).per_env(
+                q, v, t, seed)
+            plain = swimmer_rollout_plain(ks, q, v, t, seed,
+                                          SWIMMER_TAIL_STEPS)
+        same[n] = sum(bool(torch.equal(x, y)) for x, y in zip(kern, plain))
+    log(f"phase {phase}: {env_id} swimmer {kind} kernel vs plain at "
+        f"{SWIMMER_TAIL_ENVS} envs (spare groups past the batch): outputs "
+        f"equal to the bit {same} of 5 each")
+    if any(k != 5 for k in same.values()):
+        raise SystemExit(f"swimmer {kind} kernel disagrees with its plain "
+                         f"version on {env_id} at a tail batch")
+
+
+def swimmer_launch_report(ks) -> dict:
+    """The swimmer kernels' launch at B envs of ``ks``'s chain, the warps an
+    SM holds and what ``ptxas -v`` says of them; fails on a spill."""
+    import re
+
+    from mujoco_maze_tpu_torch.ops import lane_env
+
+    geo = lane_env.swimmer_geometry(ks.dyn.n_links, B)
+    warps = lane_env.swimmer_resident_warps(ks)
+    ptx = ptxas_lines("swimmer_")
+    spills = [int(x) for pair in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptx)
+        for x in pair]
+    log(f"phase 15: swimmer kernels at {B} envs: {geo.lanes} lanes an env, "
+        f"{geo.envs} envs ({geo.threads} threads) a block, {geo.blocks} "
+        f"blocks; warps an SM {warps}; ptxas -v:\n{ptx}")
+    if not spills or any(spills):
+        raise SystemExit("the swimmer kernels spill (or ptxas said nothing)")
+    return {"lanes": geo.lanes, "envs_per_block": geo.envs,
+            "warps_per_sm": warps, "ptxas": ptx}
+
+
 def swimmer_main_path():
     """Phase 15: the swimmer main path through the public API, counted,
     timed and checked; then each swimmer kernel's numbers at its shapes."""
@@ -1573,11 +1661,12 @@ def swimmer_main_path():
         f"swimmer_rollout {ms_roll:.6g} ms per {ROLLOUT_STEPS}-step launch, "
         f"{dev_roll:.6g} ms on the device (plain {ms_roll_plain:.6g} ms, bound "
         f"{roll_bound[0]:.3g} ms by {roll_bound[1]})")
+    launch = swimmer_launch_report(ks)
     return {
         "step": {"name": "swimmer_step", "launches": launches["swimmer_step"],
                  "ms": ms_step, "device_ms": dev_step,
                  "plain_ms": ms_step_plain, "bound_ms": step_bound[0],
-                 "bound_by": step_bound[1]},
+                 "bound_by": step_bound[1], "launch": launch},
         "rollout": {"name": "swimmer_rollout",
                     "launches": launches["swimmer_rollout"], "ms": ms_roll,
                     "device_ms": dev_roll, "plain_ms": ms_roll_plain,
@@ -5021,6 +5110,205 @@ def point_parent_probe(args) -> int:
     return 0 if all(same.values()) and keys == sorted(got["this"].files) else 1
 
 
+SWIMMER_PROBE_FLAG = "--swimmer-parent-probe"   # PARENT_DIR
+SWIMMER_PROBE_IN_FLAG = "--swimmer-probe-in"     # PATH (.npz), this tree
+SWIMMER_PROBE_OUT_FLAG = "--swimmer-probe-out"   # IN OUT [--time], in the
+                                                 # probed tree
+SWIMMER_PROBE_IDS = ("SwimmerUMaze-v0", "ReacherUMaze-v0", "SwimmerPush-v0")
+SWIMMER_PROBE_REPS = 20
+
+
+def swimmer_probe_inputs(args) -> int:
+    """``--swimmer-probe-in PATH``: the inputs of the swimmer probe on
+    SWIMMER_PROBE_IDS, saved to PATH: phase 13's teacher-forced states (the
+    public step API at B envs from t spread over the episode and every
+    64th env on the goal, SWIMMER_CHUNK steps recorded with their
+    actions) and phase 14's rollout start (reset states, t spread over the
+    episode's last ROLLOUT_STEPS steps)."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.envs.env import EPISODE_LIMIT
+    from mujoco_maze_tpu_torch.ops import _build
+
+    _build.load()
+    out = {}
+    for k, env_id in enumerate(SWIMMER_PROBE_IDS):
+        env = mmt.make_batched(env_id, B)
+        spec = env.spec
+        st, _ = env.reset(71 + k)
+        gen = torch.Generator(device="cuda").manual_seed(71 + k)
+        g = spec.heads.goals
+        on_goal = torch.arange(B, device="cuda") % 64 == 0
+        q = torch.where(on_goal[:, None] & (g.dim_mask[0] > 0), g.pos[0],
+                        st.qpos[:, :3])
+        st = st._replace(qpos=torch.cat([q, st.qpos[:, 3:]], dim=1),
+                         t=torch.randint(0, EPISODE_LIMIT, (B,), generator=gen,
+                                         device="cuda", dtype=torch.int32))
+        obs = spec._observe(st)
+        policy = env.random_policy()
+        rec = {"q": [], "v": [], "t": [], "a": []}
+        for _ in range(SWIMMER_CHUNK):
+            act = policy(obs, gen)
+            for name, x in (("q", st.qpos), ("v", st.qvel), ("t", st.t),
+                            ("a", act)):
+                rec[name].append(x.cpu().numpy())
+            res = env.step(st, act)
+            st, obs = res.state, res.obs
+        for name, xs in rec.items():
+            out[f"{env_id}/{name}"] = np.concatenate(xs)
+        st, _ = env.reset(81 + k)
+        out[f"{env_id}/roll_q"] = st.qpos.cpu().numpy()
+        out[f"{env_id}/roll_v"] = st.qvel.cpu().numpy()
+        out[f"{env_id}/roll_t"] = (EPISODE_LIMIT - ROLLOUT_STEPS
+                                   + np.arange(B) % ROLLOUT_STEPS).astype(np.int32)
+    np.savez(args[0], **out)
+    return 0
+
+
+def swimmer_probe_outputs(args) -> int:
+    """``--swimmer-probe-out IN OUT [--time]``, run from the tree whose
+    kernels are probed: on the inputs at IN, every output of the step
+    kernel on all SWIMMER_CHUNK * B teacher-forced states, on the first
+    B, B - 3 and 1 of them, and of a ROLLOUT_STEPS-step rollout at B and
+    B - 3 envs, saved to OUT; with ``--time``, each ID's times instead
+    (the step at B envs by CUDA events over back-to-back launches and
+    around single launches, the step at B / 4 envs and the 1000-step
+    rollout around single launches), the tree's swimmer launch where it
+    has one and what ``ptxas -v`` says of the swimmer kernels."""
+    import numpy as np
+
+    import mujoco_maze_tpu_torch as mmt
+    from mujoco_maze_tpu_torch.ops import _build, lane_env, make_fast_step
+
+    _build.load()
+    inp = np.load(args[0])
+    timed = "--time" in args
+    out = {}
+    for env_id in SWIMMER_PROBE_IDS:
+        ks = make_fast_step(mmt.make_batched(env_id, B)).ks
+        q, v, t, a = (torch.as_tensor(inp[f"{env_id}/{x}"], device="cuda")
+                      for x in "qvta")
+        rq, rv, rt = (torch.as_tensor(inp[f"{env_id}/roll_{x}"], device="cuda")
+                      for x in "qvt")
+        if timed:
+            step = lane_env.SwimmerStep(ks, B)
+            quarter = lane_env.SwimmerStep(ks, B // 4)
+            args_b = (q[:B], v[:B], t[:B], a[:B])
+            args_q = (q[:B // 4], v[:B // 4], t[:B // 4], a[:B // 4])
+            step(*args_b)
+            roll = lane_env.SwimmerRollout(ks, B, MAIN_STEPS)
+            nums = {"step_ms": cuda_ms(lambda: step(*args_b), 200),
+                    "step_device_ms": device_ms_events(lambda: step(*args_b),
+                                                       SWIMMER_PROBE_REPS),
+                    "quarter_step_device_ms": device_ms_events(
+                        lambda: quarter(*args_q), SWIMMER_PROBE_REPS),
+                    "rollout_1000_device_ms": device_ms_events(
+                        lambda: roll.per_env(rq, rv, rt, 7), 2)}
+            if hasattr(lane_env, "swimmer_geometry"):
+                nums.update(
+                    lane_env.swimmer_geometry(ks.dyn.n_links, B)._asdict(),
+                    warps_per_sm=lane_env.swimmer_resident_warps(ks))
+            out[f"{env_id}/times"] = np.asarray(json.dumps(nums))
+            continue
+        for n in (len(q), B, B - 3, 1):
+            res = lane_env.SwimmerStep(ks, n)(q[:n], v[:n], t[:n], a[:n])
+            for i, x in enumerate(res):
+                out[f"{env_id}/step{n}/{i}"] = x.cpu().numpy()
+        for n in (B, B - 3):
+            res = lane_env.SwimmerRollout(ks, n, ROLLOUT_STEPS).per_env(
+                rq[:n], rv[:n], rt[:n], 7)
+            for i, x in enumerate(res):
+                out[f"{env_id}/rollout{n}/{i}"] = x.cpu().numpy()
+    if timed:
+        out["ptxas"] = np.asarray(ptxas_lines("swimmer_"))
+    np.savez(args[1], **out)
+    return 0
+
+
+def swimmer_parent_probe(args) -> int:
+    """``python3 chip_smoke.py --swimmer-parent-probe PARENT_DIR``: the
+    swimmer step and rollout kernels of the tree at PARENT_DIR (a checkout
+    with its own ``mujoco_maze_tpu_torch``) and of this one, each built
+    from its own sources in a process of its own, on the same inputs
+    (:func:`swimmer_probe_inputs`, made by this tree); every output must
+    be equal to the bit.  Then both timed in turns (parent, this, this,
+    parent), with each tree's ptxas lines."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    parent = os.path.abspath(args[0])
+    work = tempfile.mkdtemp()
+    copy = os.path.join(parent, "_probe_chip_smoke.py")
+    shutil.copy(__file__, copy)
+    scripts = {"parent": copy, "this": os.path.abspath(__file__)}
+    inputs = os.path.join(work, "inputs.npz")
+
+    def run(tree: str, *extra):
+        subprocess.run([sys.executable, scripts[tree], *extra], check=True,
+                       cwd=os.path.dirname(scripts[tree]))
+
+    def outputs(tree: str, name: str, *extra):
+        path = os.path.join(work, f"{name}.npz")
+        run(tree, SWIMMER_PROBE_OUT_FLAG, inputs, path, *extra)
+        return np.load(path)
+
+    run("this", SWIMMER_PROBE_IN_FLAG, inputs)
+    got = {tree: outputs(tree, tree) for tree in ("parent", "this")}
+    keys = sorted(got["parent"].files)
+    same = {k: bool(np.array_equal(got["parent"][k], got["this"][k],
+                                   equal_nan=True)) for k in keys}
+    log(f"probe: the parent's and this tree's swimmer kernels on "
+        f"{SWIMMER_PROBE_IDS}: the step on {SWIMMER_CHUNK * B}, {B}, {B - 3} "
+        f"and 1 teacher-forced states, the {ROLLOUT_STEPS}-step rollout at "
+        f"{B} and {B - 3} envs: {sum(same.values())} of {len(same)} outputs "
+        f"equal to the bit; differing: {[k for k, x in same.items() if not x]}")
+    times = {"parent": [], "this": []}
+    for k, tree in enumerate(("parent", "this", "this", "parent")):
+        res = outputs(tree, f"{tree}_times_{k}", "--time")
+        times[tree].append({w: json.loads(str(res[f"{w}/times"]))
+                            for w in SWIMMER_PROBE_IDS})
+        if len(times[tree]) == 1:
+            log(f"probe: {tree} tree's swimmer kernels (ptxas -v):\n"
+                f"{res['ptxas']}")
+    summary = {}
+    for w in SWIMMER_PROBE_IDS:
+        mean = {tree: {key: sum(r[w][key] for r in runs) / len(runs)
+                       for key in ("step_ms", "step_device_ms",
+                                   "quarter_step_device_ms",
+                                   "rollout_1000_device_ms")}
+                for tree, runs in times.items()}
+        summary[w] = {"parent": mean["parent"], "this": mean["this"],
+                      "launch": {k: x for k, x in times["this"][0][w].items()
+                                 if "ms" not in k},
+                      "runs": {tree: [r[w] for r in runs]
+                               for tree, runs in times.items()}}
+        p_, t_ = mean["parent"], mean["this"]
+        log(f"probe: {w} at {B} envs, parent / this (mean of two turns each): "
+            f"step {p_['step_ms']:.6g} / {t_['step_ms']:.6g} ms per "
+            f"back-to-back launch, {p_['step_device_ms']:.6g} / "
+            f"{t_['step_device_ms']:.6g} ms on the device "
+            f"({p_['step_device_ms'] / t_['step_device_ms']:.3g}x), at {B // 4} "
+            f"envs {p_['quarter_step_device_ms']:.6g} / "
+            f"{t_['quarter_step_device_ms']:.6g} ms; 1000-step "
+            f"rollout {p_['rollout_1000_device_ms']:.6g} / "
+            f"{t_['rollout_1000_device_ms']:.6g} ms "
+            f"({p_['rollout_1000_device_ms'] / t_['rollout_1000_device_ms']:.3g}x); "
+            f"this tree's launch {summary[w]['launch']}")
+    print("SWIMMER_PROBE " + json.dumps({"equal": sum(same.values()),
+                                         "outputs": len(same),
+                                         "worlds": summary}), flush=True)
+    os.remove(copy)
+    shutil.rmtree(work, ignore_errors=True)
+    return 0 if all(same.values()) and keys == sorted(got["this"].files) else 1
+
+
 # ---------------------------------------------------------------------------
 # phases 27-30: a Point robot without the object solve (the quasi-static
 # rows of the Point kernels), and the float64 fidelity path, in a process
@@ -5962,8 +6250,12 @@ def main() -> int:
     # -- 13-15. the Swimmer and the Reacher ----------------------------------
     swim_step_err = max(swimmer_step_check(env_id, 71 + k)
                         for k, env_id in enumerate(SWIMMER_IDS))
+    for k, env_id in enumerate(SWIMMER_TAIL_IDS):
+        swimmer_tail_check(env_id, 91 + k, "step")
     swim_roll_err = max(swimmer_rollout_check(env_id, 81 + k)
                         for k, env_id in enumerate(SWIMMER_ROLL_IDS))
+    for k, env_id in enumerate(SWIMMER_TAIL_IDS):
+        swimmer_tail_check(env_id, 95 + k, "rollout")
     swim = swimmer_main_path()
 
     # -- 16. the card's fp32 peak ---------------------------------------------
@@ -6113,6 +6405,12 @@ if __name__ == "__main__":
              if ARGS[:1] == [POINT_PROBE_FLAG]
              else point_probe_outputs(ARGS[1:])
              if ARGS[:1] == [POINT_PROBE_OUT_FLAG]
+             else swimmer_parent_probe(ARGS[1:])
+             if ARGS[:1] == [SWIMMER_PROBE_FLAG]
+             else swimmer_probe_inputs(ARGS[1:])
+             if ARGS[:1] == [SWIMMER_PROBE_IN_FLAG]
+             else swimmer_probe_outputs(ARGS[1:])
+             if ARGS[:1] == [SWIMMER_PROBE_OUT_FLAG]
              else engine_faults() if FAULTS_FLAG in ARGS
              else engine_check(ARGS[1:]) if ARGS[:1] == [CHECK_FLAG]
              else main())

@@ -18,16 +18,39 @@
 // pairs), so there is no collision stage, and the world dofs of the block
 // worlds (SwimmerPush, SwimmerFall, SwimmerMultiFall) pass through.
 //
-// Design.  One thread is one env; its state stays in registers for the
-// whole step (or rollout).  The link count NL (2 or 3) is the one template
-// argument, so the n x n matrices (n = NL + 2) are unrolled register
-// arrays; the world dofs (0 to kMaxWorld, after the robot's n) are a
-// runtime count: the step copies them through, the rollout only resets
-// them.  The two instantiations of one build serve all 52 IDs.  The goals
+// Design.  A group of G lanes steps one env (G = kLanes, four envs a
+// warp), kThreads / G envs a block; ops/lane_env.py reads kLanes and
+// kThreads from here.  Every lane of the group holds the env's whole state
+// (q and v, the RK4 stages) and runs the env's serial chain itself: the
+// Cholesky factor, the four triangular solves and the joint-limit columns
+// of each forward evaluation, the RK4 updates, the reward and the heads.
+// The lanes split what is parallel within an evaluation: lane r takes link
+// r % NL's cosine, sine and fluid drag, and row r % n of the bias and the
+// generalized force (n = NL + 2 coordinates), and the group reads them by
+// shuffles; every lane forms the mass matrix's lower triangle, so that the
+// chain meets one round of shuffles, the sines'.  Lane k writes coordinate
+// k, world dofs (0 to kMaxWorld, after the robot's n) included, and lane 0
+// the per-env scalars.  The rollout draws a step's Philox blocks one a
+// lane (block b on lane b) and reads the words by shuffles.  The warp's
+// groups run in lockstep: a group past the batch steps a copy of the last
+// env and writes nothing, and a warp wholly past it leaves after the goal
+// staging.  Every array index
+// is a compile-time constant (a lane picks its own entries by selects),
+// so no array goes to the stack.  The link count NL (2 or 3) and G are
+// template arguments; the two instantiations serve all 52 IDs.  The goals
 // come in a runtime table (goals (G, 9), staged into shared memory, as in
 // point_lane.cu) and the constants by value in SwimmerParams.  The kernels
 // read and write the public (B, nq) row-major tensors in place, with the
 // row strides passed in.
+//
+// Why the chain stays on every lane.  An env-step is 16 forward
+// evaluations in a row, and each evaluation's factor and solves are a
+// chain of 5 square roots and about 24 divisions.  Spreading that chain
+// over the lanes (lane i holding row i of the factor, each quotient read
+// by a shuffle) put some 60 shuffles on it and ran 1.4x slower than one
+// thread per env, and M's rows split over the lanes 1.1x slower than M on
+// every lane (NVIDIA H100 80GB HBM3, 700 W; PERF.md); the parts split here
+// are those whose shuffles do not lengthen the chain.
 //
 // What bounds them on an H100.  A step moves about 100 bytes per env
 // (qpos, qvel, t, actions in; qpos, qvel, t, reward, terminated out):
@@ -35,16 +58,14 @@
 // 16 x 481 fp32 operations per env that the closed form needs
 // (swimmer_forward_flops in chip_smoke.py; this kernel does more, see
 // "Arithmetic"), about half a microsecond at the fp32 peak if every lane
-// were busy.  At B = 4096 one thread per env fills 32 blocks of 128
-// threads, a quarter of the 132 SMs with four warps each, and a forward
-// evaluation is a serial chain (the Cholesky factor, the solves), so the
-// step kernel is bound by latency and the launch, not by either roof.  The
-// rollout keeps the state in registers over all its steps; it is bound the
-// same way.  This version is the simple one that is right.
+// were busy.  Neither roof binds: the time is each env's chain (a step at
+// 1024 envs takes as long as at 4096); the group shortens it by taking one
+// sine a lane and forming only M's lower triangle.
 //
 // Arithmetic.  ops/swimmer_math.py (the plain version) and this file do
 // the same float32 operations in the same order: sums of a few terms left
-// to right, Jacobian entries that are constant 1 or 0 taking part in the
+// to right (a lane that takes over a sum adds its terms in the same
+// order), Jacobian entries that are constant 1 or 0 taking part in the
 // products as there (x * 1, x * 0 and x + 0 are exact), divisions by
 // constants as products with the float32 reciprocals passed in
 // SwimmerParams (PyTorch's CUDA division by a Python scalar is such a
@@ -73,9 +94,14 @@ struct SwimmerParams {
 
 namespace {
 
-constexpr int kBlock = 128;
+// The launch: a group of kLanes lanes per env, kThreads threads a block.
+constexpr int kLanes = 8;
+constexpr int kThreads = 128;
 constexpr int kGoalCols = 9;  // pos(3) dim_mask(3) threshold^2 reward_scale valid
 constexpr int kMaxWorld = 2;  // world dofs: one block on two slides at most
+constexpr unsigned kWarp = 0xffffffffu;
+static_assert(32 % kLanes == 0 && kThreads % 32 == 0,
+              "whole warps of whole groups");
 
 // Link geometry (swimmer_math.COM, ATTACH): each link's CoM and the next
 // link's attachment along the link's own x axis.
@@ -85,24 +111,46 @@ __device__ __forceinline__ float att_len(int k) { return k == 0 ? 0.5f : -1.f; }
 // Whether generalized coordinate i turns link k (θ .. φ_{k+1}).
 __device__ __forceinline__ bool turns(int k, int i) { return i >= 2 && i <= 2 + k; }
 
-// qacc of the NL-link chain (swimmer_math.forward_swimmer).
-template <int NL>
-__device__ void forward(const SwimmerParams& P, const float* q, const float* v,
-                        const float* ctrl, float* qacc) {
-  constexpr int N = NL + 2, NU = NL - 1;
-  float c[NL], s[NL], comx[NL], comy[NL], attx[NL], atty[NL];
-  {
-    float a = q[2];
+// x of the group's lane src (every lane of the warp takes part).
+template <int G, typename T>
+__device__ __forceinline__ T gshfl(T x, int src) {
+  return __shfl_sync(kWarp, x, src, G);
+}
+
+// a[i] for a run-time i by selects (a[0] where i is out of range), so the
+// array stays in registers.
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int i) {
+  float x = a[0];
 #pragma unroll
-    for (int k = 0; k < NL; ++k) {
-      if (k) a = a + q[2 + k];
-      c[k] = cosf(a);
-      s[k] = sinf(a);
-      comx[k] = com_len(k) * c[k];
-      comy[k] = com_len(k) * s[k];
-      attx[k] = att_len(k) * c[k];
-      atty[k] = att_len(k) * s[k];
-    }
+  for (int k = 1; k < N; ++k) x = i == k ? a[k] : x;
+  return x;
+}
+
+// qacc of the NL-link chain (swimmer_math.forward_swimmer) on every lane of
+// the group, each holding the whole q and v.  Lane r's share: link r %
+// NL's cosine, sine and fluid drag, and row r % N of the bias and the
+// generalized force, which the group then reads by shuffles; every lane
+// forms the mass matrix's lower triangle itself.
+template <int NL, int G>
+__device__ void forward(const SwimmerParams& P, int lane, const float* q,
+                        const float* v, const float* ctrl, float* qacc) {
+  constexpr int N = NL + 2, NU = NL - 1;
+  const int r = lane % N, kl = lane % NL;
+  // link kl's running angle, its cosine and sine
+  float ang = q[2];
+#pragma unroll
+  for (int k = 1; k < NL; ++k) ang = k <= kl ? ang + q[2 + k] : ang;
+  const float cl = cosf(ang), sl = sinf(ang);
+  float c[NL], s[NL], comx[NL], comy[NL], attx[NL], atty[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    c[k] = gshfl<G>(cl, k);
+    s[k] = gshfl<G>(sl, k);
+    comx[k] = com_len(k) * c[k];
+    comy[k] = com_len(k) * s[k];
+    attx[k] = att_len(k) * c[k];
+    atty[k] = att_len(k) * s[k];
   }
   // CoM Jacobians: columns x, y, then the perp of the lever from joint i
   // to the CoM of link k, att[i] + ... + att[k-1] + com[k]
@@ -129,36 +177,23 @@ __device__ void forward(const SwimmerParams& P, const float* q, const float* v,
       jy[k][2 + i] = px;
     }
   }
+  // column r of each link's Jacobian
+  float jxr[NL], jyr[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    jxr[k] = pick(jx[k], r);
+    jyr[k] = pick(jy[k], r);
+  }
 
-  // mass matrix
-  float M[N][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) M[i][j] = 0.f;
-#pragma unroll
-  for (int k = 0; k < NL; ++k)
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float dot = jx[k][i] * jx[k][j] + jy[k][i] * jy[k][j];
-        const float term = P.mass * dot + (turns(k, i) && turns(k, j) ? P.iz : 0.f);
-        M[i][j] = M[i][j] + term;
-      }
-#pragma unroll
-  for (int i = 0; i < N; ++i) M[i][i] = M[i][i] + P.armature;
-
-  // angular velocities, velocity-product CoM accelerations, bias
+  // angular velocities, velocity-product CoM accelerations, row r of the
+  // bias
   float w[NL], nw2[NL];
 #pragma unroll
   for (int k = 0; k < NL; ++k) {
     w[k] = k ? w[k - 1] + v[2 + k] : v[2];
     nw2[k] = (-w[k]) * w[k];
   }
-  float bias[N], tau[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) { bias[j] = 0.f; tau[j] = 0.f; }
+  float bias_r = 0.f;
 #pragma unroll
   for (int k = 0; k < NL; ++k) {
     float ax = 0.f, ay = 0.f;
@@ -171,42 +206,85 @@ __device__ void forward(const SwimmerParams& P, const float* q, const float* v,
     const float tx = nw2[k] * comx[k], ty = nw2[k] * comy[k];
     ax = k ? ax + tx : tx;
     ay = k ? ay + ty : ty;
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      bias[j] = bias[j] + P.mass * (jx[k][j] * ax + jy[k][j] * ay);
+    bias_r = bias_r + P.mass * (jxr[k] * ax + jyr[k] * ay);
   }
 
-  // fluid drag on each link's inertia box, in the link frame at its CoM
-  float fwx[NL], fwy[NL], tz[NL];
+  // fluid drag on link kl's inertia box, in the link frame at its CoM
+  float fwx_l, fwy_l, tz_l;
+  {
+    float jlx[N], jly[N];
 #pragma unroll
-  for (int k = 0; k < NL; ++k) {
-    float vwx = jx[k][0] * v[0], vwy = jy[k][0] * v[0];
+    for (int i = 0; i < N; ++i) {
+      jlx[i] = jx[0][i];
+      jly[i] = jy[0][i];
+#pragma unroll
+      for (int k = 1; k < NL; ++k) {
+        jlx[i] = kl == k ? jx[k][i] : jlx[i];
+        jly[i] = kl == k ? jy[k][i] : jly[i];
+      }
+    }
+    const float wl = pick(w, kl);
+    float vwx = jlx[0] * v[0], vwy = jly[0] * v[0];
 #pragma unroll
     for (int i = 1; i < N; ++i) {
-      vwx = vwx + jx[k][i] * v[i];
-      vwy = vwy + jy[k][i] * v[i];
+      vwx = vwx + jlx[i] * v[i];
+      vwy = vwy + jly[i] * v[i];
     }
-    const float vbx = c[k] * vwx + s[k] * vwy;
-    const float vby = (-s[k]) * vwx + c[k] * vwy;
-    float fbx = P.kv_f * vbx, fby = P.kv_f * vby, t = P.kv_t * w[k];
+    const float vbx = cl * vwx + sl * vwy;
+    const float vby = (-sl) * vwx + cl * vwy;
+    float fbx = P.kv_f * vbx, fby = P.kv_f * vby, t = P.kv_t * wl;
     fbx = fbx - (P.kq_fx * fabsf(vbx)) * vbx;
     fby = fby - (P.kq_fy * fabsf(vby)) * vby;
-    t = t - (P.kq_t * fabsf(w[k])) * w[k];
-    fwx[k] = c[k] * fbx - s[k] * fby;
-    fwy[k] = s[k] * fbx + c[k] * fby;
-    tz[k] = t;
+    t = t - (P.kq_t * fabsf(wl)) * wl;
+    fwx_l = cl * fbx - sl * fby;
+    fwy_l = sl * fbx + cl * fby;
+    tz_l = t;
   }
+  // row r of the generalized force: the links' drag in order, the gear
+  // actuators on φ2[, φ3]
+  float tau_r = 0.f;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const float fwx = gshfl<G>(fwx_l, k), fwy = gshfl<G>(fwy_l, k);
+    const float tz = gshfl<G>(tz_l, k);
+    tau_r = (tau_r + jxr[k] * fwx) + jyr[k] * fwy;
+    tau_r = turns(k, r) ? tau_r + tz : tau_r;
+  }
+  {
+    float u = ctrl[0];
+#pragma unroll
+    for (int a = 1; a < NU; ++a) u = r == 3 + a ? ctrl[a] : u;
+    const float geared = tau_r + P.gear * fminf(fmaxf(u, -1.f), 1.f);
+    tau_r = r >= 3 ? geared : tau_r;
+  }
+
+  // the group's rows of tau and the bias on every lane
+  float tau[N], bias[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    tau[i] = gshfl<G>(tau_r, i);
+    bias[i] = gshfl<G>(bias_r, i);
+  }
+
+  // the mass matrix's lower triangle (the factor reads no other entry);
+  // a row a lane, read by shuffles, put a round of them on the chain
+  float M[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) M[i][j] = 0.f;
 #pragma unroll
   for (int k = 0; k < NL; ++k)
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      tau[j] = (tau[j] + jx[k][j] * fwx[k]) + jy[k][j] * fwy[k];
-      if (turns(k, j)) tau[j] = tau[j] + tz[k];
-    }
-  // gear actuators on φ2[, φ3]
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-  for (int a = 0; a < NU; ++a)
-    tau[3 + a] = tau[3 + a] + P.gear * fminf(fmaxf(ctrl[a], -1.f), 1.f);
+      for (int j = 0; j <= i; ++j) {
+        const float dot = jx[k][i] * jx[k][j] + jy[k][i] * jy[k][j];
+        const float term = P.mass * dot + (turns(k, i) && turns(k, j) ? P.iz : 0.f);
+        M[i][j] = M[i][j] + term;
+      }
+#pragma unroll
+  for (int i = 0; i < N; ++i) M[i][i] = M[i][i] + P.armature;
 
   // Cholesky factor (lower), column by column
   float L[N][N];
@@ -285,21 +363,21 @@ __device__ void forward(const SwimmerParams& P, const float* q, const float* v,
 }
 
 // One RK4 step of the robot coordinates (swimmer_math.rk4_step_swimmer).
-template <int NL>
-__device__ void rk4_step(const SwimmerParams& P, float* q, float* v,
+template <int NL, int G>
+__device__ void rk4_step(const SwimmerParams& P, int lane, float* q, float* v,
                          const float* ctrl) {
   constexpr int N = NL + 2;
   float a1[N], a2[N], a3[N], a4[N], qs[N], v2[N], v3[N], v4[N];
-  forward<NL>(P, q, v, ctrl, a1);
+  forward<NL, G>(P, lane, q, v, ctrl, a1);
 #pragma unroll
   for (int i = 0; i < N; ++i) { qs[i] = q[i] + P.h_half * v[i]; v2[i] = v[i] + P.h_half * a1[i]; }
-  forward<NL>(P, qs, v2, ctrl, a2);
+  forward<NL, G>(P, lane, qs, v2, ctrl, a2);
 #pragma unroll
   for (int i = 0; i < N; ++i) { qs[i] = q[i] + P.h_half * v2[i]; v3[i] = v[i] + P.h_half * a2[i]; }
-  forward<NL>(P, qs, v3, ctrl, a3);
+  forward<NL, G>(P, lane, qs, v3, ctrl, a3);
 #pragma unroll
   for (int i = 0; i < N; ++i) { qs[i] = q[i] + P.h * v3[i]; v4[i] = v[i] + P.h * a3[i]; }
-  forward<NL>(P, qs, v4, ctrl, a4);
+  forward<NL, G>(P, lane, qs, v4, ctrl, a4);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float v_avg = (((v[i] + 2.f * v2[i]) + 2.f * v3[i]) + v4[i]) * P.inv6;
@@ -309,16 +387,17 @@ __device__ void rk4_step(const SwimmerParams& P, float* q, float* v,
   }
 }
 
-// One env step (MazeEnvSpec.step through _step_dynamic): frame_skip RK4
-// steps of the robot dofs (the world dofs after them are left alone), the
-// inner reward, t + 1, the task heads on obs[:3] = (x, y, θ).  No reset.
-template <int NL>
+// One env step (MazeEnvSpec.step through _step_dynamic) on every lane of
+// the group: frame_skip RK4 steps of the robot dofs (the world dofs after
+// them are left alone), the inner reward, t + 1, the task heads on obs[:3]
+// = (x, y, θ).  No reset.
+template <int NL, int G>
 __device__ void env_step(const SwimmerParams& P, const float* goals,
-                         int n_goals, float* q, float* v, int* t,
+                         int n_goals, int lane, float* q, float* v, int* t,
                          const float* ctrl, float* reward, bool* term) {
   constexpr int NU = NL - 1;
   const float x0 = q[0], y0 = q[1];
-  for (int f = 0; f < P.frame_skip; ++f) rk4_step<NL>(P, q, v, ctrl);
+  for (int f = 0; f < P.frame_skip; ++f) rk4_step<NL, G>(P, lane, q, v, ctrl);
   const float vx = (q[0] - x0) * P.inv_dt, vy = (q[1] - y0) * P.inv_dt;
   const float fwd = sqrtf(vx * vx + vy * vy);
   float csq = ctrl[0] * ctrl[0];
@@ -355,7 +434,22 @@ __device__ const float* stage_goals(float* smem, const float* goals,
   return smem;
 }
 
-template <int NL>
+// This thread's env (the last one where its group is past the batch,
+// live false) and lane; false where the whole warp is past the batch.
+template <int G>
+__device__ __forceinline__ bool place(int n, int* env, int* lane,
+                                      bool* live) {
+  constexpr int kEnvs = kThreads / G;
+  const int first = blockIdx.x * kEnvs;
+  if (first + (int)(threadIdx.x & ~31u) / G >= n) return false;
+  const int e = first + (int)threadIdx.x / G;
+  *lane = threadIdx.x % G;
+  *live = e < n;
+  *env = *live ? e : n - 1;
+  return true;
+}
+
+template <int NL, int G>
 __global__ void swimmer_step_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, const float* __restrict__ act, int q_stride,
@@ -365,15 +459,16 @@ __global__ void swimmer_step_kernel(
     const float* __restrict__ goals_g, int n_goals, SwimmerParams p,
     int n_world, int n) {
   constexpr int NR = NL + 2, NU = NL - 1;
+  static_assert(G >= NR + kMaxWorld, "a lane to store each coordinate");
   const int nq = NR + n_world;
   extern __shared__ float smem[];
   const float* goals = stage_goals(smem, goals_g, n_goals);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* qi = qpos + (size_t)i * q_stride;
-  const float* vi = qvel + (size_t)i * v_stride;
-  float* qo = qpos_out + (size_t)i * nq;
-  float* vo = qvel_out + (size_t)i * nq;
+  int e, lane;
+  bool live;
+  if (!place<G>(n, &e, &lane, &live)) return;
+  const size_t i = (size_t)e;
+  const float* qi = qpos + i * q_stride;
+  const float* vi = qvel + i * v_stride;
   float q[NR], v[NR], ctrl[NU];
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
@@ -381,27 +476,23 @@ __global__ void swimmer_step_kernel(
     v[k] = vi[k];
   }
 #pragma unroll
-  for (int a = 0; a < NU; ++a) ctrl[a] = act[(size_t)i * a_stride + a];
+  for (int a = 0; a < NU; ++a) ctrl[a] = act[i * a_stride + a];
   int t = t_in[i];
   float rew;
   bool done;
-  env_step<NL>(p, goals, n_goals, q, v, &t, ctrl, &rew, &done);
-#pragma unroll
-  for (int k = 0; k < NR; ++k) {
-    qo[k] = q[k];
-    vo[k] = v[k];
+  env_step<NL, G>(p, goals, n_goals, lane, q, v, &t, ctrl, &rew, &done);
+  if (!live || lane >= nq) return;
+  // lane k writes coordinate k; the world dofs pass through
+  qpos_out[i * nq + lane] = lane < NR ? pick(q, lane) : qi[lane];
+  qvel_out[i * nq + lane] = lane < NR ? pick(v, lane) : vi[lane];
+  if (lane == 0) {
+    t_out[i] = t;
+    reward[i] = rew;
+    term[i] = done;
   }
-  // the world dofs pass through
-  for (int k = NR; k < nq; ++k) {
-    qo[k] = qi[k];
-    vo[k] = vi[k];
-  }
-  t_out[i] = t;
-  reward[i] = rew;
-  term[i] = done;
 }
 
-template <int NL>
+template <int NL, int G>
 __global__ void swimmer_rollout_kernel(
     const float* __restrict__ qpos, const float* __restrict__ qvel,
     const int* __restrict__ t_in, int q_stride, int v_stride,
@@ -411,39 +502,45 @@ __global__ void swimmer_rollout_kernel(
     int n_goals, SwimmerParams p, int n_world, int n, int num_steps,
     uint32_t seed) {
   constexpr int NR = NL + 2, NU = NL - 1, kMaxQ = NR + kMaxWorld;
-  // words per step: 2 actions, then nq qpos and nq qvel reset values
+  // words per step: 2 actions, then nq qpos and nq qvel reset values; lane
+  // b draws block b
   constexpr int kMaxBlocks = (2 + 2 * kMaxQ + 3) / 4;
-  const int nq = NR + n_world, n_blocks = (2 + 2 * nq + 3) / 4;
+  static_assert(G >= kMaxQ && G >= kMaxBlocks,
+                "a lane to store each coordinate and to draw each block");
+  const int nq = NR + n_world;
   extern __shared__ float smem[];
   const float* goals = stage_goals(smem, goals_g, n_goals);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  int e, lane;
+  bool live;
+  if (!place<G>(n, &e, &lane, &live)) return;
+  const size_t i = (size_t)e;
   // q[k], v[k] for k >= nq stay 0 and are never stored
   float q[kMaxQ], v[kMaxQ];
 #pragma unroll
   for (int k = 0; k < kMaxQ; ++k) {
-    q[k] = k < nq ? qpos[(size_t)i * q_stride + k] : 0.f;
-    v[k] = k < nq ? qvel[(size_t)i * v_stride + k] : 0.f;
+    q[k] = k < nq ? qpos[i * q_stride + k] : 0.f;
+    v[k] = k < nq ? qvel[i * v_stride + k] : 0.f;
   }
   int t = t_in[i];
   float rew_sum = 0.f;
   int eps = 0;
   for (int st = 0; st < num_steps; ++st) {
+    const uint4 blk = mmt::philox_block((uint32_t)e, (uint32_t)st,
+                                        (uint32_t)lane, seed);
     uint32_t words[4 * kMaxBlocks];
 #pragma unroll
     for (int b = 0; b < kMaxBlocks; ++b) {
-      uint4 r = make_uint4(0u, 0u, 0u, 0u);
-      if (b < n_blocks)
-        r = mmt::philox_block((uint32_t)i, (uint32_t)st, (uint32_t)b, seed);
-      words[4 * b] = r.x; words[4 * b + 1] = r.y;
-      words[4 * b + 2] = r.z; words[4 * b + 3] = r.w;
+      words[4 * b] = gshfl<G>(blk.x, b);
+      words[4 * b + 1] = gshfl<G>(blk.y, b);
+      words[4 * b + 2] = gshfl<G>(blk.z, b);
+      words[4 * b + 3] = gshfl<G>(blk.w, b);
     }
     float ctrl[NU];
 #pragma unroll
     for (int a = 0; a < NU; ++a) ctrl[a] = mmt::uniform24(words[a], -1.f, 1.f);
     float rew;
     bool term;
-    env_step<NL>(p, goals, n_goals, q, v, &t, ctrl, &rew, &term);
+    env_step<NL, G>(p, goals, n_goals, lane, q, v, &t, ctrl, &rew, &term);
     // branch-free auto-reset: the swimmer's law, U(+-0.1) on the full
     // state, world dofs included; t = 0.  The qvel draws start at word
     // 2 + nq: a select over the world-dof counts keeps every index a
@@ -463,23 +560,24 @@ __global__ void swimmer_rollout_kernel(
     rew_sum = rew_sum + rew;
     eps = eps + (done ? 1 : 0);
   }
-#pragma unroll
-  for (int k = 0; k < kMaxQ; ++k) {
-    if (k < nq) {
-      qpos_out[(size_t)i * nq + k] = q[k];
-      qvel_out[(size_t)i * nq + k] = v[k];
-    }
+  if (!live || lane >= nq) return;
+  qpos_out[i * nq + lane] = pick(q, lane);
+  qvel_out[i * nq + lane] = pick(v, lane);
+  if (lane == 0) {
+    t_out[i] = t;
+    reward_sum[i] = rew_sum;
+    episodes[i] = eps;
   }
-  t_out[i] = t;
-  reward_sum[i] = rew_sum;
-  episodes[i] = eps;
 }
 
 size_t goal_bytes(int n_goals) {
   return sizeof(float) * (size_t)(n_goals * kGoalCols);
 }
 
-int grid(int n) { return (n + kBlock - 1) / kBlock; }
+int grid(int n) {
+  constexpr int kEnvs = kThreads / kLanes;
+  return (n + kEnvs - 1) / kEnvs;
+}
 
 template <int NL>
 void launch_step(const float* qpos, const float* qvel, const int* t,
@@ -488,9 +586,10 @@ void launch_step(const float* qpos, const float* qvel, const int* t,
                  bool* term, const float* goals, int n_goals,
                  const SwimmerParams& p, int n_world, int n,
                  cudaStream_t stream) {
-  swimmer_step_kernel<NL><<<grid(n), kBlock, goal_bytes(n_goals), stream>>>(
-      qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out, qvel_out,
-      t_out, reward, term, goals, n_goals, p, n_world, n);
+  swimmer_step_kernel<NL, kLanes>
+      <<<grid(n), kThreads, goal_bytes(n_goals), stream>>>(
+          qpos, qvel, t, act, q_stride, v_stride, a_stride, qpos_out,
+          qvel_out, t_out, reward, term, goals, n_goals, p, n_world, n);
 }
 
 template <int NL>
@@ -500,9 +599,11 @@ void launch_rollout(const float* qpos, const float* qvel, const int* t,
                     int* episodes, const float* goals, int n_goals,
                     const SwimmerParams& p, int n_world, int n, int num_steps,
                     uint32_t seed, cudaStream_t stream) {
-  swimmer_rollout_kernel<NL><<<grid(n), kBlock, goal_bytes(n_goals), stream>>>(
-      qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
-      reward_sum, episodes, goals, n_goals, p, n_world, n, num_steps, seed);
+  swimmer_rollout_kernel<NL, kLanes>
+      <<<grid(n), kThreads, goal_bytes(n_goals), stream>>>(
+          qpos, qvel, t, q_stride, v_stride, qpos_out, qvel_out, t_out,
+          reward_sum, episodes, goals, n_goals, p, n_world, n, num_steps,
+          seed);
 }
 
 }  // namespace
@@ -542,4 +643,22 @@ extern "C" int mmt_swimmer_rollout(
            seed, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
+}
+
+// Warps an SM holds at once of the step (rollout = 0) or rollout kernel
+// of n_links links with n_goals goals, registers and shared memory counted
+// (CUDA's occupancy calculator); -1 on an error.
+extern "C" int mmt_swimmer_warps_per_sm(int n_links, int n_goals,
+                                        int rollout) {
+  if (n_links != 2 && n_links != 3) return -1;
+  const void* kernel =
+      n_links == 2
+          ? (rollout ? (const void*)swimmer_rollout_kernel<2, kLanes>
+                     : (const void*)swimmer_step_kernel<2, kLanes>)
+          : (rollout ? (const void*)swimmer_rollout_kernel<3, kLanes>
+                     : (const void*)swimmer_step_kernel<3, kLanes>);
+  int blocks = -1;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kThreads, goal_bytes(n_goals));
+  return rc == cudaSuccess ? blocks * kThreads / 32 : -1;
 }

@@ -393,6 +393,41 @@ class SwimmerParams(ctypes.Structure):
         "frame_skip", "reward_type", "episode_limit")]
 
 
+@functools.lru_cache(maxsize=None)
+def swimmer_constants() -> Dict[str, int]:
+    """The swimmer kernels' launch constants, read once from their one
+    definition, ``csrc/swimmer_lane.cu``: ``kLanes`` (the lanes that step
+    one env) and ``kThreads`` (the threads of a block)."""
+    text = (_build.CSRC / "swimmer_lane.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kLanes", "kThreads")}
+
+
+class SwimmerGeometry(NamedTuple):
+    """The launch of the swimmer kernels on a batch: a group of ``lanes``
+    lanes per env, ``envs`` envs (``threads`` threads) a block,
+    ``blocks`` blocks."""
+
+    lanes: int
+    envs: int
+    threads: int
+    blocks: int
+
+
+def swimmer_geometry(n_links: int, num_envs: int) -> SwimmerGeometry:
+    """The launch of the swimmer kernels at ``num_envs`` envs of an
+    ``n_links``-link chain (the launchers in ``csrc/swimmer_lane.cu``
+    compute the same from the same constants).  Raises ValueError for a
+    link count no instantiation serves."""
+    if n_links not in (2, 3):
+        raise ValueError(f"the swimmer kernels take 2 or 3 links, got {n_links}")
+    c = swimmer_constants()
+    envs = c["kThreads"] // c["kLanes"]
+    return SwimmerGeometry(c["kLanes"], envs, c["kThreads"],
+                           -(-num_envs // envs))
+
+
 def swimmer_params(ks: SwimmerKernelSpec) -> SwimmerParams:
     """The struct of ``ks``: each constant the Python double that the plain
     version (``swimmer_math``, ``models/swimmer.py``) hands to PyTorch,
@@ -681,6 +716,8 @@ def _lib() -> ctypes.CDLL:
         _I, _I, _I, _I, ctypes.c_uint, _P]
         # links, world dofs, B, steps, seed, stream
     lib.mmt_swimmer_rollout.restype = _I
+    lib.mmt_swimmer_warps_per_sm.argtypes = [_I, _I, _I]
+    lib.mmt_swimmer_warps_per_sm.restype = _I
     lib.mmt_engine_step.argtypes = [
         _P, _P, _P, _P, _I, _I, _I,      # qpos, qvel, t, act + row strides
         _P, _P, _P, _P, _P, _P, _P,      # qpos', qvel', t', reward, terminated,
@@ -1168,6 +1205,21 @@ class AntRollout:
         return q, v, tt, torch.sum(rew), torch.sum(eps)
 
 
+def swimmer_resident_warps(ks: SwimmerKernelSpec) -> Dict[str, int]:
+    """Warps an SM holds at once for the swimmer step and rollout kernels
+    of ``ks``'s link count, registers and shared memory counted (CUDA's
+    occupancy calculator on the built kernels; the card only)."""
+    out = {}
+    for kind, rollout in (("step", 0), ("rollout", 1)):
+        warps = _lib().mmt_swimmer_warps_per_sm(
+            ks.dyn.n_links, ks.goals.shape[0], rollout)
+        if warps < 0:
+            raise RuntimeError(f"the occupancy query of the swimmer {kind} "
+                               "kernel failed")
+        out[kind] = warps
+    return out
+
+
 def _swimmer_dims(ks: SwimmerKernelSpec):
     """(nq, n_act) of ``ks``: the robot's coordinates and world dofs."""
     return 2 + ks.dyn.n_links + ks.n_world, ks.dyn.n_act
@@ -1182,6 +1234,7 @@ class SwimmerStep:
         self.ks = ks
         self.num_envs = num_envs
         self.params = swimmer_params(ks)
+        self.geo = swimmer_geometry(ks.dyn.n_links, num_envs)
 
     def __call__(self, qpos, qvel, t, actions) -> Tensors5:
         B, dev = self.num_envs, self.ks.goals.device
@@ -1223,6 +1276,7 @@ class SwimmerRollout:
         self.num_envs = num_envs
         self.num_steps = num_steps
         self.params = swimmer_params(ks)
+        self.geo = swimmer_geometry(ks.dyn.n_links, num_envs)
 
     def per_env(self, qpos, qvel, t, seed: int) -> Tensors5:
         """The rollout with per-env reward sums ``(B,)`` float32 and
